@@ -1,0 +1,499 @@
+"""The GNN inference server: request + data + compute planes wired up.
+
+Port of the single-lane part of ``repro.serve.engine``.  ``GNNServer`` owns
+a resident graph (host CSR for the sampler, device ``FeatureStore`` for the
+model) and serves seed-node requests:
+
+1. ``submit(seeds)`` hands the request to sampler **worker threads** (numpy)
+   — one fanout tree per seed, counter-based draws keyed on the request id
+   so offline replay sees identical subgraphs.  Under ``sampler="device"``
+   there are no workers: the request carries its seeds and one int64
+   counter term per tree, joins the batcher at once, and the sampling runs
+   inside the dispatched bucket step on the device (``hash_draws``);
+2. sampled requests join the ``DynamicBatcher`` (deadline/size triggers);
+3. the engine thread — the only thread that touches CUDA tensors, on the
+   current stream — stacks a batch's trees into its power-of-two bucket,
+   fetches the bucket's step from the ``StepCache`` and dispatches it.
+   CUDA's asynchronous launches plus an in-flight queue of depth 2
+   double-buffer host sampling and batch assembly against device compute;
+4. results come back per request (``.cpu()`` is the device sync) and the
+   request's latency clock stops.
+
+``offline_inference`` is the correctness anchor: the same trees, one
+request at a time through the bucket-1 step — serving output must match it
+to ≤1e-5.
+"""
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serve.batcher import DynamicBatcher, ServeRequest
+from repro_torch.serve.buckets import (all_buckets, bucket_for,
+                                       build_bucket_structure, stack_trees)
+from repro_torch.serve.compute import (FeatureStore, StepCache, _arch_key,
+                                       build_infer_step)
+from repro_torch.serve.errors import (DeadlineExceeded, DrainTimeout,
+                                      SamplerError, ServeError, ServerClosed)
+from repro_torch.serve.telemetry import percentiles_ms
+from repro_torch.sparse import sampler
+
+
+def default_tree_keys(rid: int, n: int) -> np.ndarray:
+    """One counter-hash stream per (request, seed index): deterministic and
+    independent of how requests group into sampling calls, so offline
+    replay re-derives the served trees from ``rid`` alone."""
+    return (np.uint64(rid) << np.uint64(16)) + np.arange(n, dtype=np.uint64)
+
+
+class SamplerPool:
+    """Data-plane worker pool: samples each submitted request's fanout trees
+    on daemon threads, draining whatever else is queued into one vectorized
+    forest pass (counter-based draws make grouped sampling identical to
+    per-request sampling), then hands the request to ``on_ready``.  A
+    failing request is isolated and reported through ``on_error``."""
+
+    def __init__(self, indptr: np.ndarray, indices: np.ndarray,
+                 fanouts: Sequence[int], key: int, *,
+                 on_ready, on_error, n_workers: int = 2,
+                 group_cap: int = 64):
+        self.indptr = np.asarray(indptr)
+        self.indices = np.asarray(indices)
+        self.fanouts = tuple(int(f) for f in fanouts)
+        self.key = key
+        self.on_ready = on_ready
+        self.on_error = on_error
+        self.group_cap = int(group_cap)
+        self._q: "queue.Queue[Optional[ServeRequest]]" = queue.Queue()
+        self._workers = [threading.Thread(target=self._worker, daemon=True,
+                                          name=f"gnn-serve-sampler-{i}")
+                         for i in range(max(int(n_workers), 1))]
+        for w in self._workers:
+            w.start()
+
+    def submit(self, req: ServeRequest):
+        self._q.put(req)
+
+    def _sample_group(self, group):
+        seeds_all = np.concatenate([r.seeds for r in group])
+        keys = np.concatenate([default_tree_keys(r.rid, r.n_seeds)
+                               for r in group])
+        trees = sampler.sample_forest(self.indptr, self.indices, seeds_all,
+                                      self.fanouts, key=self.key,
+                                      tree_keys=keys)
+        i = 0
+        for req in group:                     # assign everything first so a
+            req.trees = trees[i:i + req.n_seeds]  # failure submits nothing
+            i += req.n_seeds
+        for req in group:
+            self.on_ready(req)
+
+    def _sample_isolated(self, group):
+        """Per-request fallback: innocent groupmates still serve."""
+        for r in group:
+            try:
+                self._sample_group([r])
+            except Exception as exc:  # noqa: BLE001 — reported per request
+                self.on_error([r], exc)
+
+    def _worker(self):
+        while True:
+            req = self._q.get()
+            if req is None:
+                return
+            group = [req]
+            while len(group) < self.group_cap:
+                try:
+                    nxt = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:           # shutdown sentinel: hand it back
+                    self._q.put(None)
+                    break
+                group.append(nxt)
+            try:
+                self._sample_group(group)
+            except Exception:  # noqa: BLE001 — isolate the bad request(s);
+                # the worker (and every later request routed to it) survives
+                self._sample_isolated(group)
+
+    def close(self, timeout: Optional[float] = None):
+        """Join the workers, then sample anything still queued inline on
+        the calling thread — everything submitted before ``close`` still
+        reaches ``on_ready``."""
+        for _ in self._workers:
+            self._q.put(None)
+        for w in self._workers:
+            w.join(timeout)
+        leftovers = []
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                leftovers.append(item)
+        if leftovers:
+            self._sample_isolated(leftovers)
+
+
+class GNNServer:
+    """Dynamic-batching inference server over a resident graph.
+
+    ``device=None`` serves on ``cuda`` (and raises without a GPU); the
+    feature store must live on the same device.
+    """
+
+    def __init__(self, arch_id: str, cfg, params, indptr: np.ndarray,
+                 indices: np.ndarray, store: FeatureStore, *,
+                 fanouts: Sequence[int] = (5, 3), backend: str = "dense",
+                 sampler: str = "host",
+                 max_batch_seeds: int = 16, max_wait_ms: float = 5.0,
+                 n_workers: int = 2, seed: int = 0,
+                 step_cache_size: int = 16, inflight: int = 2,
+                 clock=time.monotonic, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if store.device != self.device:
+            raise ValueError(f"feature store is on {store.device}, server "
+                             f"on {self.device}")
+        _arch_key(arch_id)
+        self.arch_id = arch_id
+        self.cfg = cfg
+        self.params = params
+        self.indptr = np.asarray(indptr)
+        self.indices = np.asarray(indices)
+        self.store = store
+        self.fanouts = tuple(int(f) for f in fanouts)
+        self.backend = backend
+        self.max_batch_seeds = int(max_batch_seeds)
+        self.seed = seed
+        self.clock = clock
+        self.inflight_depth = max(int(inflight), 1)
+
+        self.batcher = DynamicBatcher(self.max_batch_seeds,
+                                      max_wait_ms / 1e3, clock=clock)
+        self.steps = StepCache(self._build_step, maxsize=step_cache_size)
+        self._structs: Dict[int, object] = {}
+        self._host_step1 = None
+
+        self._rid_lock = threading.Lock()
+        self._next_rid = 0
+        self.requests: Dict[int, ServeRequest] = {}
+
+        # latencies keep a sliding window so a long-lived server does not
+        # grow without bound; percentiles are over recent traffic
+        self._stats_lock = threading.Lock()
+        self.bucket_counts: Dict[int, int] = collections.Counter()
+        self.n_served = 0
+        self.n_deadline_failed = 0
+        self.latencies: "collections.deque[float]" = collections.deque(
+            maxlen=4096)
+
+        # data plane: host sampler worker pool, or the device plane — where
+        # sampling runs INSIDE the per-bucket step
+        if sampler not in ("host", "device"):
+            raise ValueError(f"sampler must be 'host' or 'device', "
+                             f"got {sampler!r}")
+        self.sampler_mode = sampler
+        if sampler == "device":
+            from repro_torch.serve.device_sampler import DeviceSamplerPlane
+            self._sampler = None
+            self._plane = DeviceSamplerPlane(self.indptr, self.indices,
+                                             self.fanouts, key=seed,
+                                             device=self.device)
+        else:
+            self._plane = None
+            self._sampler = SamplerPool(
+                self.indptr, self.indices, self.fanouts, seed,
+                on_ready=self.batcher.submit, on_error=self._fail_requests,
+                n_workers=n_workers)
+        # compute plane: engine loop + in-flight double buffer
+        self._closing = False
+        self._close_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._inflight: "collections.deque" = collections.deque()
+        self._engine = threading.Thread(target=self._engine_loop, daemon=True,
+                                        name="gnn-serve-engine")
+        self._engine.start()
+
+    # -- request plane ------------------------------------------------------
+    def submit(self, seeds, *,
+               deadline_ms: Optional[float] = None) -> ServeRequest:
+        if self._closing:
+            raise RuntimeError("server is closed; no worker will serve this")
+        seeds = np.atleast_1d(np.asarray(seeds, np.int64))
+        # reject malformed requests synchronously — an exception past this
+        # point would land in a worker thread instead of the caller
+        n_graph = self.indptr.shape[0] - 1
+        if seeds.size == 0 or seeds.size > self.max_batch_seeds:
+            raise ValueError(
+                f"request carries {seeds.size} seeds; must be in "
+                f"[1, {self.max_batch_seeds}] (the bucket cap)")
+        if (seeds < 0).any() or (seeds >= n_graph).any():
+            raise ValueError(
+                f"seed ids {seeds[(seeds < 0) | (seeds >= n_graph)]} out of "
+                f"range for the resident graph ({n_graph} nodes)")
+        with self._rid_lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            now = self.clock()
+            req = ServeRequest(
+                rid=rid, seeds=seeds, t_submit=now,
+                deadline=(now + deadline_ms / 1e3
+                          if deadline_ms is not None else None))
+            self.requests[rid] = req
+        if self._plane is not None:
+            from repro_torch.serve.device_sampler import tree_key_mix
+            req.tkm = tree_key_mix(default_tree_keys(rid, seeds.shape[0]))
+            self.batcher.submit(req)
+        else:
+            self._sampler.submit(req)
+        return req
+
+    # -- data plane ---------------------------------------------------------
+    def _fail_requests(self, reqs, exc: BaseException):
+        """Fail exactly ``reqs`` with a typed error carrying each request
+        id; the sampler worker and the engine loop survive."""
+        now = self.clock()
+        with self._rid_lock:
+            for req in reqs:
+                self.requests.pop(req.rid, None)
+        for req in reqs:
+            req.fail(exc if isinstance(exc, ServeError)
+                     else SamplerError(req.rid, exc), now)
+
+    def sample_for(self, seeds, rid: int) -> list:
+        """The data plane's sampling, re-runnable offline (parity anchor).
+        Always the HOST sampler, even in device mode: the device draws are
+        bit-exact, so host replay is the independent oracle."""
+        seeds = np.atleast_1d(np.asarray(seeds, np.int64))
+        return sampler.sample_forest(self.indptr, self.indices, seeds,
+                                     self.fanouts, key=self.seed,
+                                     tree_keys=default_tree_keys(
+                                         rid, seeds.shape[0]))
+
+    # -- compute plane ------------------------------------------------------
+    def _build_step(self, key: tuple):
+        (bucket,) = key
+        body = build_infer_step(self.arch_id, self.cfg, self.store,
+                                self._struct(bucket), backend=self.backend)
+        if self._plane is None:
+            return body
+        # fused dispatch: sampling + feature gather + GNN forward in one
+        # device step per bucket; the step's inputs shrink from the stacked
+        # node tables to seeds + per-tree counter terms
+        plane = self._plane
+
+        def fused(params, seeds, tkm, live):
+            node_ids, hop_valid = plane.sample_bucket(seeds, tkm, live)
+            return body(params, node_ids, hop_valid)
+
+        return fused
+
+    def _struct(self, bucket: int):
+        if bucket not in self._structs:
+            self._structs[bucket] = build_bucket_structure(
+                bucket, self.fanouts, with_loops=True)
+        return self._structs[bucket]
+
+    def _device_batch(self, batch: List[ServeRequest], bucket: int):
+        """Pack a batch's seeds + counter terms into the bucket's lanes
+        (padding lanes: live=False ⇒ the device sampler blanks them)."""
+        seeds = np.zeros(bucket, np.int64)
+        tkm = np.zeros(bucket, np.int64)
+        live = np.zeros(bucket, bool)
+        i = 0
+        for r in batch:
+            k = r.n_seeds
+            seeds[i:i + k] = r.seeds
+            tkm[i:i + k] = r.tkm
+            live[i:i + k] = True
+            i += k
+        return seeds, tkm, live
+
+    def _dispatch(self, batch: List[ServeRequest]):
+        n_trees = sum(r.n_seeds for r in batch)
+        bucket = bucket_for(n_trees, self.max_batch_seeds)
+        step = self.steps.get((bucket,))
+        if self._plane is None:
+            trees = [t for r in batch for t in r.trees]
+            node_ids, hop_valid = stack_trees(trees, bucket, self.fanouts)
+            out = step(self.params, node_ids, hop_valid)   # async launch
+        else:
+            out = step(self.params, *self._device_batch(batch, bucket))
+        with self._stats_lock:
+            self.bucket_counts[bucket] += 1
+        self._inflight.append((batch, out))
+        while len(self._inflight) > self.inflight_depth:
+            self._finalize_one()
+
+    def _finalize_one(self):
+        batch, out = self._inflight.popleft()
+        out = out.cpu().numpy()                        # device sync
+        now = self.clock()
+        row = 0
+        for req in batch:
+            k = req.n_seeds
+            req.finish(out[row:row + k].copy(), now)
+            row += k
+        with self._rid_lock:
+            # results live on the request objects; the server-side index
+            # must not grow without bound under sustained traffic
+            for req in batch:
+                self.requests.pop(req.rid, None)
+        with self._stats_lock:
+            self.n_served += len(batch)
+            self.latencies.extend(r.latency for r in batch)
+
+    def _reap_expired(self):
+        expired = self.batcher.reap_expired(self.clock())
+        if expired:
+            now = self.clock()
+            with self._rid_lock:
+                for req in expired:
+                    self.requests.pop(req.rid, None)
+            for req in expired:
+                req.fail(DeadlineExceeded(req.rid, req.deadline, now), now)
+            with self._stats_lock:
+                self.n_deadline_failed += len(expired)
+
+    def _engine_loop(self):
+        while not self._stop.is_set():
+            self._reap_expired()
+            if self._inflight:
+                # work is on the device: only grab a ripe batch, otherwise
+                # retire the oldest in-flight batch (its sync overlaps the
+                # sampler workers filling the queue)
+                batch = self.batcher.poll()
+                if batch is None:
+                    self._finalize_one()
+                    continue
+            else:
+                batch = self.batcher.take(timeout=0.02)
+            if batch:
+                self._dispatch(batch)
+        for batch in self.batcher.flush():
+            self._dispatch(batch)
+        while self._inflight:
+            self._finalize_one()
+
+    # -- lifecycle / utilities ---------------------------------------------
+    def warmup(self, buckets: Optional[Sequence[int]] = None):
+        """Build the bucket ladder ahead of traffic and run one dummy batch
+        through each step (plans pack and kernels build on first call)."""
+        buckets = (all_buckets(self.max_batch_seeds) if buckets is None
+                   else buckets)
+        for b in buckets:
+            step = self.steps.get((b,))
+            if self._plane is not None:
+                step(self.params, np.zeros(b, np.int64),
+                     np.zeros(b, np.int64), np.zeros(b, bool)).cpu()
+                continue
+            struct = self._struct(b)
+            step(self.params, np.full(struct.n_nodes, -1, np.int64),
+                 np.zeros(struct.n_hop_edges, bool)).cpu()
+
+    def drain(self, timeout: float = 60.0):
+        """Block until every submitted request has settled (result or typed
+        error).  On timeout the stragglers are failed with ``DrainTimeout``
+        and the same error is raised."""
+        deadline = time.monotonic() + timeout
+        with self._rid_lock:
+            pending = list(self.requests.values())
+        for req in pending:
+            left = deadline - time.monotonic()
+            if left <= 0 or not req.wait_done(left):
+                break
+        stragglers = [r for r in pending if not r.done]
+        if stragglers:
+            err = DrainTimeout(len(stragglers), timeout,
+                               [r.rid for r in stragglers])
+            now = self.clock()
+            with self._rid_lock:
+                for r in stragglers:
+                    self.requests.pop(r.rid, None)
+            for r in stragglers:
+                r.fail(err, now)
+            raise err
+
+    def reset_stats(self):
+        with self._stats_lock:
+            self.bucket_counts.clear()
+            self.n_served = 0
+            self.n_deadline_failed = 0
+            self.latencies.clear()
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return {
+                "n_served": self.n_served,
+                "deadline_failed": self.n_deadline_failed,
+                "n_batches": int(sum(self.bucket_counts.values())),
+                "bucket_counts": dict(self.bucket_counts),
+                "recompiles": self.steps.builds,
+                "step_cache": self.steps.info(),
+                "batcher": self.batcher.info(),
+                **percentiles_ms(self.latencies),
+            }
+
+    def close(self, timeout: float = 30.0):
+        """Graceful shutdown: everything submitted before ``close`` is still
+        served.  Samplers stop FIRST, so no request can reach the batcher
+        after the engine thread's final flush.  Idempotent; if the engine
+        thread does not exit within ``timeout``, every still-pending
+        request is failed with ``ServerClosed``."""
+        with self._close_lock:
+            if self._closing:
+                return
+            self._closing = True
+        if self._sampler is not None:
+            self._sampler.close(timeout)
+        self._stop.set()
+        self._engine.join(timeout)
+        if self._engine.is_alive():
+            now = self.clock()
+            with self._rid_lock:
+                pending = list(self.requests.values())
+                self.requests.clear()
+            for req in pending:
+                req.fail(ServerClosed(req.rid), now)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def offline_inference(server: GNNServer, trees: list) -> np.ndarray:
+    """One-request-at-a-time reference: each tree through a bucket-1
+    host-input step; returns the stacked (n_trees, d_out) outputs.  Under
+    device sampling the cached steps take (seeds, keys) instead of node
+    tables, so the reference builds its own host-input bucket-1 step — an
+    independent program from the fused one it anchors."""
+    if server._plane is None:
+        step = server.steps.get((1,))
+    else:
+        if server._host_step1 is None:
+            server._host_step1 = build_infer_step(
+                server.arch_id, server.cfg, server.store, server._struct(1),
+                backend=server.backend)
+        step = server._host_step1
+    out = []
+    for tree in trees:
+        node_ids, hop_valid = stack_trees([tree], 1, server.fanouts)
+        out.append(step(server.params, node_ids, hop_valid).cpu().numpy())
+    return np.concatenate(out, axis=0)
+
+
+def offline_replay(server: GNNServer, req: ServeRequest) -> np.ndarray:
+    """The full unbatched pipeline for one request: re-sample its trees
+    through the host sampler's deterministic streams, then infer one tree
+    at a time.  Must equal ``req.result`` to ≤1e-5."""
+    return offline_inference(server, server.sample_for(req.seeds, req.rid))

@@ -1,0 +1,167 @@
+"""Unified sparse-backend engine — one aggregation API, three executors.
+
+Port of ``repro.sparse.backend``.  Every sparse aggregation goes through
+
+    aggregate(plan, vals, x) -> y          # y[r] = Σ_e vals[e]·x[cols[e]]
+    accumulate(plan, messages) -> y        # y[r] = Σ_e messages[e]
+
+dispatched over a registry of interchangeable executors:
+
+* ``dense``   — one-shot gather + ``index_add_`` (baseline);
+* ``chunked`` — rolling-eviction waves (paper C3);
+* ``cuda``    — the hand-written Gustavson kernel on the dedup-chunk layout
+                (``kernels/gustavson_spmm``), the counterpart of the
+                reference's ``pallas``.  Inference only in this slice: it
+                raises when a gradient is requested rather than return a
+                wrong one.
+
+``vals`` may be ``None`` (use the plan's edge weights) or an (E,) tensor;
+either way padding lanes contribute nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core import spgemm as core_spgemm
+from repro_torch.sparse.plan import (ALL_BACKENDS, AggregationPlan,
+                                     BackendPlanError, scatter_tiles)
+
+__all__ = ["Backend", "BACKENDS", "ALL_BACKENDS", "BackendPlanError",
+           "register_backend", "get_backend", "aggregate", "accumulate"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A registered executor: full decoupled SpMM + accumulate-only entry."""
+
+    name: str
+    aggregate: Callable[[AggregationPlan, Optional[torch.Tensor],
+                         torch.Tensor], torch.Tensor]
+    accumulate: Callable[[AggregationPlan, torch.Tensor], torch.Tensor]
+
+
+BACKENDS: Dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    BACKENDS[backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return BACKENDS[name]
+    except KeyError:
+        raise KeyError(f"unknown sparse backend {name!r}; registered: "
+                       f"{sorted(BACKENDS)}") from None
+
+
+def aggregate(plan: AggregationPlan, vals: Optional[torch.Tensor],
+              x: torch.Tensor, backend: str = "dense") -> torch.Tensor:
+    """y[r] = Σ_{e: rows[e]=r} vals[e] · x[cols[e]] on the named executor."""
+    if x.shape[0] != plan.n_rows:
+        # a plan for another node count would gather the wrong rows (or,
+        # past the end, fault on the device) — catch it here
+        raise ValueError(
+            f"x has {x.shape[0]} rows but the plan was built for "
+            f"n_rows={plan.n_rows} (padded node count incl. ghost row)")
+    return get_backend(backend).aggregate(plan, vals, x)
+
+
+def accumulate(plan: AggregationPlan, messages: torch.Tensor,
+               backend: str = "dense") -> torch.Tensor:
+    """y[r] = Σ_{e: rows[e]=r} messages[e] on the named executor."""
+    if messages.shape[0] != plan.rows.shape[0]:
+        raise ValueError(
+            f"messages has {messages.shape[0]} entries but the plan holds "
+            f"{plan.rows.shape[0]} (padded) edges")
+    return get_backend(backend).accumulate(plan, messages)
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+def _edge_vals(plan: AggregationPlan, vals: Optional[torch.Tensor],
+               dtype) -> torch.Tensor:
+    """Per-edge scalars with the padding contract enforced."""
+    if vals is None:
+        return plan.base_vals.to(dtype)
+    return torch.where(plan.valid, vals, 0).to(dtype)
+
+
+def _mask_messages(plan: AggregationPlan,
+                   messages: torch.Tensor) -> torch.Tensor:
+    shape = (-1,) + (1,) * (messages.ndim - 1)
+    return torch.where(plan.valid.reshape(shape), messages, 0)
+
+
+# ---------------------------------------------------------------------------
+# dense — one-shot gather + segment-sum
+# ---------------------------------------------------------------------------
+
+def _dense_aggregate(plan, vals, x):
+    pp = core_spgemm.multiply_stage(plan.cols, _edge_vals(plan, vals,
+                                                          x.dtype), x)
+    return core_spgemm.accumulate_stage(pp, plan.rows, plan.n_rows)
+
+
+def _dense_accumulate(plan, messages):
+    return core_spgemm.accumulate_stage(_mask_messages(plan, messages),
+                                        plan.rows, plan.n_rows)
+
+
+register_backend(Backend("dense", _dense_aggregate, _dense_accumulate))
+
+
+# ---------------------------------------------------------------------------
+# chunked — rolling-eviction waves (paper C3)
+# ---------------------------------------------------------------------------
+
+def _chunked_aggregate(plan, vals, x):
+    v = _edge_vals(plan, vals, x.dtype)
+    return core_spgemm.spmm_chunked(plan.rows, plan.cols, v, x, plan.n_rows,
+                                    chunk=plan.chunk)
+
+
+def _chunked_accumulate(plan, messages):
+    return core_spgemm.segment_sum_chunked(plan.rows,
+                                           _mask_messages(plan, messages),
+                                           plan.n_rows, chunk=plan.chunk)
+
+
+register_backend(Backend("chunked", _chunked_aggregate, _chunked_accumulate))
+
+
+# ---------------------------------------------------------------------------
+# cuda — the hand-written Gustavson kernel (plain version on CPU tensors)
+# ---------------------------------------------------------------------------
+
+def _cuda_aggregate(plan, vals, x):
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    plan.require("ell", "cuda")
+    if torch.is_grad_enabled() and (x.requires_grad or (
+            vals is not None and vals.requires_grad)):
+        raise NotImplementedError(
+            "the cuda executor is inference-only in this slice: its "
+            "autograd.Function (backward kernel on the transpose layout) "
+            "is not ported yet; use backend='dense' to train, or run under "
+            "torch.no_grad()")
+    a = plan.ell_a if vals is None else scatter_tiles(
+        plan.ell_a, plan.ell_slots, _edge_vals(plan, vals, torch.float32))
+    y = spmm_dedup_chunks(plan.ell_u_cols, plan.ell_remaining,
+                          plan.ell_block_ptr, a, x.contiguous(),
+                          block_rows=plan.block_rows)
+    return y[: plan.n_rows]
+
+
+def _cuda_accumulate(plan, messages):
+    # The kernel's multiply stage is scalar-per-nnz; vector-valued messages
+    # use the chunked rolling-eviction schedule instead.
+    return _chunked_accumulate(plan, messages)
+
+
+register_backend(Backend("cuda", _cuda_aggregate, _cuda_accumulate))

@@ -1,0 +1,171 @@
+"""Host-side graph format conversions (numpy copy of ``repro.sparse.graph``).
+
+CSR for the neighbor sampler, GCN symmetric normalization, and the
+operand-deduplicated chunk packer the Gustavson kernel runs on.  The packer
+must give arrays bitwise equal to the reference's, so it is copied, not
+rewritten.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def coo_to_csr(senders: np.ndarray, receivers: np.ndarray, n_nodes: int):
+    """Host-side CSR build (rows = receivers — aggregation viewpoint)."""
+    order = np.argsort(receivers, kind="stable")
+    s_sorted = senders[order]
+    r_sorted = receivers[order]
+    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.add.at(indptr, r_sorted + 1, 1)
+    indptr = np.cumsum(indptr)
+    return indptr, s_sorted.astype(np.int32), order
+
+
+def sym_norm_weights(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
+                     add_self_loops: bool = True):
+    """GCN symmetric normalization  D^-1/2 (A+I) D^-1/2  — host-side."""
+    if add_self_loops:
+        loops = np.arange(n_nodes, dtype=senders.dtype)
+        senders = np.concatenate([senders, loops])
+        receivers = np.concatenate([receivers, loops])
+    deg = np.zeros(n_nodes, dtype=np.float64)
+    np.add.at(deg, receivers, 1.0)
+    dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+    w = dinv[senders] * dinv[receivers]
+    return senders, receivers, w.astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DedupChunks:
+    """Operand-deduplicated chunked blocked-ELL for the Gustavson kernel.
+
+    Rows are grouped into output blocks of ``block_rows``; each block's nnz
+    are **deduplicated by source row** (one landing-buffer lane per distinct
+    operand) and split into **chunks** of at most ``width`` distinct
+    operands, so one hub row never inflates every block's padding.  A chunk
+    carries:
+
+    * ``u_cols[k]``   — the distinct source-row ids (padded with 0);
+    * ``a[k·BR:(k+1)·BR]`` — a dense ``(block_rows, width)`` coefficient tile:
+      ``a[r, u] = Σ vals`` over the chunk's nnz with local row ``r`` and
+      operand ``u``;
+    * ``remaining[k]`` — the rolling-eviction counter (# real operands);
+    * ``out_block[k]`` — which output block the chunk folds into; chunks of
+      one block are consecutive, ``first[k]`` marks the first.  Every output
+      block owns ≥ 1 chunk, so even empty blocks evict a (zero) tile.
+
+    ``slots[i]`` maps input edge *i* to its cell in the flattened ``a`` so
+    edge values can be scatter-added into the coefficient tiles on device;
+    excluded edges get an out-of-bounds slot.
+    """
+
+    u_cols: np.ndarray     # (n_chunks, width) int32 — distinct operand rows
+    a: np.ndarray          # (n_chunks·block_rows, width) f32 — coeff tiles
+    remaining: np.ndarray  # (n_chunks,) int32 — eviction counters
+    out_block: np.ndarray  # (n_chunks,) int32 — destination output block
+    first: np.ndarray      # (n_chunks,) int32 — 1 ⇔ first chunk of its block
+    n_rows: int
+    n_cols: int
+    block_rows: int
+    slots: Optional[np.ndarray] = None  # (E,) int32 into a.reshape(-1)
+
+    @property
+    def n_chunks(self) -> int:
+        return self.u_cols.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.u_cols.shape[1]
+
+    @property
+    def n_blocks(self) -> int:
+        return round_up(self.n_rows, self.block_rows) // self.block_rows
+
+
+def chunk_block_edges(b: int, idx: np.ndarray, rows: np.ndarray,
+                      cols: np.ndarray, block_rows: int,
+                      width_cap: int) -> list:
+    """Dedup + chunk one output block's edge set (host-side).
+
+    ``idx`` indexes the canonical edge arrays, already restricted to rows
+    of block ``b`` in canonical (stable row-sorted) order.  Returns the
+    block's chunk tuples ``(block, u_ids, edge_idx, rloc, uidx)`` — at
+    least one (possibly empty) chunk, so empty blocks still evict a zero
+    tile.
+    """
+    if idx.size == 0:
+        return [(b, np.empty(0, np.int64), idx,
+                 np.empty(0, np.int64), np.empty(0, np.int64))]
+    u_ids, uinv = np.unique(cols[idx], return_inverse=True)
+    chunks = []
+    for lo in range(0, u_ids.size, width_cap):
+        hi = min(lo + width_cap, u_ids.size)
+        sel = (uinv >= lo) & (uinv < hi)
+        chunks.append((b, u_ids[lo:hi], idx[sel],
+                       rows[idx[sel]] - b * block_rows, uinv[sel] - lo))
+    return chunks
+
+
+def assemble_dedup_chunks(per_block: list, vals: np.ndarray, n_edges: int,
+                          n_rows: int, n_cols: int, block_rows: int,
+                          width_multiple: int = 16) -> DedupChunks:
+    """Assemble per-block chunk tuples (from :func:`chunk_block_edges`)
+    into the flat DedupChunks arrays.  ``width`` adapts to the graph: the
+    max distinct-operand count over chunks, rounded to ``width_multiple``.
+    """
+    width = int(round_up(max(1, max((c[1].size for chunks in per_block
+                                     for c in chunks), default=1)),
+                         width_multiple))
+    n_chunks = sum(len(c) for c in per_block)
+    u_cols = np.zeros((n_chunks, width), np.int32)
+    a = np.zeros((n_chunks * block_rows, width), np.float32)
+    remaining = np.zeros(n_chunks, np.int32)
+    out_block = np.zeros(n_chunks, np.int32)
+    first = np.zeros(n_chunks, np.int32)
+    slots = np.full(n_edges, n_chunks * block_rows * width,
+                    np.int32)  # OOB default
+    k = 0
+    for chunks in per_block:
+        for i, (b, u_ids, idx, rloc, uidx) in enumerate(chunks):
+            u_cols[k, :u_ids.size] = u_ids
+            remaining[k] = u_ids.size
+            out_block[k] = b
+            first[k] = int(i == 0)
+            cell = (k * block_rows + rloc) * width + uidx
+            np.add.at(a.reshape(-1), cell, vals[idx])
+            slots[idx] = cell
+            k += 1
+    return DedupChunks(u_cols=u_cols, a=a, remaining=remaining,
+                       out_block=out_block, first=first, n_rows=n_rows,
+                       n_cols=n_cols, block_rows=block_rows, slots=slots)
+
+
+def pack_dedup_chunks(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                      n_rows: int, n_cols: int, block_rows: int = 8,
+                      width_cap: int = 128,
+                      width_multiple: int = 16) -> DedupChunks:
+    """Pack COO into DedupChunks (host-side, once per graph)."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, np.float32)
+    e = rows.shape[0]
+    n_blocks = round_up(n_rows, block_rows) // block_rows
+    order = np.argsort(rows, kind="stable")
+    blk_sorted = rows[order] // block_rows
+
+    # per block: dedup operands, split into runs of ≤ width_cap distinct
+    starts = np.zeros(n_blocks + 1, np.int64)
+    np.add.at(starts, blk_sorted + 1, 1)
+    starts = np.cumsum(starts)
+    per_block = [chunk_block_edges(b, order[starts[b]:starts[b + 1]],
+                                   rows, cols, block_rows, width_cap)
+                 for b in range(n_blocks)]
+    return assemble_dedup_chunks(per_block, vals, e, n_rows, n_cols,
+                                 block_rows, width_multiple)

@@ -18,6 +18,11 @@ import pytest
 _TIMEOUT = float(os.environ.get("PYTEST_PER_TEST_TIMEOUT", "0") or 0)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips without one")
+
+
 def _usable() -> bool:
     return (_TIMEOUT > 0 and hasattr(signal, "SIGALRM")
             and threading.current_thread() is threading.main_thread())
