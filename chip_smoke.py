@@ -152,14 +152,25 @@ def spmm_case(name, plan, d, rng):
         plain_ms=eager_ms(lambda: spmm_dedup_chunks_plain(*args,
                                                           block_rows=br)),
         library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x)))
-    # least bytes: each input read once, the output written once; least
-    # operations: 2 flops per live coefficient cell per feature column
-    n_bytes = 4 * (sum(t.numel() for t in args) + y.numel())
+    # least bytes: what the function must read once and write once.  Only
+    # the live lanes u < remaining[k] of a chunk carry data, so count those
+    # u_cols and those (BR,) tile columns, not the padded (BR, W) tiles;
+    # each x row that a live lane names, once; remaining, block_ptr and y
+    # whole.  Least operations: 2 flops per nonzero coefficient per column.
+    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
+    u_cols = plan.ell_u_cols.cpu().numpy()
+    live = np.arange(u_cols.shape[1]) < rem[:, None]
+    live_lanes = int(rem.sum())
+    x_rows = np.unique(u_cols[live]).size
+    n_bytes = 4 * (live_lanes * (1 + br) + rem.size
+                   + plan.ell_block_ptr.numel() + x_rows * d + y.numel())
+    padded_bytes = 4 * (sum(t.numel() for t in args) + y.numel())
     n_flops = 2 * int((plan.ell_a != 0).sum()) * d
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
     rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               gathered_mb=4 * d * int(plan.ell_remaining.sum()) / 1e6)
+               bound_bytes=n_bytes, padded_bytes=padded_bytes,
+               gathered_mb=4 * d * live_lanes / 1e6)
     say(f"B1 {json.dumps(rec)}")
     return rec
 

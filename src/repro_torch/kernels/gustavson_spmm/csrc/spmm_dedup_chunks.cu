@@ -10,8 +10,9 @@
 // are block_ptr[b] .. block_ptr[b+1]-1, consecutive, at least one each.
 //
 // What bounds it on the H100: bytes.  A chunk gathers remaining[k] rows of
-// x (sum over chunks of remaining*D*4 bytes), reads its coefficient tile
-// (block_rows*width*4 bytes) and folds them with 2*block_rows*remaining*D
+// x (sum over chunks of remaining*D*4 bytes), reads the live columns of its
+// coefficient tile (block_rows*remaining*4 bytes; the padded lanes up to
+// width are never read) and folds them with 2*block_rows*remaining*D
 // flops: at block_rows = 8 that is under 4 flops per gathered byte, two
 // orders of magnitude below the card's ridge point, so tensor cores would
 // not help and the design only works on moving each byte once:

@@ -204,17 +204,20 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
 
     Shape-bucketed serving builds one host plan per bucket (every request's
     sender/receiver indices are identical) and swaps in only the per-edge
-    weights/validity per request: the COO ``base_vals`` and the coefficient
-    tiles (scatter-added through the slot maps, forward and transpose) are
-    rebuilt; every layout index stays the host-packed data.  The plan must
-    have been built with all edges valid, so its slot maps cover every
-    edge.
+    weights/validity per request: the COO ``base_vals`` and the forward
+    coefficient tiles (scatter-added through the slot maps) are rebuilt;
+    every layout index stays the host-packed data.  The plan must have been
+    built with all edges valid, so its slot maps cover every edge.
+
+    Inference reads only the forward tiles, so the transpose tiles are not
+    re-valued: ``ell_t_a`` is dropped (``None``) rather than left holding
+    the old values.  A backward pass re-values them with
+    ``scatter_tiles(plan.ell_t_a, plan.ell_t_slots, new.base_vals)``.
     """
     valid = plan.valid if edge_valid is None else edge_valid
     base = _values(valid, edge_weight)
     kw = dict(valid=valid, base_vals=base)
     if plan.ell_u_cols is not None:
-        for pre in ("ell_", "ell_t_"):
-            kw[pre + "a"] = scatter_tiles(getattr(plan, pre + "a"),
-                                          getattr(plan, pre + "slots"), base)
+        kw.update(ell_a=scatter_tiles(plan.ell_a, plan.ell_slots, base),
+                  ell_t_a=None)
     return dataclasses.replace(plan, **kw)

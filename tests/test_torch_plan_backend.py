@@ -81,10 +81,17 @@ def test_plan_with_values_equals_reference():
     tq = tplan.plan_with_values(tp, torch.from_numpy(w2),
                                 torch.from_numpy(v2))
     jq = jplan.plan_with_values(jp, jnp.asarray(w2), jnp.asarray(v2))
-    for f in ("valid", "base_vals", "ell_a", "ell_t_a"):
+    for f in ("valid", "base_vals", "ell_a"):
         np.testing.assert_allclose(getattr(tq, f).numpy(),
                                    np.asarray(getattr(jq, f)), rtol=0,
                                    atol=1e-6, err_msg=f)
+    # inference reads only the forward tiles: the transpose tiles are
+    # dropped, not left stale, and re-value through their slot map to the
+    # reference's
+    assert tq.ell_t_a is None
+    t_a = tplan.scatter_tiles(tp.ell_t_a, tp.ell_t_slots, tq.base_vals)
+    np.testing.assert_allclose(t_a.numpy(), np.asarray(jq.ell_t_a), rtol=0,
+                               atol=1e-6, err_msg="ell_t_a")
 
 
 @pytest.mark.parametrize("backend", ["dense", "chunked", "cuda"])
