@@ -6,8 +6,8 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   both CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with ``nvcc``
-   (started together) and print the build seconds;
+   the three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
+   ``nvcc`` (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
    card (≤1e-5) at the bucket-16 serving plan (D = 16 and 7), the Cora-scale
    full graph (D = 16) and the n=4096/e=16384 graph (D = 64), timed beside
@@ -22,14 +22,28 @@ Phases, each of which raises (exit code 1) on any failure:
    offline one-at-a-time replay (≤1e-5); then one warm bucket-16 step is
    timed and traced with ``torch.profiler`` (device time per step);
 5. serving, device sampler — the same with ``sampler="device"``; the draw
-   kernel ran too, and parity holds against the host-sampled replay.
+   kernel ran too, and parity holds against the host-sampled replay;
+6. SpGEMM kernel — ``spgemm_hashpad`` against its plain version (≤1e-5) at
+   three A·A plans: gcn-cora's Â² (Cora-scale, sym-normed with self loops),
+   the n=4096/e=16384 power-law graph and a Pubmed-scale stand-in
+   (n=19717, e=88648); each timed beside ``torch.sparse.mm(A, A)``
+   (cuSPARSE SpGEMM, structure included) and the whole ``cuda`` executor;
+7. SpGEMM executor and the two-hop path — the ``cuda`` executor against
+   ``reference`` at the three plans and against ``dense`` at the first two
+   (≤1e-4); then, counted, ``two_hop_graph`` and ``coarsen_graph`` with
+   ``backend="cuda"`` and gcn-cora at full width over the Â² plan, each held
+   against ``reference`` / ``dense`` / the CPU, with the Â² build's wall
+   time by phase.
 
-Launch counters are set to 0 just before each serving run and read just
-after it; launches made to compare or time a kernel are not counted.  The
+Launch counters are set to 0 just before each main-path run (the two
+serving runs and phase 7's path) and read just after it; launches made to
+compare or time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Times come from
-CUDA events: the kernel and ``torch.sparse.mm`` replayed from a captured
-CUDA graph (device time per call), the plain version run eagerly.
+CUDA events: the kernels and ``torch.sparse.mm`` SpMM replayed from a
+captured CUDA graph (device time per call), the plain versions, the
+SpGEMM executor and cuSPARSE SpGEMM (which syncs on the host to size its
+output, so it cannot be captured) run eagerly.
 """
 from __future__ import annotations
 
@@ -344,6 +358,201 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7 — SpGEMM kernel, executors and the two-hop path
+# ---------------------------------------------------------------------------
+
+def spgemm_plans(dev):
+    """The three A·A plans: (name, plan, dense oracle allowed)."""
+    from repro_torch.data.synthetic import cora_like, powerlaw_graph
+    from repro_torch.sparse.graph import sym_norm_weights
+    from repro_torch.sparse.spgemm import make_spgemm_plan
+    s, r, _, _, _ = cora_like(seed=0)
+    s2, r2, w = sym_norm_weights(s, r, 2708)
+    cases = [("cora_a2", r2, s2, 2708, w, True)]
+    s, r = powerlaw_graph(4096, 16384 + 256, seed=4096)   # spgemm_sweep
+    cases.append(("n4096_e16384", r[:16384], s[:16384], 4096,
+                  np.random.default_rng(1).normal(size=16384).astype(
+                      np.float32), True))
+    s, r = powerlaw_graph(19717, 88648 + 2000, alpha=1.6, seed=0)
+    cases.append(("pubmed_scale", r[:88648], s[:88648], 19717,
+                  np.random.default_rng(2).normal(size=88648).astype(
+                      np.float32), False))
+    plans = []
+    for name, r, s, n, w, dense_ok in cases:
+        t0 = time.perf_counter()
+        plan = make_spgemm_plan(r, s, n, r, s, n, a_vals=w, b_vals=w,
+                                executors=("dense", "reference", "cuda"),
+                                device=dev)
+        torch.cuda.synchronize()
+        say(f"spgemm plan {name}: nnz(A) {plan.nnz_a}, pp {plan.pp_interim},"
+            f" nnz(C) {plan.nnz_out}, pad_width {plan.pad_width}, "
+            f"{plan.n_chunks} chunks x {plan.width}, host plan "
+            f"{time.perf_counter() - t0:.3f}s")
+        plans.append((name, plan, dense_ok))
+    return plans
+
+
+def spgemm_case(name, plan):
+    from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                                spgemm_hashpad_plain)
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse.spgemm.numeric import hashed_slab
+    slab = hashed_slab(plan)
+    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a, slab)
+    kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
+    c_pad = spgemm_hashpad(*args, **kw)
+    plain = spgemm_hashpad_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(c_pad).all()), f"B2 {name}: non-finite pad")
+    err = float((c_pad - plain).abs().max())
+    check(err <= KERNEL_TOL, f"B2 {name}: max|kernel-plain| {err:.3e} > "
+                             f"{KERNEL_TOL}")
+    del plain
+    big = slab.numel() > 1 << 28                    # > 1 GB of slab
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([plan.a_rows.long(), plan.a_cols.long()]), plan.a_base,
+        (plan.n_rows, plan.n_inner),
+        check_invariants=True).coalesce().to_sparse_csr()
+    rec = dict(
+        shape=f"{name} H={plan.pad_width}", max_abs_err=err,
+        ms=graph_ms(lambda: spgemm_hashpad(*args, **kw),
+                    calls=5 if big else 20, replays=4),
+        plain_ms=eager_ms(lambda: spgemm_hashpad_plain(*args, **kw),
+                          iters=3 if big else 10),
+        library_ms=eager_ms(lambda: torch.sparse.mm(a_csr, a_csr),
+                            iters=10),
+        executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda"),
+                             iters=3 if big else 10))
+    # least bytes (as the kernel needs them): each live slab row (lanes
+    # u < remaining[k]) once, the live coefficient columns once, remaining
+    # and block_ptr, and the pad written once; padded_bytes counts the
+    # whole tiles.  Least operations: 2 per product of a nonzero
+    # coefficient with a nonzero slab entry of the same lane.
+    k, w, h, br = plan.n_chunks, plan.width, plan.pad_width, plan.block_rows
+    live = int(plan.ell_remaining.sum())
+    n_bytes = 4 * (live * (h + br) + k + plan.ell_block_ptr.numel()
+                   + c_pad.numel())
+    padded_bytes = 4 * (slab.numel() + plan.ell_a.numel() + k
+                        + plan.ell_block_ptr.numel() + c_pad.numel())
+    a_nz = (plan.ell_a.reshape(k, br, w) != 0).sum(1)
+    s_nz = (slab.reshape(k, w, h) != 0).sum(2)
+    n_flops = 2 * int((a_nz.long() * s_nz.long()).sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, padded_bytes=padded_bytes,
+               bound_flops=n_flops, live_lanes=live,
+               library_note="torch.sparse.mm(A_csr, A_csr): cuSPARSE "
+                            "SpGEMM, structure included, eager")
+    say(f"B2 {json.dumps(rec)}")
+    return rec
+
+
+def phase_spgemm_executors(plans):
+    from repro_torch.sparse import backend as sb
+    for name, plan, dense_ok in plans:
+        got = sb.spgemm(plan, backend="cuda")
+        check(got.shape == (plan.nnz_out,) and bool(torch.isfinite(
+            got).all()), f"spgemm cuda {name}: malformed result")
+        err_ref = float((got - sb.spgemm(plan, backend="reference")
+                         ).abs().max())
+        check(err_ref <= EXECUTOR_TOL,
+              f"spgemm {name}: cuda vs reference {err_ref:.3e}")
+        msg = f"spgemm executor {name}: cuda vs reference {err_ref:.3e}"
+        if dense_ok:
+            err_dense = float((got - sb.spgemm(plan, backend="dense")
+                               ).abs().max())
+            check(err_dense <= EXECUTOR_TOL,
+                  f"spgemm {name}: cuda vs dense {err_dense:.3e}")
+            msg += f", vs dense {err_dense:.3e}"
+        say(msg)
+
+
+def phase_two_hop(dev, params, x_table):
+    """The counted path: Â² and a coarsened graph through the ``cuda``
+    SpGEMM executor, then gcn-cora at full width over the Â² plan."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    from repro_torch.kernels.spgemm_pad import spgemm_hashpad
+    from repro_torch.models.gnn import gcn
+    from repro_torch.sparse.graph import (coarsen_graph, graph_coo,
+                                          make_graph, sym_norm_weights)
+    from repro_torch.sparse.plan import plan_from_graph
+    from repro_torch.sparse.spgemm import two_hop_graph
+    from repro_torch.sparse.stats import kernel_stats
+    s, r, _, _, _ = cora_like(seed=0)
+    s2, r2, w = sym_norm_weights(s, r, 2708)
+    g = make_graph(s2, r2, 2708, edge_weight=w, device=dev)
+    clusters = np.random.default_rng(3).integers(0, 128, 2708)
+    x = torch.from_numpy(x_table).to(dev)
+    kernel_stats().reset()
+
+    spgemm_hashpad.launches = 0
+    spmm_dedup_chunks.launches = 0
+    t0 = time.perf_counter()
+    g2 = two_hop_graph(g, backend="cuda")
+    t1 = time.perf_counter()
+    plan2 = plan_from_graph(g2, backends=("cuda",))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gc = coarsen_graph(g, clusters, 128, backend="cuda")
+    y = gcn.forward(params, FULL, x, backend="cuda", plan=plan2)
+    torch.cuda.synchronize()
+    launches = {"spgemm_hashpad": spgemm_hashpad.launches,
+                "spmm_dedup_chunks": spmm_dedup_chunks.launches}
+    check(launches == {"spgemm_hashpad": 3, "spmm_dedup_chunks": 2},
+          f"two-hop path launches {launches}, expected 3 spgemm_hashpad "
+          "(two_hop_graph 1 + coarsen_graph 2) and 2 spmm_dedup_chunks")
+    series = kernel_stats().snapshot()["series"]
+    build = {k: series[f"two_hop.{k}_s"]["sum"]
+             for k in ("symbolic", "numeric", "repack")}
+    build.update(b1_plan_pack=t2 - t1, two_hop_graph_total=t1 - t0)
+
+    # Â² through cuda has the reference's edges and weights
+    g2_ref = two_hop_graph(g, backend="reference")
+    s_c, r_c, w_c = graph_coo(g2)
+    s_r, r_r, w_r = graph_coo(g2_ref)
+    check(np.array_equal(s_c, s_r) and np.array_equal(r_c, r_r),
+          "two-hop: cuda and reference Â² have different edges")
+    err_w = float(np.abs(w_c - w_r).max())
+    check(err_w <= KERNEL_TOL, f"two-hop weights cuda vs reference "
+                               f"{err_w:.3e}")
+    gc_ref = coarsen_graph(g, clusters, 128, backend="reference")
+    s_c, r_c, w_c = graph_coo(gc)
+    s_r, r_r, w_r = graph_coo(gc_ref)
+    check(np.array_equal(s_c, s_r) and np.array_equal(r_c, r_r),
+          "coarsen: cuda and reference graphs have different edges")
+    err_c = float(np.abs(w_c - w_r).max())
+    check(err_c <= EXECUTOR_TOL, f"coarsen cuda vs reference {err_c:.3e}")
+
+    # gcn-cora at full width over Â²: cuda vs dense, GPU vs CPU
+    check(tuple(y.shape) == (2709, FULL.n_classes) and bool(
+        torch.isfinite(y).all()), "two-hop forward malformed")
+    y_dense = gcn.forward(params, FULL, x, backend="dense", plan=plan2)
+    err_y = float((y - y_dense).abs().max())
+    check(err_y <= EXECUTOR_TOL, f"two-hop forward cuda vs dense "
+                                 f"{err_y:.3e}")
+    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in params.items()}
+    s2_c, r2_c, w2_c = graph_coo(g2)
+    g2_cpu = make_graph(s2_c, r2_c, 2708, edge_weight=w2_c, device="cpu")
+    y_cpu = gcn.forward(cpu_params, FULL, torch.from_numpy(x_table),
+                        backend="dense",
+                        plan=plan_from_graph(g2_cpu, backends=("dense",)))
+    err_cpu = float((y.cpu() - y_cpu).abs().max())
+    check(err_cpu <= EXECUTOR_TOL, f"two-hop forward GPU vs CPU "
+                                   f"{err_cpu:.3e}")
+    rec = dict(a2_edges=int(g2.edge_valid.sum()),
+               coarse_edges=int(gc.edge_valid.sum()), launches=launches,
+               a2_weight_err=err_w, coarsen_err=err_c,
+               forward_cuda_vs_dense=err_y, forward_gpu_vs_cpu=err_cpu,
+               build_s=build)
+    say(f"two-hop {json.dumps(rec)}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -355,7 +564,7 @@ def main() -> int:
     from repro_torch.data.synthetic import cora_like
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
-    from repro_torch.kernels import forest_sampler, gustavson_spmm
+    from repro_torch.kernels import forest_sampler, gustavson_spmm, spgemm_pad
     from repro_torch.models.gnn import gcn
     from repro_torch.serve import FeatureStore
     from repro_torch.sparse.graph import coo_to_csr
@@ -369,8 +578,10 @@ def main() -> int:
     dev = resolve_device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    secs = build.build([gustavson_spmm.LIBRARY, forest_sampler.LIBRARY])
-    say(f"built spmm_dedup_chunks + hash_draws with nvcc in {secs:.2f}s")
+    secs = build.build([gustavson_spmm.LIBRARY, forest_sampler.LIBRARY,
+                        spgemm_pad.LIBRARY])
+    say(f"built spmm_dedup_chunks + hash_draws + spgemm_hashpad with nvcc "
+        f"in {secs:.2f}s")
 
     # phase 2 — kernels against their plain versions
     b1, b3, cora_plan = phase_kernels(dev)
@@ -389,9 +600,20 @@ def main() -> int:
     serves = [phase_serve(dev, mode, params, indptr, indices, store, seeds)
               for mode in ("host", "device")]
 
+    # phase 6 — the SpGEMM kernel against its plain version
+    plans = spgemm_plans(dev)
+    b2 = [spgemm_case(name, plan) for name, plan, _ in plans]
+
+    # phase 7 — SpGEMM executors, then the counted two-hop path
+    phase_spgemm_executors(plans)
+    del plans
+    two_hop = phase_two_hop(dev, params, x_table)
+
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "hash_draws")}
+    launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
     main_b1 = b1[0]                      # bucket 16, D = 16: the main shape
+    main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="spmm_dedup_chunks", route="cuda",
@@ -409,6 +631,13 @@ def main() -> int:
                       ":127",
              launches=launches["hash_draws"], max_abs_err=b3["max_abs_err"],
              shape=b3["shape"], **{k: b3[k] for k in keys}),
+        dict(name="spgemm_hashpad", route="cuda",
+             source="src/repro_torch/kernels/spgemm_pad/csrc/"
+                    "spgemm_hashpad.cu",
+             replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:83",
+             launches=two_hop["launches"]["spgemm_hashpad"],
+             max_abs_err=max(c["max_abs_err"] for c in b2),
+             shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

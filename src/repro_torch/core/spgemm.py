@@ -3,7 +3,8 @@
     multiply_stage :  pp[e]  = A_val[e] * X[A_col[e], :]        (gather-bound)
     accumulate     :  Y[r]   = segment_sum(pp, A_row, n_rows)   (scatter-bound)
 
-These are the bodies of the ``dense`` and ``chunked`` executors.  JAX's
+These are the bodies of the ``dense`` and ``chunked`` executors;
+``spgemm_via_dense`` is the sparse×sparse tiny-size oracle.  JAX's
 ``segment_sum`` drops segment ids ≥ ``n_rows``; ``index_add_`` would fault
 on them, so the sums go into one extra trash row that is cut off at the end
 (the padding-edge convention: padding lanes point at row ``n_rows``).
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -62,3 +64,40 @@ def segment_sum_chunked(rows: torch.Tensor, messages: torch.Tensor,
         acc = acc + accumulate_stage(messages[lo:lo + chunk],
                                      rows[lo:lo + chunk], n_rows)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM (sparse × sparse) — tiny-size oracle only
+# ---------------------------------------------------------------------------
+
+# densified-B cells above which the oracle refuses to run: the production
+# sparse-output path is repro_torch.sparse.spgemm (symbolic + numeric)
+MAX_DENSE_ORACLE_ELEMENTS = 1 << 24
+
+
+def spgemm_via_dense(a_rows, a_cols, a_vals, n, b_rows, b_cols, b_vals, m, k,
+                     max_dense_elements: int = MAX_DENSE_ORACLE_ELEMENTS):
+    """Tiny-size test oracle for C = A@B with A (n×m), B (m×k) as COO
+    tensors on one device → dense (n, k) f32.
+
+    Densifies B — O(m·k) memory — so it is size-guarded: anything above
+    ``max_dense_elements`` cells must go through the sparse-output engine
+    (``repro_torch.sparse.spgemm``), which this oracle exists to verify.
+    """
+    if m * k > max_dense_elements:
+        raise ValueError(
+            f"spgemm_via_dense would materialize {m}×{k} = {m * k} cells "
+            f"(> {max_dense_elements}); use the sparse-output engine "
+            "(repro_torch.sparse.spgemm) instead")
+    b_dense = torch.zeros((m, k), dtype=torch.float32, device=b_vals.device)
+    b_dense.index_put_((b_rows.long(), b_cols.long()),
+                       b_vals.to(torch.float32), accumulate=True)
+    pp = multiply_stage(a_cols.long(), a_vals, b_dense)
+    return accumulate_stage(pp, a_rows.long(), n)
+
+
+def interim_partial_products(a_cols, b_row_nnz) -> int:
+    """Paper Eq.-1 interim-pp count (host-side, exact); the canonical
+    implementation is ``repro_torch.core.eviction.interim_pp_count``."""
+    from repro_torch.core.eviction import interim_pp_count
+    return interim_pp_count(np.asarray(a_cols), np.asarray(b_row_nnz))

@@ -17,6 +17,10 @@ dispatched over a registry of interchangeable executors:
 
 ``vals`` may be ``None`` (use the plan's edge weights) or an (E,) tensor;
 either way padding lanes contribute nothing.
+
+The SpGEMM registry (sparse × sparse, sparse output) sits beside it:
+``spgemm(plan, a_vals, b_vals, backend)`` over the executors of
+``repro_torch.sparse.spgemm`` (``dense``, ``reference``, ``cuda``).
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from repro_torch.sparse.plan import (ALL_BACKENDS, AggregationPlan,
                                      BackendPlanError, scatter_tiles)
 
 __all__ = ["Backend", "BACKENDS", "ALL_BACKENDS", "BackendPlanError",
-           "register_backend", "get_backend", "aggregate", "accumulate"]
+           "register_backend", "get_backend", "aggregate", "accumulate",
+           "SpgemmBackend", "SPGEMM_BACKENDS", "ALL_SPGEMM_BACKENDS",
+           "register_spgemm_backend", "get_spgemm_backend", "spgemm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +85,54 @@ def accumulate(plan: AggregationPlan, messages: torch.Tensor,
             f"messages has {messages.shape[0]} entries but the plan holds "
             f"{plan.rows.shape[0]} (padded) edges")
     return get_backend(backend).accumulate(plan, messages)
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM registry (sparse × sparse, sparse output)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpgemmBackend:
+    """A registered SpGEMM executor: (plan, a_vals, b_vals) → c_vals."""
+
+    name: str
+    spgemm: Callable
+
+
+SPGEMM_BACKENDS: Dict[str, SpgemmBackend] = {}
+ALL_SPGEMM_BACKENDS = ("dense", "reference", "cuda")
+
+
+def register_spgemm_backend(backend: SpgemmBackend) -> SpgemmBackend:
+    SPGEMM_BACKENDS[backend.name] = backend
+    return backend
+
+
+def get_spgemm_backend(name: str) -> SpgemmBackend:
+    if name not in SPGEMM_BACKENDS:
+        # executors live in the spgemm subsystem; importing it registers
+        # them (kept lazy — backend.py must not depend on the kernels)
+        import repro_torch.sparse.spgemm.numeric  # noqa: F401
+    try:
+        return SPGEMM_BACKENDS[name]
+    except KeyError:
+        raise KeyError(f"unknown spgemm backend {name!r}; registered: "
+                       f"{sorted(SPGEMM_BACKENDS)}") from None
+
+
+def spgemm(plan, a_vals: Optional[torch.Tensor] = None,
+           b_vals: Optional[torch.Tensor] = None,
+           backend: str = "reference") -> torch.Tensor:
+    """c_vals of C = A@B on the plan's symbolic structure (row-major CSR
+    order — ``plan.c_row``/``plan.c_col``).  ``a_vals``/``b_vals`` override
+    the plan's baked values; ``None`` uses them (structure is plan state,
+    values are data)."""
+    for nm, v, nnz in (("a_vals", a_vals, plan.nnz_a),
+                       ("b_vals", b_vals, plan.nnz_b)):
+        if v is not None and v.shape[0] != nnz:
+            raise ValueError(f"{nm} has {v.shape[0]} entries but the plan "
+                             f"holds {nnz} nonzeros")
+    return get_spgemm_backend(backend).spgemm(plan, a_vals, b_vals)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,82 @@
-"""Host-side graph format conversions (numpy copy of ``repro.sparse.graph``).
+"""Graph container and host-side format conversions (port of
+``repro.sparse.graph``).
 
-CSR for the neighbor sampler, GCN symmetric normalization, and the
-operand-deduplicated chunk packer the Gustavson kernel runs on.  The packer
-must give arrays bitwise equal to the reference's, so it is copied, not
-rewritten.
+The device-side graph is a padded COO edge list (``Graph``, torch tensors on
+one device).  Host-side: CSR for the neighbor sampler, GCN symmetric
+normalization, and the operand-deduplicated chunk packer the Gustavson
+kernel runs on.  The packer must give arrays bitwise equal to the
+reference's, so it is copied, not rewritten.  ``coarsen_graph`` runs two
+rectangular SpGEMMs through the engine in ``repro_torch.sparse.spgemm``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+class Graph(NamedTuple):
+    """Padded device-side COO graph.
+
+    senders/receivers: (E_pad,) int32.  Padding edges have both set to
+    ``n_nodes`` (a ghost row) and ``edge_valid == False``.
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    n_nodes: int                              # number of real nodes
+    edge_valid: torch.Tensor                  # (E_pad,) bool
+    edge_weight: Optional[torch.Tensor] = None  # (E_pad,) f32 or None
+
+
+def pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
+    if x.shape[0] == size:
+        return x
+    pad = np.full((size - x.shape[0],) + x.shape[1:], fill, dtype=x.dtype)
+    return np.concatenate([x, pad], axis=0)
 
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def make_graph(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
+               edge_weight: Optional[np.ndarray] = None,
+               pad_multiple: int = 128,
+               device: DeviceLike = None) -> Graph:
+    """Build a padded Graph from raw COO arrays (host-side) on ``device``
+    (default ``cuda``)."""
+    dev = resolve_device(device)
+    e = senders.shape[0]
+    e_pad = round_up(max(e, 1), pad_multiple)
+    valid = np.zeros((e_pad,), dtype=bool)
+    valid[:e] = True
+    s = pad_to(senders.astype(np.int32), e_pad, n_nodes)
+    r = pad_to(receivers.astype(np.int32), e_pad, n_nodes)
+    w = None
+    if edge_weight is not None:
+        w = pad_to(edge_weight.astype(np.float32), e_pad, 0.0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return Graph(senders=t(s), receivers=t(r), n_nodes=int(n_nodes),
+                 edge_valid=t(valid),
+                 edge_weight=None if w is None else t(w))
+
+
+def graph_coo(g: Graph):
+    """Host numpy (senders, receivers, weights | None) of the valid edges."""
+    valid = g.edge_valid.cpu().numpy()
+    s = g.senders.cpu().numpy()[valid]
+    r = g.receivers.cpu().numpy()[valid]
+    w = (None if g.edge_weight is None
+         else g.edge_weight.cpu().numpy()[valid])
+    return s, r, w
 
 
 def coo_to_csr(senders: np.ndarray, receivers: np.ndarray, n_nodes: int):
@@ -26,6 +88,45 @@ def coo_to_csr(senders: np.ndarray, receivers: np.ndarray, n_nodes: int):
     np.add.at(indptr, r_sorted + 1, 1)
     indptr = np.cumsum(indptr)
     return indptr, s_sorted.astype(np.int32), order
+
+
+def coarsen_graph(g: Graph, clusters: np.ndarray, n_clusters: int,
+                  backend: str = "reference",
+                  pad_multiple: int = 128) -> Graph:
+    """Coarse graph  A_c = Pᵀ A P  via two rectangular SpGEMMs.
+
+    ``clusters[i]`` assigns node i to one of ``n_clusters`` super-nodes; P
+    is the (n × n_c) one-hot assignment matrix, so ``A_c[a, b]`` sums the
+    weight of every original edge from cluster b into cluster a.  Structure
+    comes from the symbolic phase; the second product's B-values are the
+    first product's device-computed outputs.  Plans and the result live on
+    ``g``'s device.
+    """
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse.spgemm import make_spgemm_plan
+    dev = g.senders.device
+    clusters = np.asarray(clusters, np.int64)
+    s, r, w = graph_coo(g)
+    if w is None:
+        w = np.ones(s.size, np.float32)
+    n = int(g.n_nodes)
+    nodes = np.arange(n, dtype=np.int64)
+    # M = A @ P  (n × n_c): A[r, s] = w, P[i, clusters[i]] = 1
+    plan_m = make_spgemm_plan(r, s, n, nodes, clusters, n, n_clusters,
+                              a_vals=w, executors=(backend,), device=dev)
+    m_vals = sb.spgemm(plan_m, backend=backend)
+    # A_c = Pᵀ @ M  (n_c × n_c): Pᵀ[clusters[i], i] = 1; M's structure is
+    # host-known from the first plan, its values flow in per call
+    plan_c = make_spgemm_plan(clusters, nodes, n_clusters,
+                              plan_m.c_row.cpu().numpy(),
+                              plan_m.c_col.cpu().numpy(), n, n_clusters,
+                              executors=(backend,), device=dev)
+    c_vals = sb.spgemm(plan_c, None, m_vals, backend=backend)
+    return make_graph(plan_c.c_col.cpu().numpy().astype(np.int32),
+                      plan_c.c_row.cpu().numpy().astype(np.int32),
+                      int(n_clusters),
+                      edge_weight=c_vals.cpu().numpy().astype(np.float32),
+                      pad_multiple=pad_multiple, device=dev)
 
 
 def sym_norm_weights(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,

@@ -14,6 +14,10 @@ dispatches to, as tensors on one device:
   ``ell_slots``/``ell_t_slots`` let edge values be scatter-added into the
   coefficient tiles on device.
 
+``plan_from_graph`` builds a plan for a padded ``Graph``;
+``cached_plan_from_graph`` keeps the last few behind an LRU keyed on the
+graph's tensor identity.
+
 Conventions as in the reference: ``rows`` are receivers, ``cols`` senders;
 ``n_rows`` is the padded node count including the ghost row; padding edges
 carry ``valid == False`` and contribute nothing.
@@ -221,3 +225,80 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
         kw.update(ell_a=scatter_tiles(plan.ell_a, plan.ell_slots, base),
                   ell_t_a=None)
     return dataclasses.replace(plan, **kw)
+
+
+def plan_from_graph(g, *, n_rows: Optional[int] = None,
+                    **kwargs) -> AggregationPlan:
+    """Plan for a padded ``Graph``.  ``n_rows`` defaults to ``n_nodes + 1``
+    (the ghost-row convention: features carry one extra padding row); the
+    plan lands on the graph's device unless ``device=`` says otherwise."""
+    n = int(n_rows) if n_rows is not None else g.n_nodes + 1
+    kwargs.setdefault("device", g.senders.device)
+    return make_plan(g.senders.cpu().numpy(), g.receivers.cpu().numpy(), n,
+                     edge_weight=(None if g.edge_weight is None
+                                  else g.edge_weight.cpu().numpy()),
+                     edge_valid=g.edge_valid.cpu().numpy(), **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache — repeated step builds on a static graph re-pack nothing
+# ---------------------------------------------------------------------------
+
+PLAN_CACHE_MAXSIZE = 8
+
+# key → (graph, plan); insertion order = LRU order.  The entry keeps a strong
+# reference to the keying graph so the id()s in the key cannot be recycled
+# while the entry lives; lookups re-verify identity with `is`.
+_PLAN_CACHE: "dict[tuple, tuple]" = {}
+_PLAN_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def _freeze_kwargs(kwargs):
+    def _freeze(v):
+        if isinstance(v, (list, tuple)):
+            return tuple(_freeze(x) for x in v)
+        return v
+    return tuple(sorted((k, _freeze(v)) for k, v in kwargs.items()))
+
+
+def _graph_key(g, n_rows, kwargs):
+    ids = tuple(None if a is None else id(a)
+                for a in (g.senders, g.receivers, g.edge_weight,
+                          g.edge_valid))
+    return ids + (g.n_nodes, n_rows, _freeze_kwargs(kwargs))
+
+
+def _same_graph(a, b) -> bool:
+    return (a.senders is b.senders and a.receivers is b.receivers
+            and a.edge_weight is b.edge_weight
+            and a.edge_valid is b.edge_valid)
+
+
+def cached_plan_from_graph(g, *, n_rows: Optional[int] = None,
+                           maxsize: int = None, **kwargs) -> AggregationPlan:
+    """``plan_from_graph`` with an LRU cache keyed on graph identity (the
+    exact tensor objects), backend set, and layout parameters: a static
+    graph pays the host-side packing once, not once per step build."""
+    maxsize = PLAN_CACHE_MAXSIZE if maxsize is None else maxsize
+    key = _graph_key(g, n_rows, kwargs)
+    entry = _PLAN_CACHE.get(key)
+    if entry is not None and _same_graph(entry[0], g):
+        _PLAN_CACHE_STATS["hits"] += 1
+        del _PLAN_CACHE[key]            # refresh LRU position
+        _PLAN_CACHE[key] = entry
+        return entry[1]
+    _PLAN_CACHE_STATS["misses"] += 1
+    plan = plan_from_graph(g, n_rows=n_rows, **kwargs)
+    _PLAN_CACHE[key] = (g, plan)
+    while len(_PLAN_CACHE) > max(int(maxsize), 0):
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    return plan
+
+
+def plan_cache_info() -> dict:
+    return dict(_PLAN_CACHE_STATS, size=len(_PLAN_CACHE))
+
+
+def plan_cache_clear() -> None:
+    _PLAN_CACHE.clear()
+    _PLAN_CACHE_STATS.update(hits=0, misses=0)

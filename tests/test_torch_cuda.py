@@ -11,9 +11,12 @@ import torch
 from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
 from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
                                                 spmm_dedup_chunks_plain)
+from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                            spgemm_hashpad_plain)
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.graph import pack_dedup_chunks
 from repro_torch.sparse.plan import block_ptr_from_first, make_plan
+from repro_torch.sparse.spgemm import make_spgemm_plan
 from repro_torch.sparse.sampler import _mix64
 
 pytestmark = pytest.mark.gpu
@@ -90,4 +93,67 @@ def test_cuda_executor_matches_dense(cuda):
                          ).to(cuda)
     got = sb.aggregate(plan, None, x, backend="cuda")
     want = sb.aggregate(plan, None, x, backend="dense")
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def _spgemm_plan(n, e, seed, dev, **kw):
+    rng = np.random.default_rng(seed)
+    r, s = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = rng.normal(size=e).astype(np.float32)
+    return make_spgemm_plan(r, s, n, r, s, n, a_vals=w, b_vals=w,
+                            device=dev, **kw), rng
+
+
+@pytest.mark.parametrize("n,e,width_cap,pad_slack,lanes", [
+    (200, 100, 128, 2.0, "below_32"),     # a pad of 8 lanes
+    (300, 3000, 128, 2.0, "h_tiles"),     # pad split into several h tiles
+    (64, 1500, 8, 2.0, "chunks"),         # several chunks per block
+    (64, 1500, 8, 64.0, "h_tiles")])
+def test_hashpad_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
+                                      lanes):
+    plan, rng = _spgemm_plan(n, e, seed=n + e, dev=cuda, width_cap=width_cap,
+                             pad_slack=pad_slack)
+    if lanes == "below_32":
+        assert plan.pad_width < 32
+    elif lanes == "h_tiles":
+        assert plan.pad_width > 256
+    else:
+        assert plan.n_chunks > plan.n_blocks
+    slab = torch.from_numpy(rng.normal(size=(
+        plan.n_chunks * plan.width, plan.pad_width)).astype(np.float32)
+                            ).to(cuda)
+    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a, slab)
+    kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
+    before = spgemm_hashpad.launches
+    got = spgemm_hashpad(*args, **kw)
+    assert spgemm_hashpad.launches == before + 1
+    want = spgemm_hashpad_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_hashpad_kernel_never_reads_dead_lanes(cuda):
+    plan, _ = _spgemm_plan(64, 500, seed=4, dev=cuda)
+    lane = torch.arange(plan.width, device=cuda)
+    dead = (lane[None, :] >= plan.ell_remaining[:, None]).reshape(-1)
+    slab = torch.zeros((plan.n_chunks * plan.width, plan.pad_width),
+                       device=cuda)
+    slab[dead] = float("nan")
+    got = spgemm_hashpad(plan.ell_remaining, plan.ell_block_ptr, plan.ell_a,
+                         slab, block_rows=8, pad_width=plan.pad_width)
+    assert bool(dead.any()) and bool(torch.isfinite(got).all())
+
+
+def test_spgemm_cuda_executor_matches_reference(cuda):
+    plan, rng = _spgemm_plan(500, 4000, seed=5, dev=cuda)
+    got = sb.spgemm(plan, backend="cuda")
+    assert float((got - sb.spgemm(plan, backend="reference")).abs().max()
+                 ) <= 1e-4
+    assert float((got - sb.spgemm(plan, backend="dense")).abs().max()
+                 ) <= 1e-4
+    av = torch.from_numpy(rng.normal(size=plan.nnz_a).astype(np.float32)
+                          ).to(cuda)
+    got = sb.spgemm(plan, av, None, backend="cuda")
+    want = sb.spgemm(plan, av, None, backend="reference")
     assert float((got - want).abs().max()) <= 1e-4
