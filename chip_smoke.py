@@ -6,7 +6,7 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   the three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
+   the five CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
    ``nvcc`` (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
    card (≤1e-5) at the bucket-16 serving plan (D = 16 and 7), the Cora-scale
@@ -33,11 +33,30 @@ Phases, each of which raises (exit code 1) on any failure:
    (≤1e-4); then, counted, ``two_hop_graph`` and ``coarsen_graph`` with
    ``backend="cuda"`` and gcn-cora at full width over the Â² plan, each held
    against ``reference`` / ``dense`` / the CPU, with the Â² build's wall
-   time by phase.
+   time by phase;
+8. int8 aggregation and serving — ``spmm_dedup_chunks_q8`` against its
+   plain version (≤1e-5) at phase 2's four shapes plus the Cora-scale graph
+   at D = 1433 (three scale tiles), each timed beside ``spmm_dedup_chunks``
+   at the same shape and ``torch.sparse.mm`` on the dequantized matrix (the
+   nearest library call: there is no int8 one); the ``cuda_q8`` executor
+   against ``dense`` under ``q8_gate`` of its scale-derived bound;
+   gcn-cora at full width with ``cuda_q8`` against ``dense`` (within
+   ``Q8_E2E_TOL``) and its int8 aggregations replayed on the CPU from the
+   same inputs (≤1e-5); then, counted, ``GNNServer(backend="cuda_q8",
+   sampler="device")`` serving 256 requests as in phase 5, held to offline
+   replay within ``Q8_E2E_TOL``, with one warm bucket-16 step traced and
+   held against the same step on the CPU;
+9. int8 SpGEMM and the two-hop path — ``spgemm_hashpad_q8`` against its
+   plain version (≤1e-5) at phase 6's three plans, timed beside phase 6's
+   ``spgemm_hashpad`` and cuSPARSE; the baked ``cuda_q8`` executor against
+   ``reference`` under ``q8_gate``, timed beside the ``cuda`` executor;
+   then, counted, ``two_hop_graph``, ``coarsen_graph`` and gcn-cora over
+   the Â² plan, all with ``cuda_q8``, held against ``reference`` / ``dense``
+   and against the same int8 calls on the CPU.
 
-Launch counters are set to 0 just before each main-path run (the two
-serving runs and phase 7's path) and read just after it; launches made to
-compare or time a kernel are not counted.  The
+Launch counters are set to 0 just before each main-path run (the three
+serving runs and phases 7 and 9's paths) and read just after it; launches
+made to compare or time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Times come from
 CUDA events: the kernels and ``torch.sparse.mm`` SpMM replayed from a
@@ -61,6 +80,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
 KERNEL_TOL = 1e-5
 EXECUTOR_TOL = 1e-4
 SERVE_TOL = 1e-5
@@ -198,7 +218,7 @@ def phase_kernels(dev):
     from repro_torch.sparse.plan import make_plan
     from repro_torch.sparse.sampler import _mix64
     rng = np.random.default_rng(0)
-    backends = ("dense", "chunked", "cuda")
+    backends = ("dense", "chunked", "cuda", "cuda_q8")
 
     st = build_bucket_structure(16, (5, 3), with_loops=True)
     w = rng.uniform(0.1, 1.0, st.n_edges).astype(np.float32)
@@ -243,7 +263,8 @@ def phase_kernels(dev):
               bound_ms=(8 + 4 + 4) * n / HBM_BYTES_PER_S * 1e3,
               bound_by="bytes")
     say(f"B3 {json.dumps(b3)}")
-    return b1, b3, cora
+    return b1, b3, {"bucket16": bucket, "cora_full": cora,
+                    "n4096_e16384": flag}
 
 
 # ---------------------------------------------------------------------------
@@ -277,17 +298,27 @@ def phase_forward(dev, cora_plan, params, x_table):
         f"{err:.3e}, GPU dense vs CPU dense {err_cpu:.3e}")
 
 
+def host_input_step(server, seeds):
+    """The server's bucket-16 step body on host-sampled node tables (the
+    step a host-sampler server runs; a device-sampler server fuses sampling
+    in front of the same body), with its inputs."""
+    from repro_torch.serve.buckets import stack_trees
+    from repro_torch.serve.compute import build_infer_step
+    trees = server.sample_for(seeds[:16], rid=0)
+    node_ids, hop_valid = stack_trees(trees, 16, server.fanouts)
+    step = build_infer_step(server.arch_id, server.cfg, server.store,
+                            server._struct(16), backend=server.backend)
+    return step, node_ids, hop_valid
+
+
 def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
     """Where one warm bucket-16 host-input step spends its time: wall per
     step, and from a ``torch.profiler`` trace the device time of all its
-    kernels and of the SpMM kernel alone."""
+    kernels and of the SpMM kernel (f32 or int8) alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.buckets import stack_trees
-    trees = server.sample_for(seeds[:16], rid=0)
-    node_ids, hop_valid = stack_trees(trees, 16, server.fanouts)
-    step = server.steps.get((16,))
+    step, node_ids, hop_valid = host_input_step(server, seeds)
 
     def run():
         for _ in range(n_steps):
@@ -312,44 +343,56 @@ def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
                 device_busy_share=dev_us / 1e3 / n_steps / wall_ms)
 
 
-def phase_serve(dev, mode, params, indptr, indices, store, seeds):
+def phase_serve(dev, mode, params, indptr, indices, store, seeds,
+                backend="cuda"):
     from repro_torch.configs.gcn_cora import FULL
     from repro_torch.kernels.forest_sampler import hash_draws
-    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_q8)
     from repro_torch.serve import GNNServer, offline_replay
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    spmm = {"cuda": spmm_dedup_chunks,
+            "cuda_q8": spmm_dedup_chunks_q8}[backend]
+    tol = Q8_E2E_TOL if backend == "cuda_q8" else SERVE_TOL
+    kernels = (spmm_dedup_chunks, spmm_dedup_chunks_q8, hash_draws)
     with GNNServer("gcn", FULL, params, indptr, indices, store,
-                   fanouts=(5, 3), backend="cuda", sampler=mode,
+                   fanouts=(5, 3), backend=backend, sampler=mode,
                    max_batch_seeds=16, device=dev) as server:
         server.warmup()
         builds = server.steps.builds
         server.reset_stats()
-        spmm_dedup_chunks.launches = 0
-        hash_draws.launches = 0
+        for k in kernels:
+            k.launches = 0
         t0 = time.perf_counter()
         reqs = [server.submit([int(s)]) for s in seeds]
         server.drain()
         dt = time.perf_counter() - t0
-        launches = {"spmm_dedup_chunks": spmm_dedup_chunks.launches,
-                    "hash_draws": hash_draws.launches}
+        launches = {k.__name__: k.launches for k in kernels}
         st = server.stats()
         check(all(r.n_settles == 1 and r.error is None for r in reqs),
-              f"{mode}: a request did not settle exactly once with a result")
+              f"{backend}/{mode}: a request did not settle exactly once "
+              "with a result")
         check(server.steps.builds == builds,
-              f"{mode}: {server.steps.builds - builds} step rebuild(s) "
-              "after warm-up")
-        check(launches["spmm_dedup_chunks"] > 0,
-              f"{mode}: spmm_dedup_chunks never launched")
+              f"{backend}/{mode}: {server.steps.builds - builds} step "
+              "rebuild(s) after warm-up")
+        check(launches[spmm.__name__] > 0,
+              f"{backend}/{mode}: {spmm.__name__} never launched")
         if mode == "device":
             check(launches["hash_draws"] > 0,
-                  "device: hash_draws never launched")
+                  f"{backend}/device: hash_draws never launched")
         ref = np.concatenate([offline_replay(server, r) for r in reqs])
-        breakdown = step_breakdown(server, seeds) if mode == "host" else {}
+        breakdown = {}
+        if mode == "host" or backend == "cuda_q8":
+            breakdown = step_breakdown(server, seeds)
+        if backend == "cuda_q8":
+            breakdown.update(q8_step_vs_cpu(server, seeds))
     got = np.concatenate([r.result for r in reqs])
     check(got.shape == (len(seeds), FULL.n_classes) and np.isfinite(
-        got).all(), f"{mode}: served results malformed")
+        got).all(), f"{backend}/{mode}: served results malformed")
     err = float(np.abs(got - ref).max())
-    check(err <= SERVE_TOL, f"{mode}: served vs offline replay {err:.3e}")
-    rec = dict(sampler=mode, requests=len(seeds),
+    check(err <= tol, f"{backend}/{mode}: served vs offline replay "
+                      f"{err:.3e} > {tol}")
+    rec = dict(backend=backend, sampler=mode, requests=len(seeds),
                req_per_s=len(seeds) / dt, p50_ms=st["p50_ms"],
                p99_ms=st["p99_ms"], batches=st["n_batches"],
                buckets=st["bucket_counts"], launches=launches,
@@ -382,7 +425,8 @@ def spgemm_plans(dev):
     for name, r, s, n, w, dense_ok in cases:
         t0 = time.perf_counter()
         plan = make_spgemm_plan(r, s, n, r, s, n, a_vals=w, b_vals=w,
-                                executors=("dense", "reference", "cuda"),
+                                executors=("dense", "reference", "cuda",
+                                           "cuda_q8"),
                                 device=dev)
         torch.cuda.synchronize()
         say(f"spgemm plan {name}: nnz(A) {plan.nnz_a}, pp {plan.pp_interim},"
@@ -553,6 +597,368 @@ def phase_two_hop(dev, params, x_table):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9 — the int8 path
+# ---------------------------------------------------------------------------
+
+def on_cpu(plan):
+    """The same plan with every tensor copied to the CPU."""
+    import dataclasses
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).cpu()
+        for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), torch.Tensor)})
+
+
+def replay_aggregates_on_cpu(run):
+    """Run ``run()`` with every ``sparse.backend.aggregate`` call recorded,
+    then replay each call on the CPU (plain kernel versions) from the very
+    inputs the card saw.  Returns (run's result, calls, max |card − CPU|).
+
+    A whole int8 forward on the CPU can round differently from the card's:
+    the f32 combination ``h @ W`` sums in another order, and a value that
+    moves by one ulp across a rounding boundary changes an int8 by one.
+    Replaying each aggregation from the same ``h`` holds the kernels and the
+    quantization to the plain path without that."""
+    from repro_torch.sparse import backend as sb
+    calls = []
+    aggregate = sb.aggregate
+
+    def recorded(plan, vals, x, backend="dense"):
+        y = aggregate(plan, vals, x, backend=backend)
+        calls.append((plan, vals, x, backend, y))
+        return y
+    sb.aggregate = recorded
+    try:
+        out = run()
+    finally:
+        sb.aggregate = aggregate
+    err = 0.0
+    for plan, vals, x, backend, y in calls:
+        y_cpu = aggregate(on_cpu(plan), None if vals is None else vals.cpu(),
+                          x.cpu(), backend=backend)
+        err = max(err, float((y.cpu() - y_cpu).abs().max()))
+    return out, len(calls), err
+
+
+def dequantized_csr(plan, a_q8, a_scale):
+    """The f32 matrix the int8 tiles stand for, as CSR: the operand of the
+    nearest library call (``torch.sparse.mm`` has no int8 SpMM)."""
+    k, w = plan.ell_u_cols.shape
+    br = plan.block_rows
+    ptr = plan.ell_block_ptr.long()
+    n_blocks = ptr.numel() - 1
+    block = torch.repeat_interleave(torch.arange(n_blocks, device=ptr.device),
+                                    ptr[1:] - ptr[:-1])
+    tiles = a_q8.reshape(k, br, w).float() * a_scale[:, None, None]
+    live = torch.arange(w, device=ptr.device)[None, :] < \
+        plan.ell_remaining[:, None]
+    kk, rr, uu = torch.nonzero(live[:, None, :] & (tiles != 0),
+                               as_tuple=True)
+    idx = torch.stack([block[kk] * br + rr, plan.ell_u_cols[kk, uu].long()])
+    return torch.sparse_coo_tensor(
+        idx, tiles[kk, rr, uu], (n_blocks * br, plan.n_rows),
+        check_invariants=True).coalesce().to_sparse_csr()
+
+
+def spmm_q8_case(name, plan, d, rng):
+    from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
+                                                    spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_q8,
+                                                    spmm_dedup_chunks_q8_plain)
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse import quantize as qz
+    dev = plan.device
+    x = torch.from_numpy(rng.normal(size=(plan.n_rows, d)).astype(
+        np.float32)).to(dev)
+    qt = auto_d_tile(d)
+    x_q8, x_scale = qz.quantize_feature_tiles(x, qt)
+    args = (plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr,
+            plan.ell_a_q8, plan.ell_a_scale, x_q8, x_scale)
+    br = plan.block_rows
+    y = spmm_dedup_chunks_q8(*args, block_rows=br, q_tile=qt)
+    y_plain = spmm_dedup_chunks_q8_plain(*args, block_rows=br, q_tile=qt)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"B4 {name}: non-finite output")
+    err = float((y - y_plain).abs().max())
+    check(err <= KERNEL_TOL, f"B4 {name} d={d}: max|kernel-plain| {err:.3e}"
+                             f" > {KERNEL_TOL}")
+    # the executor against dense, under the scale-derived bound
+    y_exec = sb.aggregate(plan, None, x, backend="cuda_q8")
+    dev_dense = float((y_exec - sb.aggregate(plan, None, x, backend="dense")
+                       ).abs().max())
+    bound = qz.aggregate_q8_bound(plan.ell_remaining, plan.ell_out_block,
+                                  plan.n_blocks, plan.ell_a_scale, x_scale)
+    check(qz.q8_gate(dev_dense, bound),
+          f"B4 {name} d={d}: cuda_q8 vs dense {dev_dense:.3e} over the "
+          f"bound {bound:.3e}")
+    a_csr = dequantized_csr(plan, plan.ell_a_q8, plan.ell_a_scale)
+    x_deq = x_q8.float() * torch.repeat_interleave(x_scale, qt)[:d]
+    lib_err = float((torch.sparse.mm(a_csr, x_deq) - y).abs().max())
+    check(lib_err <= EXECUTOR_TOL,
+          f"B4 {name}: kernel vs torch.sparse.mm(dequantized) {lib_err:.3e}")
+    f32_args = (plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr,
+                plan.ell_a, x)
+    rec = dict(
+        shape=f"{name} D={d}", max_abs_err=err,
+        ms=graph_ms(lambda: spmm_dedup_chunks_q8(*args, block_rows=br,
+                                                 q_tile=qt)),
+        f32_kernel_ms=graph_ms(lambda: spmm_dedup_chunks(*f32_args,
+                                                         block_rows=br)),
+        plain_ms=eager_ms(lambda: spmm_dedup_chunks_q8_plain(
+            *args, block_rows=br, q_tile=qt), iters=10),
+        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x_deq)),
+        library_note="torch.sparse.mm on the dequantized f32 matrix and "
+                     "features (nearest library call: no int8 SpMM)",
+        q8_executor_vs_dense=dev_dense, q8_bound=bound,
+        library_err=lib_err)
+    # least bytes: each live lane's u_cols entry (4 B) and int8 tile column
+    # (block_rows B) once, each x row a live lane names once (D int8), the
+    # scales, remaining, block_ptr, and y (f32) written once.  Least
+    # operations: 2 int8 operations per nonzero coefficient per column.
+    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
+    u_cols = plan.ell_u_cols.cpu().numpy()
+    live = np.arange(u_cols.shape[1]) < rem[:, None]
+    live_lanes = int(rem.sum())
+    x_rows = np.unique(u_cols[live]).size
+    n_bytes = (live_lanes * (4 + br) + x_rows * d
+               + 4 * (2 * rem.size + x_scale.numel()
+                      + plan.ell_block_ptr.numel() + y.numel()))
+    padded_bytes = (sum(t.numel() * t.element_size() for t in args)
+                    + 4 * y.numel())
+    a_live = plan.ell_a_q8.reshape(rem.size, br, -1) != 0
+    n_ops = 2 * int(a_live.sum()) * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, padded_bytes=padded_bytes)
+    say(f"B4 {json.dumps(rec)}")
+    return rec
+
+
+def phase_q8_kernels(agg_plans):
+    rng = np.random.default_rng(8)
+    return [spmm_q8_case("bucket16", agg_plans["bucket16"], 16, rng),
+            spmm_q8_case("bucket16", agg_plans["bucket16"], 7, rng),
+            spmm_q8_case("cora_full", agg_plans["cora_full"], 16, rng),
+            spmm_q8_case("n4096_e16384", agg_plans["n4096_e16384"], 64, rng),
+            spmm_q8_case("cora_full", agg_plans["cora_full"], 1433, rng)]
+
+
+def phase_q8_forward(dev, cora_plan, params, x_table):
+    """gcn-cora at full width through ``cuda_q8`` on the Cora-scale graph."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.models.gnn import gcn
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    x = torch.from_numpy(x_table).to(dev)
+    y_q8, n_calls, replay_err = replay_aggregates_on_cpu(
+        lambda: gcn.forward(params, FULL, x, backend="cuda_q8",
+                            plan=cora_plan))
+    check(tuple(y_q8.shape) == (2709, FULL.n_classes) and bool(
+        torch.isfinite(y_q8).all()), "q8 forward malformed")
+    check(n_calls == FULL.n_layers and replay_err <= KERNEL_TOL,
+          f"q8 forward: {n_calls} aggregations, card vs CPU replay "
+          f"{replay_err:.3e}")
+    y_dense = gcn.forward(params, FULL, x, backend="dense", plan=cora_plan)
+    err = float((y_q8 - y_dense).abs().max())
+    check(err <= Q8_E2E_TOL, f"q8 forward vs dense {err:.3e}")
+    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in params.items()}
+    y_cpu = gcn.forward(cpu_params, FULL, torch.from_numpy(x_table),
+                        backend="cuda_q8", plan=on_cpu(cora_plan))
+    err_cpu = float((y_q8.cpu() - y_cpu).abs().max())
+    check(err_cpu <= Q8_E2E_TOL, f"q8 forward GPU vs CPU {err_cpu:.3e}")
+    rec = dict(q8_vs_dense=err, aggregations_vs_cpu_replay=replay_err,
+               forward_gpu_vs_cpu=err_cpu)
+    say(f"q8 forward gcn-cora {json.dumps(rec)}")
+    return rec
+
+
+def q8_step_vs_cpu(server, seeds) -> dict:
+    """One warm bucket-16 ``cuda_q8`` step on the card against the same
+    step on the CPU: each int8 aggregation replayed on the CPU from the
+    card's inputs (≤1e-5), and the whole step's output (within
+    ``Q8_E2E_TOL``: the CPU's own ``h @ W`` may round an int8 the other
+    way)."""
+    from repro_torch.serve.compute import FeatureStore, build_infer_step
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    step, node_ids, hop_valid = host_input_step(server, seeds)
+    y, n_calls, replay_err = replay_aggregates_on_cpu(
+        lambda: step(server.params, node_ids, hop_valid))
+    check(n_calls == server.cfg.n_layers and replay_err <= KERNEL_TOL,
+          f"q8 step: {n_calls} aggregations, card vs CPU replay "
+          f"{replay_err:.3e}")
+    store = FeatureStore(n_nodes=server.store.n_nodes,
+                         x=server.store.x.cpu())
+    cpu_step = build_infer_step(server.arch_id, server.cfg, store,
+                                server._struct(16), backend="cuda_q8")
+    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in server.params.items()}
+    y_cpu = cpu_step(cpu_params, node_ids, hop_valid)
+    err = float((y.cpu() - y_cpu).abs().max())
+    check(err <= Q8_E2E_TOL, f"q8 step GPU vs CPU {err:.3e}")
+    return dict(step_aggregations_vs_cpu_replay=replay_err,
+                step_gpu_vs_cpu=err)
+
+
+def spgemm_q8_case(name, plan, b2):
+    from repro_torch.kernels.spgemm_pad import (spgemm_hashpad_q8,
+                                                spgemm_hashpad_q8_plain)
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse import quantize as qz
+    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
+            plan.ell_a_scale, plan.slab_q8, plan.slab_scale)
+    kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
+    c_pad = spgemm_hashpad_q8(*args, **kw)
+    plain = spgemm_hashpad_q8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(c_pad).all()), f"B5 {name}: non-finite pad")
+    err = float((c_pad - plain).abs().max())
+    check(err <= KERNEL_TOL, f"B5 {name}: max|kernel-plain| {err:.3e} > "
+                             f"{KERNEL_TOL}")
+    del plain
+    got = sb.spgemm(plan, backend="cuda_q8")
+    check(got.shape == (plan.nnz_out,) and bool(torch.isfinite(got).all()),
+          f"spgemm cuda_q8 {name}: malformed result")
+    dev_ref = float((got - sb.spgemm(plan, backend="reference")).abs().max())
+    bound = qz.spgemm_q8_bound(plan.width, plan.ell_out_block, plan.n_blocks,
+                               plan.ell_a_scale, plan.slab_scale)
+    check(qz.q8_gate(dev_ref, bound),
+          f"spgemm {name}: cuda_q8 vs reference {dev_ref:.3e} over the "
+          f"bound {bound:.3e}")
+    big = plan.slab_q8.numel() > 1 << 30             # > 1 GB of int8 slab
+    rec = dict(
+        shape=f"{name} H={plan.pad_width}", max_abs_err=err,
+        ms=graph_ms(lambda: spgemm_hashpad_q8(*args, **kw),
+                    calls=5 if big else 20, replays=4),
+        f32_kernel_ms=b2["ms"],
+        plain_ms=eager_ms(lambda: spgemm_hashpad_q8_plain(*args, **kw),
+                          iters=3 if big else 10),
+        library_ms=b2["library_ms"],
+        library_note="torch.sparse.mm(A_csr, A_csr) on the f32 operands, "
+                     "timed in phase 6 of this run: cuSPARSE SpGEMM, the "
+                     "nearest library call (no int8 SpGEMM)",
+        q8_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda_q8"),
+                                iters=3 if big else 10),
+        f32_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda"),
+                                 iters=3 if big else 10),
+        q8_executor_vs_reference=dev_ref, q8_bound=bound)
+    # least bytes: each live slab row once (pad_width int8), each live
+    # coefficient column once (block_rows int8), both scales, remaining and
+    # block_ptr, and the f32 pad written once.  Least operations: 2 int8
+    # operations per product of a nonzero coefficient with a nonzero slab
+    # entry of the same lane.
+    k, h, br = plan.n_chunks, plan.pad_width, plan.block_rows
+    live = int(plan.ell_remaining.sum())
+    n_bytes = (live * (h + br) + 4 * (3 * k + plan.ell_block_ptr.numel()
+                                      + c_pad.numel()))
+    a_nz = (plan.ell_a_q8.reshape(k, br, -1) != 0).sum(1)
+    s_nz = (plan.slab_q8.reshape(k, -1, h) != 0).sum(2)
+    n_ops = 2 * int((a_nz.long() * s_nz.long()).sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, bound_ops=n_ops, live_lanes=live)
+    say(f"B5 {json.dumps(rec)}")
+    return rec
+
+
+def phase_q8_two_hop(dev, params, x_table):
+    """The counted int8 path: Â² and a coarsened graph through the
+    ``cuda_q8`` SpGEMM executor, then gcn-cora at full width over the Â²
+    plan through ``cuda_q8`` aggregation."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks_q8
+    from repro_torch.kernels.spgemm_pad import spgemm_hashpad_q8
+    from repro_torch.models.gnn import gcn
+    from repro_torch.sparse import quantize as qz
+    from repro_torch.sparse.graph import (coarsen_graph, graph_coo,
+                                          make_graph, sym_norm_weights)
+    from repro_torch.sparse.plan import plan_from_graph
+    from repro_torch.sparse.spgemm import make_spgemm_plan, two_hop_graph
+    s, r, _, _, _ = cora_like(seed=0)
+    s2, r2, w = sym_norm_weights(s, r, 2708)
+    g = make_graph(s2, r2, 2708, edge_weight=w, device=dev)
+    clusters = np.random.default_rng(3).integers(0, 128, 2708)
+    x = torch.from_numpy(x_table).to(dev)
+
+    spgemm_hashpad_q8.launches = 0
+    spmm_dedup_chunks_q8.launches = 0
+    t0 = time.perf_counter()
+    g2 = two_hop_graph(g, backend="cuda_q8")
+    plan2 = plan_from_graph(g2, backends=("cuda_q8",))
+    gc = coarsen_graph(g, clusters, 128, backend="cuda_q8")
+    y, n_calls, replay_err = replay_aggregates_on_cpu(
+        lambda: gcn.forward(params, FULL, x, backend="cuda_q8", plan=plan2))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"spgemm_hashpad_q8": spgemm_hashpad_q8.launches,
+                "spmm_dedup_chunks_q8": spmm_dedup_chunks_q8.launches}
+    check(launches == {"spgemm_hashpad_q8": 3, "spmm_dedup_chunks_q8": 2},
+          f"q8 two-hop path launches {launches}, expected 3 "
+          "spgemm_hashpad_q8 (two_hop_graph 1 + coarsen_graph 2) and 2 "
+          "spmm_dedup_chunks_q8")
+
+    # Â² through cuda_q8: the reference's edges, weights within the bound
+    g2_ref = two_hop_graph(g, backend="reference")
+    s_q, r_q, w_q = graph_coo(g2)
+    s_r, r_r, w_r = graph_coo(g2_ref)
+    check(np.array_equal(s_q, s_r) and np.array_equal(r_q, r_r),
+          "q8 two-hop: cuda_q8 and reference Â² have different edges")
+    err_w = float(np.abs(w_q - w_r).max())
+    sp = make_spgemm_plan(r2, s2, 2708, r2, s2, 2708, a_vals=w, b_vals=w,
+                          executors=("cuda_q8",), device=dev)
+    bound_w = qz.spgemm_q8_bound(sp.width, sp.ell_out_block, sp.n_blocks,
+                                 sp.ell_a_scale, sp.slab_scale)
+    check(qz.q8_gate(err_w, bound_w), f"q8 two-hop weights vs reference "
+                                      f"{err_w:.3e} over {bound_w:.3e}")
+    gc_ref = coarsen_graph(g, clusters, 128, backend="reference")
+    s_q, r_q, w_c = graph_coo(gc)
+    s_r, r_r, w_cr = graph_coo(gc_ref)
+    check(np.array_equal(s_q, s_r) and np.array_equal(r_q, r_r),
+          "q8 coarsen: cuda_q8 and reference graphs have different edges")
+    err_c_ref = float(np.abs(w_c - w_cr).max())
+
+    # the same int8 calls on the CPU (plain versions)
+    g_cpu = make_graph(s2, r2, 2708, edge_weight=w, device="cpu")
+    g2_cpu = two_hop_graph(g_cpu, backend="cuda_q8")
+    _, _, w2_cpu = graph_coo(g2_cpu)
+    err_w_cpu = float(np.abs(w_q - w2_cpu).max())
+    check(err_w_cpu <= KERNEL_TOL, f"q8 two-hop GPU vs CPU {err_w_cpu:.3e}")
+    _, _, wc_cpu = graph_coo(coarsen_graph(g_cpu, clusters, 128,
+                                           backend="cuda_q8"))
+    err_c_cpu = float(np.abs(w_c - wc_cpu).max())
+    check(err_c_cpu <= KERNEL_TOL, f"q8 coarsen GPU vs CPU {err_c_cpu:.3e}")
+
+    # gcn-cora over Â²: aggregations replayed on the CPU, then end to end
+    check(tuple(y.shape) == (2709, FULL.n_classes) and bool(
+        torch.isfinite(y).all()), "q8 two-hop forward malformed")
+    check(n_calls == FULL.n_layers and replay_err <= KERNEL_TOL,
+          f"q8 two-hop forward: card vs CPU replay {replay_err:.3e}")
+    err_y = float((y - gcn.forward(params, FULL, x, backend="dense",
+                                   plan=plan2)).abs().max())
+    check(err_y <= qz.Q8_E2E_TOL, f"q8 two-hop forward vs dense {err_y:.3e}")
+    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in params.items()}
+    y_cpu = gcn.forward(cpu_params, FULL, torch.from_numpy(x_table),
+                        backend="cuda_q8",
+                        plan=plan_from_graph(g2_cpu, backends=("cuda_q8",)))
+    err_cpu = float((y.cpu() - y_cpu).abs().max())
+    check(err_cpu <= qz.Q8_E2E_TOL, f"q8 two-hop forward GPU vs CPU "
+                                    f"{err_cpu:.3e}")
+    rec = dict(a2_edges=int(g2.edge_valid.sum()),
+               coarse_edges=int(gc.edge_valid.sum()), launches=launches,
+               a2_weight_err_vs_reference=err_w, a2_q8_bound=bound_w,
+               coarsen_err_vs_reference=err_c_ref,
+               a2_gpu_vs_cpu=err_w_cpu, coarsen_gpu_vs_cpu=err_c_cpu,
+               forward_aggregations_vs_cpu_replay=replay_err,
+               forward_q8_vs_dense=err_y, forward_gpu_vs_cpu=err_cpu,
+               path_wall_s=path_s)
+    say(f"q8 two-hop {json.dumps(rec)}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -578,13 +984,16 @@ def main() -> int:
     dev = resolve_device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    secs = build.build([gustavson_spmm.LIBRARY, forest_sampler.LIBRARY,
-                        spgemm_pad.LIBRARY])
-    say(f"built spmm_dedup_chunks + hash_draws + spgemm_hashpad with nvcc "
-        f"in {secs:.2f}s")
+    libraries = [gustavson_spmm.LIBRARY, gustavson_spmm.LIBRARY_Q8,
+                 forest_sampler.LIBRARY, spgemm_pad.LIBRARY,
+                 spgemm_pad.LIBRARY_Q8]
+    secs = build.build(libraries)
+    say(f"built {' + '.join(lib.name for lib in libraries)} with nvcc in "
+        f"{secs:.2f}s")
 
     # phase 2 — kernels against their plain versions
-    b1, b3, cora_plan = phase_kernels(dev)
+    b1, b3, agg_plans = phase_kernels(dev)
+    cora_plan = agg_plans["cora_full"]
 
     # phase 3 — gcn-cora at full width on the Cora-scale graph
     s, r, x, _, _ = cora_like(seed=0)
@@ -606,14 +1015,30 @@ def main() -> int:
 
     # phase 7 — SpGEMM executors, then the counted two-hop path
     phase_spgemm_executors(plans)
-    del plans
     two_hop = phase_two_hop(dev, params, x_table)
 
+    # phase 8 — int8 aggregation, the int8 forward, then int8 serving
+    b4 = phase_q8_kernels(agg_plans)
+    phase_q8_forward(dev, cora_plan, params, x_table)
+    serves.append(phase_serve(dev, "device", params, indptr, indices, store,
+                              seeds, backend="cuda_q8"))
+
+    # phase 9 — int8 SpGEMM at phase 6's plans, then the counted path
+    b5 = [spgemm_q8_case(name, plan, rec)
+          for (name, plan, _), rec in zip(plans, b2)]
+    del plans
+    two_hop_q8 = phase_q8_two_hop(dev, params, x_table)
+
     launches = {k: sum(sv["launches"][k] for sv in serves)
-                for k in ("spmm_dedup_chunks", "hash_draws")}
+                for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
+                          "hash_draws")}
     launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
+    launches["spmm_dedup_chunks_q8"] += \
+        two_hop_q8["launches"]["spmm_dedup_chunks_q8"]
     main_b1 = b1[0]                      # bucket 16, D = 16: the main shape
     main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
+    main_b4 = b4[0]                      # bucket 16, D = 16: q8 serving
+    main_b5 = b5[0]                      # gcn-cora Â²: the q8 two-hop path
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="spmm_dedup_chunks", route="cuda",
@@ -638,6 +1063,21 @@ def main() -> int:
              launches=two_hop["launches"]["spgemm_hashpad"],
              max_abs_err=max(c["max_abs_err"] for c in b2),
              shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
+        dict(name="spmm_dedup_chunks_q8", route="cuda",
+             source="src/repro_torch/kernels/gustavson_spmm/csrc/"
+                    "spmm_dedup_chunks_q8.cu",
+             replaces="src/repro/kernels/gustavson_spmm/gustavson_spmm.py"
+                      ":299",
+             launches=launches["spmm_dedup_chunks_q8"],
+             max_abs_err=max(c["max_abs_err"] for c in b4),
+             shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
+        dict(name="spgemm_hashpad_q8", route="cuda",
+             source="src/repro_torch/kernels/spgemm_pad/csrc/"
+                    "spgemm_hashpad_q8.cu",
+             replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:168",
+             launches=two_hop_q8["launches"]["spgemm_hashpad_q8"],
+             max_abs_err=max(c["max_abs_err"] for c in b5),
+             shape=main_b5["shape"], **{k: main_b5[k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

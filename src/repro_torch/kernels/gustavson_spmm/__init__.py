@@ -1,5 +1,9 @@
-"""Gustavson SpMM kernel (port of ``repro.kernels.gustavson_spmm``)."""
+"""Gustavson SpMM kernels, f32 and int8 (port of
+``repro.kernels.gustavson_spmm``)."""
 from repro_torch.kernels.gustavson_spmm.gustavson_spmm import (
-    LIBRARY, spmm_dedup_chunks, spmm_dedup_chunks_plain)
+    LIBRARY, LIBRARY_Q8, auto_d_tile, spmm_dedup_chunks,
+    spmm_dedup_chunks_plain, spmm_dedup_chunks_q8, spmm_dedup_chunks_q8_plain)
 
-__all__ = ["LIBRARY", "spmm_dedup_chunks", "spmm_dedup_chunks_plain"]
+__all__ = ["LIBRARY", "LIBRARY_Q8", "auto_d_tile", "spmm_dedup_chunks",
+           "spmm_dedup_chunks_plain", "spmm_dedup_chunks_q8",
+           "spmm_dedup_chunks_q8_plain"]

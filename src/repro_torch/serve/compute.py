@@ -112,8 +112,8 @@ def _build_bucket_plan(key: tuple):
     n_seeds, fanouts, with_loops, backend, device = key
     struct = build_bucket_structure(n_seeds, fanouts, with_loops=with_loops)
     backends = ["dense", "chunked"]
-    if backend == "cuda":
-        backends.append("cuda")
+    if backend in ("cuda", "cuda_q8"):
+        backends.append(backend)
     return make_plan(struct.senders, struct.receivers, struct.n_nodes,
                      backends=tuple(backends), device=device)
 

@@ -1,4 +1,4 @@
-"""Unified sparse-backend engine — one aggregation API, three executors.
+"""Unified sparse-backend engine — one aggregation API, four executors.
 
 Port of ``repro.sparse.backend``.  Every sparse aggregation goes through
 
@@ -13,14 +13,22 @@ dispatched over a registry of interchangeable executors:
                 (``kernels/gustavson_spmm``), the counterpart of the
                 reference's ``pallas``.  Inference only in this slice: it
                 raises when a gradient is requested rather than return a
-                wrong one.
+                wrong one;
+* ``cuda_q8`` — the int8 Gustavson kernel (``spmm_dedup_chunks_q8``) on
+                the same layout, the counterpart of ``pallas_q8``: int8
+                coefficient tiles (one scale per chunk) and int8 features
+                (one scale per feature tile).  ``x`` may be f32 (quantized
+                on each call) or ``sparse.quantize.QuantizedFeatures``
+                (quantized once, the resident path).  Inference only, like
+                ``cuda``.
 
 ``vals`` may be ``None`` (use the plan's edge weights) or an (E,) tensor;
 either way padding lanes contribute nothing.
 
 The SpGEMM registry (sparse × sparse, sparse output) sits beside it:
 ``spgemm(plan, a_vals, b_vals, backend)`` over the executors of
-``repro_torch.sparse.spgemm`` (``dense``, ``reference``, ``cuda``).
+``repro_torch.sparse.spgemm`` (``dense``, ``reference``, ``cuda``,
+``cuda_q8``).
 """
 from __future__ import annotations
 
@@ -67,12 +75,16 @@ def get_backend(name: str) -> Backend:
 
 def aggregate(plan: AggregationPlan, vals: Optional[torch.Tensor],
               x: torch.Tensor, backend: str = "dense") -> torch.Tensor:
-    """y[r] = Σ_{e: rows[e]=r} vals[e] · x[cols[e]] on the named executor."""
-    if x.shape[0] != plan.n_rows:
+    """y[r] = Σ_{e: rows[e]=r} vals[e] · x[cols[e]] on the named executor.
+
+    ``x`` may be a ``sparse.quantize.QuantizedFeatures`` (resident int8
+    rows) on the ``cuda_q8`` executor."""
+    n_x = x.q8.shape[0] if hasattr(x, "q8") else x.shape[0]
+    if n_x != plan.n_rows:
         # a plan for another node count would gather the wrong rows (or,
         # past the end, fault on the device) — catch it here
         raise ValueError(
-            f"x has {x.shape[0]} rows but the plan was built for "
+            f"x has {n_x} rows but the plan was built for "
             f"n_rows={plan.n_rows} (padded node count incl. ghost row)")
     return get_backend(backend).aggregate(plan, vals, x)
 
@@ -100,7 +112,7 @@ class SpgemmBackend:
 
 
 SPGEMM_BACKENDS: Dict[str, SpgemmBackend] = {}
-ALL_SPGEMM_BACKENDS = ("dense", "reference", "cuda")
+ALL_SPGEMM_BACKENDS = ("dense", "reference", "cuda", "cuda_q8")
 
 
 def register_spgemm_backend(backend: SpgemmBackend) -> SpgemmBackend:
@@ -194,16 +206,21 @@ register_backend(Backend("chunked", _chunked_aggregate, _chunked_accumulate))
 # cuda — the hand-written Gustavson kernel (plain version on CPU tensors)
 # ---------------------------------------------------------------------------
 
-def _cuda_aggregate(plan, vals, x):
-    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
-    plan.require("ell", "cuda")
-    if torch.is_grad_enabled() and (x.requires_grad or (
-            vals is not None and vals.requires_grad)):
+def _refuse_gradients(name, vals, x):
+    if torch.is_grad_enabled() and (
+            getattr(x, "requires_grad", False)
+            or (vals is not None and vals.requires_grad)):
         raise NotImplementedError(
-            "the cuda executor is inference-only in this slice: its "
+            f"the {name} executor is inference-only in this slice: its "
             "autograd.Function (backward kernel on the transpose layout) "
             "is not ported yet; use backend='dense' to train, or run under "
             "torch.no_grad()")
+
+
+def _cuda_aggregate(plan, vals, x):
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    plan.require("ell", "cuda")
+    _refuse_gradients("cuda", vals, x)
     a = plan.ell_a if vals is None else scatter_tiles(
         plan.ell_a, plan.ell_slots, _edge_vals(plan, vals, torch.float32))
     y = spmm_dedup_chunks(plan.ell_u_cols, plan.ell_remaining,
@@ -219,3 +236,47 @@ def _cuda_accumulate(plan, messages):
 
 
 register_backend(Backend("cuda", _cuda_aggregate, _cuda_accumulate))
+
+
+# ---------------------------------------------------------------------------
+# cuda_q8 — the int8 Gustavson kernel (plain version on CPU tensors)
+# ---------------------------------------------------------------------------
+
+def _cuda_q8_aggregate(plan, vals, x):
+    from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
+                                                    spmm_dedup_chunks_q8)
+    from repro_torch.sparse.quantize import (QuantizedFeatures,
+                                             quantize_chunk_tiles,
+                                             quantize_feature_tiles)
+    plan.require("ell", "cuda_q8")
+    _refuse_gradients("cuda_q8", vals, x)
+    if vals is None and plan.ell_a_q8 is not None:
+        a_q8, a_scale = plan.ell_a_q8, plan.ell_a_scale
+    else:
+        # given values, or a plan built for `cuda` only: quantize the f32
+        # tiles here, on the device
+        a = plan.ell_a if vals is None else scatter_tiles(
+            plan.ell_a, plan.ell_slots, _edge_vals(plan, vals,
+                                                   torch.float32))
+        a_q8, a_scale = quantize_chunk_tiles(a, plan.ell_u_cols.shape[0])
+    if isinstance(x, QuantizedFeatures):
+        x_q8, x_scale = x.q8, x.scale
+        dt = plan.ell_d_tile or auto_d_tile(x_q8.shape[1])
+        d_tiles = -(-x_q8.shape[1] // dt)
+        if x_scale.shape[0] != d_tiles:
+            raise ValueError(
+                f"QuantizedFeatures carries {x_scale.shape[0]} feature-tile "
+                f"scales but the plan's kernel uses d_tile={dt} "
+                f"({d_tiles} tiles) — re-quantize with the plan's d_tile")
+    else:
+        # X quantizes per feature tile on each call, with the kernel's tile
+        dt = plan.ell_d_tile or auto_d_tile(x.shape[1])
+        x_q8, x_scale = quantize_feature_tiles(x, dt)
+    y = spmm_dedup_chunks_q8(plan.ell_u_cols, plan.ell_remaining,
+                             plan.ell_block_ptr, a_q8, a_scale,
+                             x_q8.contiguous(), x_scale,
+                             block_rows=plan.block_rows, q_tile=dt)
+    return y[: plan.n_rows]
+
+
+register_backend(Backend("cuda_q8", _cuda_q8_aggregate, _cuda_accumulate))

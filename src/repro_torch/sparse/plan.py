@@ -12,7 +12,10 @@ dispatches to, as tensors on one device:
   the training slice's backward.  ``ell_block_ptr`` holds each output
   block's chunk range, which the CUDA kernel walks.  Per-edge
   ``ell_slots``/``ell_t_slots`` let edge values be scatter-added into the
-  coefficient tiles on device.
+  coefficient tiles on device;
+* the forward tiles quantized to int8 with one scale per chunk
+  (``ell_a_q8``/``ell_a_scale``, ``sparse.quantize``) — the ``cuda_q8``
+  kernel's operands, baked when ``backends`` names ``cuda_q8``.
 
 ``plan_from_graph`` builds a plan for a padded ``Graph``;
 ``cached_plan_from_graph`` keeps the last few behind an LRU keyed on the
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-ALL_BACKENDS = ("dense", "chunked", "cuda")
+ALL_BACKENDS = ("dense", "chunked", "cuda", "cuda_q8")
 
 
 class BackendPlanError(ValueError):
@@ -48,6 +51,7 @@ class AggregationPlan:
     block_rows: int = 8              # output-block rows (cuda layout)
     n_blocks: int = 0                # forward output blocks
     n_t_blocks: int = 0              # transpose output blocks
+    ell_d_tile: Optional[int] = None  # int8 feature scale tile (None → auto)
 
     # --- COO section (always present) ---
     rows: Optional[torch.Tensor] = None       # (E,) int64 — receivers
@@ -70,6 +74,10 @@ class AggregationPlan:
     ell_t_first: Optional[torch.Tensor] = None
     ell_t_a: Optional[torch.Tensor] = None
     ell_t_slots: Optional[torch.Tensor] = None
+    # int8 forward tiles (`cuda_q8`): per-chunk symmetric scales, baked at
+    # plan time from the f32 tiles and re-quantized by plan_with_values
+    ell_a_q8: Optional[torch.Tensor] = None       # (n_chunks·BR, width) int8
+    ell_a_scale: Optional[torch.Tensor] = None    # (n_chunks,) f32
 
     def has(self, section: str) -> bool:
         if section == "ell":
@@ -126,14 +134,15 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
               edge_valid: Optional[np.ndarray] = None, *,
               backends: Sequence[str] = ("dense", "chunked"),
               chunk: int = 8192, block_rows: int = 8, width_cap: int = 128,
-              width_multiple: int = 16,
+              width_multiple: int = 16, d_tile: Optional[int] = None,
               device: DeviceLike = None) -> AggregationPlan:
     """Host-side plan: precompute every layout in ``backends`` once and
     place it on ``device`` (default ``cuda``).
 
     Only valid edges enter the dedup-chunk layouts; invalid (padding)
     edges get an out-of-bounds scatter slot, so values on padding lanes are
-    dropped by construction.
+    dropped by construction.  ``d_tile`` is the int8 feature scale tile
+    of ``cuda_q8`` (``None``: ``auto_d_tile(D)`` per call).
     """
     for b in backends:
         if b not in ALL_BACKENDS:
@@ -156,7 +165,7 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
               rows=t(r.astype(np.int64)), cols=t(s.astype(np.int64)),
               valid=t(valid), base_vals=t(base))
 
-    if "cuda" in backends:
+    if "cuda" in backends or "cuda_q8" in backends:
         from repro_torch.sparse.graph import pack_dedup_chunks
         from repro_torch.sparse.stats import record_count, record_value
         pack_kw = dict(block_rows=block_rows, width_cap=width_cap,
@@ -174,7 +183,7 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
         record_value("plan.hub_splits",
                      int(fwd.u_cols.shape[0] - np.unique(fwd.out_block).size))
         kw.update(block_rows=block_rows, n_blocks=fwd.n_blocks,
-                  n_t_blocks=tr.n_blocks,
+                  n_t_blocks=tr.n_blocks, ell_d_tile=d_tile,
                   ell_block_ptr=t(block_ptr_from_first(fwd.first,
                                                        fwd.n_blocks)))
         for pre, ch in (("ell_", fwd), ("ell_t_", tr)):
@@ -186,6 +195,15 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
                        pre + "first": t(ch.first),
                        pre + "a": t(ch.a),
                        pre + "slots": t(slots)})
+        if "cuda_q8" in backends:
+            # bake the int8 tiles for the default-values path; given edge
+            # values re-quantize (plan_with_values / the executor)
+            from repro_torch.sparse.quantize import (quantize_chunk_tiles,
+                                                     record_q8_stats)
+            a_q8, a_scale = quantize_chunk_tiles(kw["ell_a"],
+                                                 fwd.u_cols.shape[0])
+            record_q8_stats(a_scale)
+            kw.update(ell_a_q8=a_q8, ell_a_scale=a_scale)
     return AggregationPlan(**kw)
 
 
@@ -216,7 +234,9 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
     Inference reads only the forward tiles, so the transpose tiles are not
     re-valued: ``ell_t_a`` is dropped (``None``) rather than left holding
     the old values.  A backward pass re-values them with
-    ``scatter_tiles(plan.ell_t_a, plan.ell_t_slots, new.base_vals)``.
+    ``scatter_tiles(plan.ell_t_a, plan.ell_t_slots, new.base_vals)``.  A
+    plan that carries int8 tiles gets them re-quantized from the new forward
+    tiles, on the device, with no read back to the host.
     """
     valid = plan.valid if edge_valid is None else edge_valid
     base = _values(valid, edge_weight)
@@ -224,6 +244,10 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
     if plan.ell_u_cols is not None:
         kw.update(ell_a=scatter_tiles(plan.ell_a, plan.ell_slots, base),
                   ell_t_a=None)
+        if plan.ell_a_q8 is not None:
+            from repro_torch.sparse.quantize import quantize_chunk_tiles
+            kw["ell_a_q8"], kw["ell_a_scale"] = quantize_chunk_tiles(
+                kw["ell_a"], plan.ell_u_cols.shape[0])
     return dataclasses.replace(plan, **kw)
 
 

@@ -1,4 +1,4 @@
-"""SpGEMM numeric phase — three interchangeable executors over one plan.
+"""SpGEMM numeric phase — four interchangeable executors over one plan.
 Port of ``repro.sparse.spgemm.numeric``.
 
 The symbolic phase (``sparse.spgemm.symbolic``) froze the output structure;
@@ -15,7 +15,11 @@ plan's row-major CSR order).  Executors, registered in
 * ``cuda``      — the hash-pad kernel (``kernels/spgemm_pad``), the
                   counterpart of the reference's ``pallas``: A's dedup-chunk
                   coefficient tiles × the hashed B slab, folded into a pad
-                  held in registers, evicted at the block's last chunk.
+                  held in registers, evicted at the block's last chunk;
+* ``cuda_q8``   — the int8 hash-pad kernel on the same layout, the
+                  counterpart of ``pallas_q8``: both operands int8 with one
+                  scale per chunk.  With the plan's values it reads the
+                  int8 slab baked at plan time and builds no slab at all.
 
 Values may be swapped per call (``a_vals``/``b_vals``; ``None`` uses the
 baked defaults) — structure is plan state, values are data.  That split is
@@ -122,9 +126,34 @@ def _cuda_spgemm(plan: SpgemmPlan, a_vals, b_vals) -> torch.Tensor:
     return c_pad[plan.out_row.long(), plan.out_bucket.long()]
 
 
+def _cuda_q8_spgemm(plan: SpgemmPlan, a_vals, b_vals) -> torch.Tensor:
+    from repro_torch.kernels.spgemm_pad import spgemm_hashpad_q8
+    from repro_torch.sparse.quantize import quantize_chunk_tiles
+    _require_layout(plan, "ell_a", "cuda_q8")
+    if a_vals is None and plan.ell_a_q8 is not None:
+        a_q8, a_scale = plan.ell_a_q8, plan.ell_a_scale
+    else:
+        a_tiles = plan.ell_a if a_vals is None else scatter_tiles(
+            plan.ell_a, plan.ell_slots, _vals(plan, a_vals, plan.a_base))
+        a_q8, a_scale = quantize_chunk_tiles(a_tiles, plan.n_chunks)
+    if b_vals is None and plan.slab_q8 is not None:
+        # the baked int8 slab: no scatter at run time, where the f32
+        # executor rebuilds its slab on every call
+        slab_q8, slab_scale = plan.slab_q8, plan.slab_scale
+    else:
+        slab_q8, slab_scale = quantize_chunk_tiles(hashed_slab(plan, b_vals),
+                                                   plan.n_chunks)
+    c_pad = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr, a_q8,
+                              a_scale, slab_q8, slab_scale,
+                              block_rows=plan.block_rows,
+                              pad_width=plan.pad_width)
+    return c_pad[plan.out_row.long(), plan.out_bucket.long()]
+
+
 register_spgemm_backend(SpgemmBackend("dense", _dense_spgemm))
 register_spgemm_backend(SpgemmBackend("reference", _reference_spgemm))
 register_spgemm_backend(SpgemmBackend("cuda", _cuda_spgemm))
+register_spgemm_backend(SpgemmBackend("cuda_q8", _cuda_q8_spgemm))
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,8 @@ The host part is copied from the reference so that every plan array is
 bitwise equal to its own: the same ``default_rng(seed + growths)`` γ draws
 and the same pad growth.  ``make_spgemm_plan`` packages it all — plus the
 A-side dedup-chunk coefficient tiles and the B-side hashed slab scatter map
-— into a ``SpgemmPlan`` of tensors on one device.
+— into a ``SpgemmPlan`` of tensors on one device; for ``cuda_q8`` it also
+bakes both operands as int8 with one scale per chunk.
 """
 from __future__ import annotations
 
@@ -333,6 +334,13 @@ class SpgemmPlan:
     out_bucket: T = None     # (nnz_out,) int32 into pad lanes
     gammas: T = None         # (n_blocks,) uint32 — per-block γ
 
+    # --- cuda_q8 executor: baked int8 A tiles + quantized hashed slab ---
+    # (the default-values path then pays no slab scatter at run time)
+    ell_a_q8: T = None       # (n_chunks·block_rows, width) int8
+    ell_a_scale: T = None    # (n_chunks,) f32
+    slab_q8: T = None        # (n_chunks·width, pad_width) int8
+    slab_scale: T = None     # (n_chunks,) f32
+
     @property
     def bloat_pct(self) -> float:
         return bloat_percent(self.pp_interim, self.nnz_out)
@@ -357,7 +365,7 @@ class SpgemmPlan:
 # Plan builder
 # ---------------------------------------------------------------------------
 
-ALL_SPGEMM_EXECUTORS = ("dense", "reference", "cuda")
+ALL_SPGEMM_EXECUTORS = ("dense", "reference", "cuda", "cuda_q8")
 
 
 def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
@@ -384,7 +392,9 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
       tiles (with each chunk's live-lane count and each block's chunk
       range, which the kernel walks), per-block γ found by reseeded search,
       B's rows hashed into a per-chunk slab scatter map, and the pad → C
-      gather.
+      gather;
+    * ``cuda_q8`` — the same layout, plus the A tiles and the hashed slab
+      quantized to int8 with one scale per chunk (``_bake_q8``).
     """
     for ex in executors:
         if ex not in ALL_SPGEMM_EXECUTORS:
@@ -433,7 +443,7 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
         kw.update(n_waves=int(n_waves), pp_a=i32(pp_a), pp_b=i32(pp_b),
                   pp_slot=i32(pp_slot))
 
-    if "cuda" in executors:
+    if "cuda" in executors or "cuda_q8" in executors:
         # --- A coefficient tiles (the SpMM path's packer) -----------------
         from repro_torch.sparse.graph import pack_dedup_chunks
         from repro_torch.sparse.plan import block_ptr_from_first
@@ -504,5 +514,43 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
             slab_src=i32(slab_src),
             out_row=i32(sym.c_row), out_bucket=i32(out_bucket),
             gammas=t(gammas))
+        if "cuda_q8" in executors:
+            kw.update(_bake_q8(kw["ell_a"], slab_row, slab_col,
+                               bv[slab_src], int(n_chunks), int(width),
+                               int(pad_width)))
 
     return SpgemmPlan(**kw)
+
+
+def _bake_q8(ell_a: torch.Tensor, slab_row: np.ndarray, slab_col: np.ndarray,
+             slab_vals: np.ndarray, n_chunks: int, width: int,
+             pad_width: int) -> dict:
+    """int8 A tiles and hashed slab, bitwise equal to the reference's bake
+    (a host ``np.add.at`` into the dense f32 slab, then
+    ``quantize_chunk_tiles``) without building the dense f32 slab.
+
+    Entries that share a slab cell (duplicate B entries) are summed on the
+    host over the compact cell list, in entry order as ``np.add.at`` sums
+    them.  The cells are then quantized on the plan's device: a chunk's
+    scale is the max over its nonzero cells, which is the dense tile's max.
+    Only the int8 slab is dense (``n_chunks·width·pad_width`` bytes)."""
+    from repro_torch.sparse.quantize import (quantize_chunk_entries,
+                                             quantize_chunk_tiles,
+                                             record_q8_stats)
+    dev = ell_a.device
+    a_q8, a_scale = quantize_chunk_tiles(ell_a, n_chunks)
+    cell = slab_row.astype(np.int64) * pad_width + slab_col
+    cells, inv = np.unique(cell, return_inverse=True)
+    cell_vals = np.zeros(cells.size, np.float32)
+    np.add.at(cell_vals, inv, slab_vals.astype(np.float32))
+    cells_t = torch.from_numpy(cells).to(dev)
+    q, slab_scale = quantize_chunk_entries(
+        torch.from_numpy(cell_vals).to(dev), cells_t // (width * pad_width),
+        n_chunks)
+    slab_q8 = torch.zeros((n_chunks * width, pad_width), dtype=torch.int8,
+                          device=dev)
+    slab_q8.view(-1)[cells_t] = q
+    record_q8_stats(a_scale)
+    record_q8_stats(slab_scale)
+    return dict(ell_a_q8=a_q8, ell_a_scale=a_scale, slab_q8=slab_q8,
+                slab_scale=slab_scale)

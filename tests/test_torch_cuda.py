@@ -9,10 +9,16 @@ import pytest
 import torch
 
 from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
-from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
-                                                spmm_dedup_chunks_plain)
+from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
+                                                spmm_dedup_chunks,
+                                                spmm_dedup_chunks_plain,
+                                                spmm_dedup_chunks_q8,
+                                                spmm_dedup_chunks_q8_plain)
 from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
-                                            spgemm_hashpad_plain)
+                                            spgemm_hashpad_plain,
+                                            spgemm_hashpad_q8,
+                                            spgemm_hashpad_q8_plain)
+from repro_torch.sparse import quantize as qz
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.graph import pack_dedup_chunks
 from repro_torch.sparse.plan import block_ptr_from_first, make_plan
@@ -157,3 +163,156 @@ def test_spgemm_cuda_executor_matches_reference(cuda):
     got = sb.spgemm(plan, av, None, backend="cuda")
     want = sb.spgemm(plan, av, None, backend="reference")
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels: spmm_dedup_chunks_q8 (B4) and spgemm_hashpad_q8 (B5)
+# ---------------------------------------------------------------------------
+
+def _q8_args(n, e, d, seed, width_cap, dev):
+    u, rem, ptr, a, x = _args(n, e, d, seed, width_cap, dev)
+    a_q8, a_scale = qz.quantize_chunk_tiles(a, u.shape[0])
+    x_q8, x_scale = qz.quantize_feature_tiles(x, auto_d_tile(d))
+    return u, rem, ptr, a_q8, a_scale, x_q8, x_scale
+
+
+@pytest.mark.parametrize("n,e,d,width_cap", [
+    (40, 300, 7, 128), (40, 300, 16, 128), (64, 900, 33, 8),
+    (300, 2000, 600, 128), (64, 900, 600, 8), (200, 30, 16, 128)])
+def test_spmm_q8_kernel_matches_plain(cuda, n, e, d, width_cap):
+    args = _q8_args(n, e, d, seed=n + d, width_cap=width_cap, dev=cuda)
+    before = spmm_dedup_chunks_q8.launches
+    got = spmm_dedup_chunks_q8(*args, block_rows=8)
+    assert spmm_dedup_chunks_q8.launches == before + 1
+    want = spmm_dedup_chunks_q8_plain(*args, block_rows=8,
+                                      q_tile=auto_d_tile(d))
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_quantizers_on_the_card_equal_the_cpu_bitwise(cuda):
+    # the int8 values, and so every kernel result, must not depend on the
+    # device that quantized them
+    rng = np.random.default_rng(11)
+    a = (rng.normal(size=(64 * 8, 48)) * rng.choice(
+        [1e-3, 1.0, 37.0], (64 * 8, 1))).astype(np.float32)
+    x = (rng.normal(size=(300, 600)) * 5).astype(np.float32)
+    chunk = np.sort(rng.integers(0, 64, a.size))
+    for fn, args in ((qz.quantize_chunk_tiles, (a, 64)),
+                     (qz.quantize_feature_tiles, (x, 304)),
+                     (qz.quantize_chunk_entries, (a.reshape(-1), chunk,
+                                                  64))):
+        host = [torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                for v in args]
+        want = fn(*host)
+        got = fn(*[v.to(cuda) if isinstance(v, torch.Tensor) else v
+                   for v in host])
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+
+
+def test_spmm_q8_kernel_never_reads_dead_lanes(cuda):
+    u, rem, ptr, a, sa, x, sx = _q8_args(32, 150, 16, seed=1, width_cap=8,
+                                         dev=cuda)
+    want = spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x, sx, block_rows=8)
+    dead = torch.arange(u.shape[1], device=cuda)[None, :] >= rem[:, None]
+    x = torch.cat([x, torch.full((1, 16), 127, dtype=torch.int8,
+                                 device=cuda)])
+    u = torch.where(dead, 32, u).to(torch.int32).contiguous()
+    a = torch.where(dead.repeat_interleave(8, 0), -127, a).to(
+        torch.int8).contiguous()
+    got = spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x, sx, block_rows=8)
+    torch.cuda.synchronize()
+    assert bool(dead.any()) and torch.equal(got, want)
+
+
+def test_spmm_q8_wrapper_raises_on_f32(cuda):
+    u, rem, ptr, a, sa, x, sx = _q8_args(16, 60, 8, seed=2, width_cap=128,
+                                         dev=cuda)
+    with pytest.raises(TypeError):
+        spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x.float(), sx, block_rows=8)
+    with pytest.raises(TypeError):
+        spmm_dedup_chunks_q8(u, rem, ptr, a.float(), sa, x, sx, block_rows=8)
+
+
+@pytest.mark.parametrize("n,e,width_cap,pad_slack,lanes", [
+    (200, 100, 128, 2.0, "below_32"),
+    (300, 3000, 128, 2.0, "h_tiles"),
+    (64, 1500, 8, 2.0, "chunks"),
+    (64, 1500, 8, 64.0, "h_tiles")])
+def test_hashpad_q8_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
+                                         lanes):
+    plan, _ = _spgemm_plan(n, e, seed=n + e, dev=cuda, width_cap=width_cap,
+                           pad_slack=pad_slack,
+                           executors=("reference", "cuda_q8"))
+    if lanes == "below_32":
+        assert plan.pad_width < 32
+    elif lanes == "h_tiles":
+        assert plan.pad_width > 256
+    else:
+        assert plan.n_chunks > plan.n_blocks
+    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
+            plan.ell_a_scale, plan.slab_q8, plan.slab_scale)
+    kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
+    before = spgemm_hashpad_q8.launches
+    got = spgemm_hashpad_q8(*args, **kw)
+    assert spgemm_hashpad_q8.launches == before + 1
+    want = spgemm_hashpad_q8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_hashpad_q8_kernel_never_reads_dead_lanes(cuda):
+    plan, _ = _spgemm_plan(64, 1500, seed=4, dev=cuda, width_cap=8,
+                           executors=("cuda_q8",))
+    kw = dict(block_rows=8, pad_width=plan.pad_width)
+    want = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
+                             plan.ell_a_q8, plan.ell_a_scale, plan.slab_q8,
+                             plan.slab_scale, **kw)
+    lane = torch.arange(plan.width, device=cuda)
+    dead = lane[None, :] >= plan.ell_remaining[:, None]
+    slab = torch.where(dead.reshape(-1, 1), 127, plan.slab_q8).to(torch.int8)
+    a = torch.where(dead.repeat_interleave(8, 0), -127,
+                    plan.ell_a_q8).to(torch.int8)
+    got = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
+                            a.contiguous(), plan.ell_a_scale,
+                            slab.contiguous(), plan.slab_scale, **kw)
+    torch.cuda.synchronize()
+    assert bool(dead.any()) and torch.equal(got, want)
+
+
+def test_hashpad_q8_wrapper_raises_on_f32(cuda):
+    plan, _ = _spgemm_plan(64, 500, seed=6, dev=cuda, executors=("cuda_q8",))
+    with pytest.raises(TypeError):
+        spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
+                          plan.ell_a_q8, plan.ell_a_scale,
+                          plan.slab_q8.float(), plan.slab_scale,
+                          block_rows=8, pad_width=plan.pad_width)
+
+
+def test_q8_executors_within_their_bounds(cuda):
+    rng = np.random.default_rng(7)
+    s, r = rng.integers(0, 500, 4000), rng.integers(0, 500, 4000)
+    w = rng.normal(size=4000).astype(np.float32)
+    plan = make_plan(s, r, 501, edge_weight=w, device=cuda,
+                     backends=("dense", "cuda_q8"))
+    x = torch.from_numpy(rng.normal(size=(501, 16)).astype(np.float32)
+                         ).to(cuda)
+    before = spmm_dedup_chunks_q8.launches
+    got = sb.aggregate(plan, None, x, backend="cuda_q8")
+    assert spmm_dedup_chunks_q8.launches == before + 1
+    _, xs = qz.quantize_feature_tiles(x, 16)
+    bound = qz.aggregate_q8_bound(plan.ell_remaining, plan.ell_out_block,
+                                  plan.n_blocks, plan.ell_a_scale, xs)
+    dev = float((got - sb.aggregate(plan, None, x, backend="dense")
+                 ).abs().max())
+    assert qz.q8_gate(dev, bound)
+    sp, _ = _spgemm_plan(500, 4000, seed=5, dev=cuda,
+                         executors=("reference", "cuda_q8"))
+    got = sb.spgemm(sp, backend="cuda_q8")
+    bound = qz.spgemm_q8_bound(sp.width, sp.ell_out_block, sp.n_blocks,
+                               sp.ell_a_scale, sp.slab_scale)
+    dev = float((got - sb.spgemm(sp, backend="reference")).abs().max())
+    assert qz.q8_gate(dev, bound)

@@ -70,7 +70,8 @@ CASES = ("powerlaw", "rectangular", "empty_rows")
 def _plans(name, **kw):
     ar, ac, n, br, bc, m, k, av, bv = _case(name)
     jp = jsp.make_spgemm_plan(ar, ac, n, br, bc, m, k, a_vals=av, b_vals=bv,
-                              executors=("dense", "reference", "pallas"),
+                              executors=("dense", "reference", "pallas",
+                                         "pallas_q8"),
                               chunk=64, **kw)
     tp = tsp.make_spgemm_plan(ar, ac, n, br, bc, m, k, a_vals=av, b_vals=bv,
                               chunk=64, device=CPU, **kw)
@@ -139,7 +140,7 @@ def test_make_spgemm_plan_bitwise_equal(name):
             n_tensors += 1
         else:
             assert a == b, f.name
-    assert n_tensors == 24
+    assert n_tensors == 28                    # 4 of them the int8 bake
     assert tp.peak_live_pp == jp.peak_live_pp
     assert tp.bloat_pct == jp.bloat_pct
     # the two arrays the reference drops: the packer's live-lane counts and
