@@ -6,7 +6,7 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   the five CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
+   the eight CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
    ``nvcc`` (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
    card (≤1e-5) at the bucket-16 serving plan (D = 16 and 7), the Cora-scale
@@ -52,17 +52,36 @@ Phases, each of which raises (exit code 1) on any failure:
    ``reference`` under ``q8_gate``, timed beside the ``cuda`` executor;
    then, counted, ``two_hop_graph``, ``coarsen_graph`` and gcn-cora over
    the Â² plan, all with ``cuda_q8``, held against ``reference`` / ``dense``
-   and against the same int8 calls on the CPU.
+   and against the same int8 calls on the CPU;
+10. embedding_bag and dlrm-rm2 serving — dlrm-rm2 at full width with its
+    whole fused table (49,127,424 × 64 f32, 12.6 GB) drawn on the card;
+    ``embedding_bag`` against its plain version (exactly equal at M = 1,
+    ≤1e-5) at the serve_p99 (B = 512) and serve_bulk (B = 262,144) batches
+    and a multi-hot batch (M = 4), with row·D past 2³¹, timed beside
+    ``F.embedding_bag``; then, counted (one launch per forward),
+    ``build_recsys_step`` for serve_p99, serve_bulk and retrieval_cand
+    (1 query, 1,000,000 candidates), each held against the same step
+    through the plain lookup (≤1e-5) and traced with ``torch.profiler``;
+11. sddmm — ``edge_scores`` at the Cora-scale graph (d = 64) and the
+    ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100), counted,
+    against the plain version (≤1e-5 relative and absolute), timed beside
+    ``torch.sparse.sampled_addmm``;
+12. flash attention — ``mha_causal`` at qwen3-0.6b's attention width (16
+    heads, 8 kv heads, head_dim 128), S = 4096, batch 1, in f32 and bf16,
+    counted, against the f32 plain version (≤2e-5 f32, ≤2e-2 bf16), timed
+    beside ``scaled_dot_product_attention(is_causal=True)``.
 
 Launch counters are set to 0 just before each main-path run (the three
-serving runs and phases 7 and 9's paths) and read just after it; launches
-made to compare or time a kernel are not counted.  The
+serving runs, phases 7 and 9's paths, each DLRM step and phases 11 and
+12's wrapper calls) and read just after it; launches made to compare or
+time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Times come from
-CUDA events: the kernels and ``torch.sparse.mm`` SpMM replayed from a
-captured CUDA graph (device time per call), the plain versions, the
-SpGEMM executor and cuSPARSE SpGEMM (which syncs on the host to size its
-output, so it cannot be captured) run eagerly.
+CUDA events: the kernels, ``torch.sparse.mm`` SpMM, ``F.embedding_bag``
+and ``scaled_dot_product_attention`` replayed from a captured CUDA graph
+(device time per call); the plain versions, the SpGEMM executor, cuSPARSE
+SpGEMM (which syncs on the host to size its output, so it cannot be
+captured) and ``sampled_addmm`` run eagerly.
 """
 from __future__ import annotations
 
@@ -80,11 +99,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
 KERNEL_TOL = 1e-5
 EXECUTOR_TOL = 1e-4
 SERVE_TOL = 1e-5
 N_REQUESTS = 256
+# phases 10-12 sizes: B6 batches (name, B, M); ogb_products (nodes, edges,
+# d), repro configs/shapes.py:70; qwen3-0.6b attention (B, S, H, KV, hd),
+# repro configs/qwen3_0_6b.py at the train_4k length, batch cut to 1
+B6_CASES = (("serve_p99", 512, 1), ("serve_bulk", 262144, 1),
+            ("multi_hot", 4096, 4))
+OGB_PRODUCTS = (2_449_029, 61_859_140, 100)
+QWEN3_ATTENTION = (1, 4096, 16, 8, 128)
 
 
 class SmokeFailure(RuntimeError):
@@ -311,18 +338,17 @@ def host_input_step(server, seeds):
     return step, node_ids, hop_valid
 
 
-def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
-    """Where one warm bucket-16 host-input step spends its time: wall per
-    step, and from a ``torch.profiler`` trace the device time of all its
-    kernels and of the SpMM kernel (f32 or int8) alone."""
+def trace_steps(step, n_steps: int, kernel: str, top: int = 0) -> dict:
+    """Wall time per call of ``step`` (host clock around ``n_steps`` calls
+    and a sync), and from a ``torch.profiler`` trace of another
+    ``n_steps`` the device time of all its kernels, of ``kernel`` alone
+    and, with ``top``, of the ``top`` costliest device operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step, node_ids, hop_valid = host_input_step(server, seeds)
-
     def run():
         for _ in range(n_steps):
-            step(server.params, node_ids, hop_valid)
+            step()
         torch.cuda.synchronize()
     run()
     t0 = time.perf_counter()
@@ -334,13 +360,30 @@ def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    spmm_us = sum(e.self_device_time_total for e in kernels
-                  if "spmm_dedup_chunks" in e.key)
-    return dict(step_wall_ms=wall_ms,
-                device_ms_per_step=dev_us / 1e3 / n_steps,
-                spmm_ms_per_step=spmm_us / 1e3 / n_steps,
-                device_ops_per_step=sum(e.count for e in kernels) / n_steps,
-                device_busy_share=dev_us / 1e3 / n_steps / wall_ms)
+    kernel_us = sum(e.self_device_time_total for e in kernels
+                    if kernel in e.key)
+    rec = dict(step_wall_ms=wall_ms,
+               device_ms_per_step=dev_us / 1e3 / n_steps,
+               kernel_ms_per_step=kernel_us / 1e3 / n_steps,
+               device_ops_per_step=sum(e.count for e in kernels) / n_steps,
+               device_busy_share=dev_us / 1e3 / n_steps / wall_ms)
+    if top:
+        costliest = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        rec["top_ms_per_step"] = {
+            e.key[:60]: e.self_device_time_total / 1e3 / n_steps
+            for e in costliest[:top]}
+    return rec
+
+
+def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
+    """Where one warm bucket-16 host-input step spends its time: wall per
+    step, and from a ``torch.profiler`` trace the device time of all its
+    kernels and of the SpMM kernel (f32 or int8) alone."""
+    step, node_ids, hop_valid = host_input_step(server, seeds)
+    rec = trace_steps(lambda: step(server.params, node_ids, hop_valid),
+                      n_steps, "spmm_dedup_chunks")
+    rec["spmm_ms_per_step"] = rec.pop("kernel_ms_per_step")
+    return rec
 
 
 def phase_serve(dev, mode, params, indptr, indices, store, seeds,
@@ -959,6 +1002,319 @@ def phase_q8_two_hop(dev, params, x_table):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12 — embedding_bag and DLRM-RM2 serving, sddmm, flash_attention
+# ---------------------------------------------------------------------------
+
+def embedding_bag_case(name, ids, table):
+    """B6 against its plain version over ``table`` at global ids ``ids``
+    (B, F, M), timed beside ``F.embedding_bag(mode="sum")``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_plain)
+    b, f, m = ids.shape
+    d = table.shape[1]
+    out = embedding_bag(ids, table)
+    plain = embedding_bag_plain(ids, table)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"B6 {name}: non-finite output")
+    err = float((out - plain).abs().max())
+    del plain
+    check(err <= KERNEL_TOL, f"B6 {name}: max|kernel-plain| {err:.3e} > "
+                             f"{KERNEL_TOL}")
+    check(m > 1 or err == 0, f"B6 {name}: a one-row bag differs from its "
+                             f"row by {err:.3e}")
+    bags = ids.reshape(b * f, m)
+    library = lambda: F.embedding_bag(bags, table, mode="sum")  # noqa: E731
+    lib_err = float((library() - out.reshape(b * f, d)).abs().max())
+    check(lib_err <= KERNEL_TOL, f"B6 {name}: kernel vs F.embedding_bag "
+                                 f"{lib_err:.3e}")
+    big = out.numel() > 1 << 26
+    graph_kw = dict(calls=5, replays=4) if big else {}
+    rec = dict(
+        shape=f"{name} B={b} F={f} M={m} D={d}", max_abs_err=err,
+        max_row_offset=int(ids.max()) * d,
+        ms=graph_ms(lambda: embedding_bag(ids, table), **graph_kw),
+        plain_ms=eager_ms(lambda: embedding_bag_plain(ids, table),
+                          iters=3 if big else 20),
+        library_ms=graph_ms(library, **graph_kw), library_err=lib_err,
+        library_note="F.embedding_bag(mode='sum') on the (B*F, M) bags")
+    # least bytes: the ids once, each distinct table row they name once,
+    # the bags written once.  Least operations: M - 1 adds per element.
+    n_rows = torch.unique(ids).numel()
+    n_bytes = 4 * (ids.numel() + n_rows * d + out.numel())
+    n_flops = b * f * max(m - 1, 0) * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, distinct_rows=n_rows)
+    say(f"B6 {json.dumps(rec)}")
+    return rec
+
+
+def phase_dlrm(dev):
+    """dlrm-rm2 at full width with its whole 12.6 GB table on the card: B6
+    at the two serving batches and a multi-hot case, then the counted
+    serving and retrieval steps against the plain lookup."""
+    from repro_torch.configs.dlrm_rm2 import FULL
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.models.recsys import dlrm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = dlrm.init_params(FULL, gen, device=dev)
+    torch.cuda.synchronize()
+    table = params["table"]
+    check(tuple(table.shape) == (FULL.padded_vocab, FULL.embed_dim)
+          and table.numel() > 2 ** 31, f"dlrm table {tuple(table.shape)}")
+    say(f"dlrm-rm2 table {tuple(table.shape)}, "
+        f"{table.numel() * 4 / 1e9:.2f} GB, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    offs = torch.from_numpy(FULL.field_offsets).to(dev)
+
+    b6 = []
+    for name, batch, multi_hot in B6_CASES:
+        _, ids, _ = dlrm_batch(batch, FULL.n_dense, FULL.vocab_sizes,
+                               multi_hot=multi_hot, seed=10)
+        gids = torch.from_numpy(ids).to(dev) + offs[None, :, None]
+        b6.append(embedding_bag_case(name, gids, table))
+    top = max(c["max_row_offset"] for c in b6)
+    check(top >= 2 ** 31, f"B6: largest row*D {top} < 2**31")
+    say(f"B6: largest row*D reached {top} (2**31 = {2 ** 31})")
+
+    steps, launches = [], 0
+    for shape_name, n_steps in (("serve_p99", 20), ("serve_bulk", 5),
+                                ("retrieval_cand", 20)):
+        shape = RECSYS_SHAPES[shape_name]
+        dense, ids, _ = dlrm_batch(shape.batch, FULL.n_dense,
+                                   FULL.vocab_sizes, seed=20)
+        batch = {"dense": torch.from_numpy(dense).to(dev),
+                 "sparse_ids": torch.from_numpy(ids).to(dev)}
+        if shape.kind == "retrieval":
+            batch["candidates"] = torch.randn(
+                (shape.n_candidates, FULL.embed_dim), generator=gen,
+                device=dev)
+        step = build_recsys_step(FULL, shape)
+        embedding_bag.launches = 0
+        got = step(params, batch)
+        torch.cuda.synchronize()
+        n = embedding_bag.launches
+        check(n == 1, f"dlrm {shape_name}: {n} embedding_bag launches, "
+                      "expected 1 per forward")
+        launches += n
+        if shape.kind == "retrieval":
+            want_shape = (shape.batch, shape.n_candidates)
+            want = dlrm.retrieval_step(params, FULL, batch["dense"],
+                                       batch["sparse_ids"],
+                                       batch["candidates"], use_kernel=False)
+        else:
+            want_shape = (shape.batch,)
+            want = dlrm.forward(params, FULL, batch["dense"],
+                                batch["sparse_ids"], use_kernel=False)
+        check(tuple(got.shape) == want_shape and bool(
+            torch.isfinite(got).all()), f"dlrm {shape_name}: output "
+                                        f"{tuple(got.shape)} malformed")
+        err = float((got - want).abs().max())
+        check(err <= SERVE_TOL, f"dlrm {shape_name}: kernel path vs plain "
+                                f"lookup {err:.3e}")
+        rec = dict(shape=shape_name, batch=shape.batch, launches=n,
+                   vs_plain_lookup=err,
+                   **trace_steps(lambda: step(params, batch), n_steps,
+                                 "embedding_bag", top=5))
+        say(f"dlrm step {json.dumps(rec)}")
+        steps.append(rec)
+    return b6, steps, launches
+
+
+def sddmm_case(name, src, dst, x, y):
+    """B7 through ``edge_scores`` against its plain version (≤1e-5
+    relative and absolute), timed beside ``torch.sparse.sampled_addmm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.sddmm import edge_scores, sddmm, sddmm_plain
+    e, d = src.shape[0], x.shape[1]
+    got = edge_scores(src, dst, x, y)
+    want = sddmm_plain(src, dst, x, y)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (e,) and bool(torch.isfinite(got).all()),
+          f"B7 {name}: malformed scores")
+    err = float((got - want).abs().max())
+    excess = float(((got - want).abs() - KERNEL_TOL * want.abs()).max())
+    check(excess <= KERNEL_TOL, f"B7 {name}: kernel vs plain {err:.3e} "
+                                "beyond 1e-5 + 1e-5*|plain|")
+    del want
+    pad = (-e) % 256
+    src_p, dst_p = F.pad(src, (0, pad)), F.pad(dst, (0, pad))
+    big = e > 1 << 24
+    rec = dict(
+        shape=f"{name} E={e} D={d}", max_abs_err=err,
+        ms=graph_ms(lambda: sddmm(src_p, dst_p, x, y),
+                    **(dict(calls=5, replays=4) if big else {})),
+        plain_ms=eager_ms(lambda: sddmm_plain(src, dst, x, y),
+                          iters=3 if big else 20))
+    del src_p, dst_p
+    # torch.sparse.sampled_addmm on the CSR pattern of (src, dst), edges in
+    # (src, dst) order; the pattern repeats edges, which CSR may refuse
+    key = src.long() * y.shape[0] + dst.long()
+    order = torch.argsort(key)
+    crow = torch.zeros(x.shape[0] + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(torch.bincount(src.long(), minlength=x.shape[0]),
+                            0)
+    pattern = torch.sparse_csr_tensor(
+        crow, dst.long()[order], torch.zeros(e, device=x.device),
+        (x.shape[0], y.shape[0]))
+    del key
+    # the kernel on the same edges in that (src, dst) order: consecutive
+    # warps then share x rows in L2, as the CSR pattern lets cuSPARSE do
+    src_s = F.pad(src[order], (0, pad))
+    dst_s = F.pad(dst[order], (0, pad))
+    rec["src_sorted_ms"] = graph_ms(lambda: sddmm(src_s, dst_s, x, y),
+                                    **(dict(calls=5, replays=4) if big
+                                       else {}))
+    del src_s, dst_s
+    y_t = y.T
+    try:
+        lib = torch.sparse.sampled_addmm(pattern, x, y_t, beta=0.0)
+    except RuntimeError as exc:          # the library refuses the pattern
+        rec.update(library_ms=None, library_note=f"— sampled_addmm: "
+                                                 f"{str(exc)[:160]}")
+    else:
+        lib_err = float((lib.values() - got[order]).abs().max())
+        check(lib_err <= EXECUTOR_TOL, f"B7 {name}: kernel vs sampled_addmm "
+                                       f"{lib_err:.3e}")
+        del lib
+        rec.update(library_ms=eager_ms(
+            lambda: torch.sparse.sampled_addmm(pattern, x, y_t, beta=0.0),
+            iters=3 if big else 20), library_err=lib_err,
+            library_note="torch.sparse.sampled_addmm on the CSR pattern of "
+                         "(src, dst), eager")
+    del pattern, order, crow
+    # least bytes: the indices once, each distinct x and y row they name
+    # once, the scores once.  Least operations: 2 per element of each pair.
+    rows = [int(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+                .index_fill_(0, i.long(), True).sum())
+            for t, i in ((x, src), (y, dst))]
+    n_bytes = 4 * (3 * e + d * sum(rows))
+    n_flops = 2 * e * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, bound_flops=n_flops)
+    say(f"B7 {json.dumps(rec)}")
+    return rec
+
+
+def phase_sddmm(dev):
+    """B7 through ``edge_scores`` at the Cora-scale graph (d = 64) and at
+    the ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100,
+    indices and features drawn on the card)."""
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.kernels.sddmm import edge_scores, sddmm
+    rng = np.random.default_rng(11)
+    s, r, _, _, _ = cora_like(seed=0)
+    cora = [torch.from_numpy(a).to(dev) for a in (
+        s.astype(np.int32), r.astype(np.int32),
+        rng.normal(size=(2708, 64)).astype(np.float32),
+        rng.normal(size=(2708, 64)).astype(np.float32))]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, e, d = OGB_PRODUCTS
+    products = [torch.randint(0, n, (e,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2)]
+    products += [torch.randn((n, d), generator=gen, device=dev)
+                 for _ in range(2)]
+    sddmm.launches = 0
+    edge_scores(*cora)
+    edge_scores(*products)
+    torch.cuda.synchronize()
+    launches = sddmm.launches
+    check(launches == 2, f"B7: {launches} launches on the edge_scores path, "
+                         "expected 2")
+    recs = [sddmm_case("cora_like", *cora),
+            sddmm_case("ogb_products", *products)]
+    return recs, launches
+
+
+def flash_case(dtype, flat):
+    """B8 at one dtype on the (BH, S, d) layout ``flat`` = (qf, kf, vf):
+    timed beside its plain version and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (causal_attention_plain,
+                                                     flash_attention)
+    qf, kf, vf = flat
+    bh, s, d = qf.shape
+    out = flash_attention(qf, kf, vf)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qf[None], kf[None], vf[None], is_causal=True)[0]
+    lib_err = float((library().float() - out.float()).abs().max())
+    check(lib_err <= (2e-2 if dtype == torch.bfloat16 else 1e-4),
+          f"B8 {dtype}: kernel vs scaled_dot_product_attention {lib_err:.3e}")
+    rec = dict(shape=f"qwen3-0.6b attention BH={bh} S={s} d={d} "
+                     f"{str(dtype).split('.')[-1]}",
+               ms=graph_ms(lambda: flash_attention(qf, kf, vf), calls=5,
+                           replays=4),
+               plain_ms=eager_ms(lambda: causal_attention_plain(qf, kf, vf),
+                                 iters=3),
+               library_ms=graph_ms(library, calls=5, replays=4),
+               library_err=lib_err,
+               library_note="F.scaled_dot_product_attention(is_causal=True)"
+                            " on the repeated (1, BH, S, d) heads")
+    # least bytes: q, k, v read once and o written once (the repeated
+    # heads, as the kernel takes them).  Least operations: q.k and p.v over
+    # the S(S+1)/2 causal pairs, 2 flops a multiply-add, at the peak of
+    # the input type (tensor cores for bf16).
+    n_bytes = 4 * bh * s * d * qf.element_size()
+    n_flops = 2 * bh * d * s * (s + 1)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, bound_flops=n_flops)
+    return rec
+
+
+def phase_flash(dev):
+    """B8 through ``mha_causal`` at qwen3-0.6b's attention width (16 heads,
+    8 kv heads, head_dim 128: repro configs/qwen3_0_6b.py) and the
+    train_4k length (S = 4096), batch cut to 1, in f32 and bf16."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_causal)
+    b, s, h, kv, hd = QWEN3_ATTENTION
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+               for n in (h, kv, kv))
+    q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
+    flash_attention.launches = 0
+    out32 = mha_causal(q, k, v)
+    out16 = mha_causal(q16, k16, v16)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    check(launches == 2, f"B8: {launches} launches on the mha_causal path, "
+                         "expected 2")
+    want32 = mha_causal(q, k, v, use_kernel=False)
+    want16 = mha_causal(q16.float(), k16.float(), v16.float(),
+                        use_kernel=False)
+    torch.cuda.synchronize()
+    recs = []
+    for dtype, out, want, tol, args in (
+            (torch.float32, out32, want32, 2e-5, (q, k, v)),
+            (torch.bfloat16, out16, want16, 2e-2, (q16, k16, v16))):
+        check(out.dtype == dtype and tuple(out.shape) == (b, s, h, hd)
+              and bool(torch.isfinite(out).all()), f"B8 {dtype}: malformed")
+        err = float((out.float() - want).abs().max())
+        check(err <= tol, f"B8 {dtype}: kernel vs f32 plain {err:.3e} > "
+                          f"{tol}")
+        qt, kt, vt = args
+        flat = tuple(t.repeat_interleave(h // t.shape[2], dim=2)
+                     .transpose(1, 2).reshape(b * h, s, hd).contiguous()
+                     for t in (qt, kt, vt))
+        rec = dict(max_abs_err=err, tolerance=tol,
+                   **flash_case(dtype, flat))
+        say(f"B8 {json.dumps(rec)}")
+        recs.append(rec)
+    return recs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -970,7 +1326,9 @@ def main() -> int:
     from repro_torch.data.synthetic import cora_like
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
-    from repro_torch.kernels import forest_sampler, gustavson_spmm, spgemm_pad
+    from repro_torch.kernels import (embedding_bag, flash_attention,
+                                     forest_sampler, gustavson_spmm, sddmm,
+                                     spgemm_pad)
     from repro_torch.models.gnn import gcn
     from repro_torch.serve import FeatureStore
     from repro_torch.sparse.graph import coo_to_csr
@@ -986,7 +1344,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     libraries = [gustavson_spmm.LIBRARY, gustavson_spmm.LIBRARY_Q8,
                  forest_sampler.LIBRARY, spgemm_pad.LIBRARY,
-                 spgemm_pad.LIBRARY_Q8]
+                 spgemm_pad.LIBRARY_Q8, embedding_bag.LIBRARY, sddmm.LIBRARY,
+                 flash_attention.LIBRARY]
     secs = build.build(libraries)
     say(f"built {' + '.join(lib.name for lib in libraries)} with nvcc in "
         f"{secs:.2f}s")
@@ -1028,6 +1387,19 @@ def main() -> int:
           for (name, plan, _), rec in zip(plans, b2)]
     del plans
     two_hop_q8 = phase_q8_two_hop(dev, params, x_table)
+    del agg_plans, cora_plan
+    torch.cuda.empty_cache()
+
+    # phase 10 — B6 and dlrm-rm2 serving at full width (12.6 GB table)
+    b6, dlrm_steps, b6_launches = phase_dlrm(dev)
+    torch.cuda.empty_cache()
+
+    # phase 11 — B7 through edge_scores, Cora-scale and ogb_products
+    b7, b7_launches = phase_sddmm(dev)
+    torch.cuda.empty_cache()
+
+    # phase 12 — B8 through mha_causal at qwen3-0.6b width, S = 4096
+    b8, b8_launches = phase_flash(dev)
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
@@ -1039,6 +1411,7 @@ def main() -> int:
     main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
     main_b4 = b4[0]                      # bucket 16, D = 16: q8 serving
     main_b5 = b5[0]                      # gcn-cora Â²: the q8 two-hop path
+    # B6 at serve_bulk, B7 at ogb_products, B8 in bf16 (b*[1] below)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="spmm_dedup_chunks", route="cuda",
@@ -1078,6 +1451,27 @@ def main() -> int:
              launches=two_hop_q8["launches"]["spgemm_hashpad_q8"],
              max_abs_err=max(c["max_abs_err"] for c in b5),
              shape=main_b5["shape"], **{k: main_b5[k] for k in keys}),
+        dict(name="embedding_bag", route="cuda",
+             source="src/repro_torch/kernels/embedding_bag/csrc/"
+                    "embedding_bag.cu",
+             replaces="src/repro/kernels/embedding_bag/embedding_bag.py:76",
+             launches=b6_launches,
+             max_abs_err=max(c["max_abs_err"] for c in b6),
+             shape=b6[1]["shape"], **{k: b6[1][k] for k in keys}),
+        dict(name="sddmm", route="cuda",
+             source="src/repro_torch/kernels/sddmm/csrc/sddmm.cu",
+             replaces="src/repro/kernels/sddmm/sddmm.py:54",
+             launches=b7_launches,
+             max_abs_err=max(c["max_abs_err"] for c in b7),
+             shape=b7[1]["shape"], **{k: b7[1][k] for k in keys}),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py"
+                      ":68",
+             launches=b8_launches,
+             max_abs_err=max(c["max_abs_err"] for c in b8),
+             shape=b8[1]["shape"], **{k: b8[1][k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
-"""Deterministic synthetic graphs (numpy copy of ``repro.data.synthetic``).
+"""Deterministic synthetic data (numpy copy of ``repro.data.synthetic``).
 
 Real datasets are not bundled; the generators match the statistics of the
-assigned shapes — power-law degree graphs at exact node/edge counts.
+assigned shapes — power-law degree graphs at exact node/edge counts, and
+DLRM batches over the configured vocabularies.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -33,3 +34,17 @@ def cora_like(seed: int = 0):
     x = (rng.random((n, d)) < 0.015).astype(np.float32)   # sparse bag-of-words
     y = rng.integers(0, c, size=n).astype(np.int32)
     return s, r, x, y, c
+
+
+def dlrm_batch(batch: int, n_dense: int, vocab_sizes: Sequence[int],
+               multi_hot: int = 1, seed: int = 0):
+    """(dense (B,13) f32, sparse ids (B, F, multi_hot) int32, labels (B,)
+    f32)."""
+    rng = np.random.default_rng(seed)
+    dense = rng.normal(size=(batch, n_dense)).astype(np.float32)
+    ids = np.stack(
+        [rng.integers(0, v, size=(batch, multi_hot)) for v in vocab_sizes],
+        axis=1,
+    ).astype(np.int32)
+    labels = (rng.random(batch) < 0.5).astype(np.float32)
+    return dense, ids, labels

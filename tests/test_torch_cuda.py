@@ -8,12 +8,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_plain)
+from repro_torch.kernels.flash_attention import (causal_attention_plain,
+                                                 flash_attention, mha_causal)
 from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
 from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                 spmm_dedup_chunks,
                                                 spmm_dedup_chunks_plain,
                                                 spmm_dedup_chunks_q8,
                                                 spmm_dedup_chunks_q8_plain)
+from repro_torch.kernels.sddmm import edge_scores, sddmm, sddmm_plain
 from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
                                             spgemm_hashpad_plain,
                                             spgemm_hashpad_q8,
@@ -316,3 +321,123 @@ def test_q8_executors_within_their_bounds(cuda):
                                sp.ell_a_scale, sp.slab_scale)
     dev = float((got - sb.spgemm(sp, backend="reference")).abs().max())
     assert qz.q8_gate(dev, bound)
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag (B6), sddmm (B7), flash_attention (B8)
+# ---------------------------------------------------------------------------
+
+def _same(got, want):
+    """Equal, NaN where the other is NaN."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("b,f,m,v,d", [
+    (8, 4, 1, 50, 16), (16, 26, 1, 200, 64), (8, 3, 4, 77, 32),
+    (64, 5, 3, 1000, 7), (32, 2, 2, 300, 128)])
+def test_embedding_bag_kernel_matches_plain(cuda, b, f, m, v, d):
+    rng = np.random.default_rng(b + f + d)
+    ids = rng.integers(-v, v, (b, f, m)).astype(np.int32)
+    ids.reshape(-1)[:3] = [v, -v - 1, 2 ** 31 - 1]       # NaN bags
+    ids_t = torch.from_numpy(ids).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda)
+    before = embedding_bag.launches
+    got = embedding_bag(ids_t, table, batch_tile=4)
+    assert embedding_bag.launches == before + 1
+    want = embedding_bag_plain(ids_t, table)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == (b, f * d)
+    assert _same(got, want)         # same rows summed in the same order
+
+
+def test_embedding_bag_kernel_past_2_31_elements(cuda):
+    # 2**25 + 4096 rows of 64: row * 64 passes 2**31 from row 2**25 on
+    n_rows, d = 2 ** 25 + 4096, 64
+    table = torch.randn((n_rows, d), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, n_rows, (256, 3, 2)).astype(np.int32)
+    ids[0, :, 0] = [n_rows - 1, 2 ** 25, 2 ** 25 - 1]
+    ids[1, :, 1] = [-1, -n_rows, n_rows - 4095]
+    ids_t = torch.from_numpy(ids).to(cuda)
+    assert int(ids.max()) * d >= 2 ** 31
+    got = embedding_bag(ids_t, table)
+    want = embedding_bag_plain(ids_t, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[0, :d], table[n_rows - 1] + table[int(ids[0, 0,
+                                                                  1])])
+
+
+def test_sddmm_kernel_matches_plain(cuda):
+    for n, ny, e, d in [(40, 40, 256, 32), (17, 17, 100, 64),
+                        (8, 8, 64, 128), (300, 11, 5000, 100),
+                        (50, 60, 333, 7)]:
+        rng = np.random.default_rng(e + d)
+        src = rng.integers(-n, n, e).astype(np.int32)
+        dst = rng.integers(0, ny, e).astype(np.int32)
+        src[:2], dst[2] = [n, -n - 1], ny             # NaN scores
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        y = rng.normal(size=(ny, d)).astype(np.float32)
+        args = [torch.from_numpy(a).to(cuda) for a in (src, dst, x, y)]
+        before = sddmm.launches
+        got = edge_scores(*args, edge_block=64)
+        assert sddmm.launches == before + 1
+        want = sddmm_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (e,) and torch.equal(got.isnan(), want.isnan())
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5,
+                              equal_nan=True)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd", [
+    (2, 128, 4, 2, 32), (1, 256, 2, 2, 64), (3, 64, 8, 1, 16),
+    (1, 320, 4, 2, 128), (2, 96, 2, 1, 64)])       # 96: a ragged q/kv tile
+def test_flash_attention_kernel_matches_plain(cuda, b, s, h, kv, hd):
+    rng = np.random.default_rng(s + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(
+        np.float32)).to(cuda) for n in (h, kv, kv))
+    before = flash_attention.launches
+    got = mha_causal(q, k, v, block_q=32, block_k=32)
+    assert flash_attention.launches == before + 1
+    want = mha_causal(q, k, v, use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, hd)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_kernel_bf16(cuda, hd):
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 192, 2, hd)).astype(
+        np.float32)).to(cuda).bfloat16() for _ in range(3))
+    got = mha_causal(q, k, v, block_q=64, block_k=64)
+    want = mha_causal(q.float(), k.float(), v.float(), use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def test_new_wrappers_raise_on_unsupported_dtypes(cuda):
+    counts = lambda: (embedding_bag.launches, sddmm.launches,  # noqa: E731
+                      flash_attention.launches)
+    before = counts()
+    ids = torch.zeros((8, 2, 1), dtype=torch.int32, device=cuda)
+    table = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(TypeError):
+        embedding_bag(ids, table.half())
+    with pytest.raises(TypeError):
+        embedding_bag(ids.long(), table)
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sddmm(idx, idx, table.double(), table.double(), edge_block=64)
+    with pytest.raises(TypeError):
+        sddmm(idx.long(), idx.long(), table, table, edge_block=64)
+    q = torch.zeros((2, 64, 32), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                 # no d = 48 kernel
+        flash_attention(*(torch.zeros((2, 64, 48), device=cuda),) * 3)
+    assert counts() == before          # nothing launched, nothing fell back
