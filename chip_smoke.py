@@ -65,11 +65,22 @@ Phases, each of which raises (exit code 1) on any failure:
 11. sddmm — ``edge_scores`` at the Cora-scale graph (d = 64) and the
     ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100), counted,
     against the plain version (≤1e-5 relative and absolute), timed beside
-    ``torch.sparse.sampled_addmm``;
+    ``torch.sparse.sampled_addmm`` on a CSR pattern built beforehand and,
+    as ``library_with_pattern_ms``, with the argsort, bincount, cumsum and
+    ``sparse_csr_tensor`` that build that pattern from the unsorted
+    (src, dst) and the scatter of the scores back to the caller's edge
+    order inside the timed call;
 12. flash attention — ``mha_causal`` at qwen3-0.6b's attention width (16
     heads, 8 kv heads, head_dim 128), S = 4096, batch 1, in f32 and bf16,
     counted, against the f32 plain version (≤2e-5 f32, ≤2e-2 bf16), timed
-    beside ``scaled_dot_product_attention(is_causal=True)``.
+    beside ``scaled_dot_product_attention(is_causal=True)``, with B8's
+    achieved TFLOP/s and share of its bound per dtype; then, as readings
+    and not gates, each B8 instantiation's ``HGMMA`` / ``HMMA`` count in
+    its SASS (``cuobjdump -sass``) and its registers, stack, local (spill)
+    and static shared memory (``cuobjdump --dump-resource-usage``), and
+    where each dtype's error comes from (``flash_numerics``: bf16 against
+    the rounded f32 plain version and P's rounding alone, f32 against an
+    f64 plain version beside emulations of its 3xTF32 sums).
 
 Launch counters are set to 0 just before each main-path run (the three
 serving runs, phases 7 and 9's paths, each DLRM step and phases 11 and
@@ -86,7 +97,10 @@ captured) and ``sampled_addmm`` run eagerly.
 from __future__ import annotations
 
 import json
+import math
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +113,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM tf32 tensor cores, dense
+# an f32-accurate product on the tensor cores as 3xTF32: three TF32 products
+# for each f32 one
+F32_3XTF32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12         # H100 SXM int8 tensor cores, dense
 KERNEL_TOL = 1e-5
@@ -1156,15 +1174,17 @@ def sddmm_case(name, src, dst, x, y):
     del src_p, dst_p
     # torch.sparse.sampled_addmm on the CSR pattern of (src, dst), edges in
     # (src, dst) order; the pattern repeats edges, which CSR may refuse
-    key = src.long() * y.shape[0] + dst.long()
-    order = torch.argsort(key)
-    crow = torch.zeros(x.shape[0] + 1, dtype=torch.int64, device=x.device)
-    crow[1:] = torch.cumsum(torch.bincount(src.long(), minlength=x.shape[0]),
-                            0)
-    pattern = torch.sparse_csr_tensor(
-        crow, dst.long()[order], torch.zeros(e, device=x.device),
-        (x.shape[0], y.shape[0]))
-    del key
+
+    def csr_pattern():
+        order = torch.argsort(src.long() * y.shape[0] + dst.long())
+        crow = torch.zeros(x.shape[0] + 1, dtype=torch.int64,
+                           device=x.device)
+        crow[1:] = torch.cumsum(
+            torch.bincount(src.long(), minlength=x.shape[0]), 0)
+        return order, torch.sparse_csr_tensor(
+            crow, dst.long()[order], torch.zeros(e, device=x.device),
+            (x.shape[0], y.shape[0]))
+    order, pattern = csr_pattern()
     # the kernel on the same edges in that (src, dst) order: consecutive
     # warps then share x rows in L2, as the CSR pattern lets cuSPARSE do
     src_s = F.pad(src[order], (0, pad))
@@ -1189,7 +1209,22 @@ def sddmm_case(name, src, dst, x, y):
             iters=3 if big else 20), library_err=lib_err,
             library_note="torch.sparse.sampled_addmm on the CSR pattern of "
                          "(src, dst), eager")
-    del pattern, order, crow
+        # the like-for-like yardstick: the kernel takes (src, dst) as they
+        # come and returns scores in that order, so the library call pays
+        # for its pattern and for the scatter back to the caller's order
+
+        def library_with_pattern():
+            order, pattern = csr_pattern()
+            vals = torch.sparse.sampled_addmm(pattern, x, y_t,
+                                              beta=0.0).values()
+            return torch.empty_like(vals).index_copy_(0, order, vals)
+        order_err = float((library_with_pattern() - got).abs().max())
+        check(order_err <= EXECUTOR_TOL, f"B7 {name}: kernel vs "
+                                         f"sampled_addmm in edge order "
+                                         f"{order_err:.3e}")
+        rec["library_with_pattern_ms"] = eager_ms(library_with_pattern,
+                                                  iters=3 if big else 20)
+    del pattern, order
     # least bytes: the indices once, each distinct x and y row they name
     # once, the scores once.  Least operations: 2 per element of each pair.
     rows = [int(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
@@ -1261,23 +1296,174 @@ def flash_case(dtype, flat):
                             " on the repeated (1, BH, S, d) heads")
     # least bytes: q, k, v read once and o written once (the repeated
     # heads, as the kernel takes them).  Least operations: q.k and p.v over
-    # the S(S+1)/2 causal pairs, 2 flops a multiply-add, at the peak of
-    # the input type (tensor cores for bf16).
+    # the S(S+1)/2 causal pairs, 2 flops a multiply-add, at the tensor
+    # cores' peak for the input type: bf16, or for f32 the 3xTF32 rate
+    # (the TF32 peak over the three products each f32 one takes)
     n_bytes = 4 * bh * s * d * qf.element_size()
     n_flops = 2 * bh * d * s * (s + 1)
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+            else F32_3XTF32_FLOPS_PER_S)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bound_bytes=n_bytes, bound_flops=n_flops)
+    rec.update(tflop_s=n_flops / rec["ms"] / 1e9,
+               bound_share=rec["bound_ms"] / rec["ms"])
     return rec
+
+
+def sass_readings(library: pathlib.Path) -> dict:
+    """Per kernel instantiation in ``library``: its ``HGMMA`` and ``HMMA``
+    instructions (``cuobjdump -sass``) and its resource usage
+    (``cuobjdump --dump-resource-usage``: registers, stack, local memory,
+    which holds spills, and static shared memory; the dynamic shared memory
+    is set by the launch function)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, str(library)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+
+    def readable(mangled):       # _Z17flash_bf16_kernelILi128E... → <128>
+        m = re.search(r"_Z\d+(\w+?_kernel)ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+    out, name = {}, None
+    for line in dump("-sass").splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = readable(head.group(1))
+            out[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                out[name][op] += bool(re.search(rf"\b{op}\.", line))
+    for line in dump("--dump-resource-usage").splitlines():
+        head = re.search(r"Function (\S+):", line)
+        if head:
+            name = readable(head.group(1))
+        elif name in out:
+            out[name].update({k.lower(): int(v) for k, v in re.findall(
+                r"(REG|STACK|SHARED|LOCAL):(\d+)", line)})
+    return out
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` (to nearest, ties away
+    from zero): half of the 13 dropped bits added, then masked off."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """``a @ b`` from the f32 kernel's 3xTF32 terms (hi = tf32(x), lo =
+    tf32(x - hi); the cross terms first).  Every operand is exact in TF32,
+    so torch's TF32 flag changes only where the sums are taken: on the
+    CUDA cores (off) or in the tensor cores (on)."""
+    ah, bh = _tf32(a), _tf32(b)
+    return (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + ah @ bh
+
+
+def _causal(q, k, v, mm=torch.matmul, exp2=torch.exp2,
+            round_p=lambda p: p):
+    """Causal attention on (BH, S, d) in q's dtype with the kernels'
+    arithmetic route (scores scaled after the product, exponentials in base
+    2), the max over the whole row, and P passed through ``round_p`` for
+    P·v only (the row sums add P as it was)."""
+    s, d = q.shape[1:]
+    x = mm(q, k.transpose(1, 2)) * (math.log2(math.e) / math.sqrt(d))
+    x.masked_fill_(torch.ones((s, s), dtype=torch.bool, device=q.device)
+                   .triu_(1), -1e30)
+    p = exp2(x - x.amax(-1, keepdim=True))
+    del x
+    return mm(round_p(p), v) / p.sum(-1, keepdim=True)
+
+
+def _bf16_steps(a, ref):
+    """|a - ref| in bf16 steps at ref's magnitude (8 significant bits: a
+    step is 2^(e - 8) for |ref| in [2^(e-1), 2^e))."""
+    _, e = torch.frexp(ref.float())
+    return (a.float() - ref.float()).abs() / torch.ldexp(
+        torch.ones_like(ref, dtype=torch.float32), e - 8)
+
+
+def flash_numerics(dtype, flat) -> dict:
+    """Where B8's error comes from, on the (BH, S, d) inputs ``flat``.
+
+    bf16: the share of the kernel's outputs within 0, 1 and 2 bf16 steps
+    of the f32 plain version rounded once to bf16, and max and mean |error|
+    of the kernel against the f32 plain version, of the output's rounding
+    alone, and of P's rounding to bf16 before P·v alone (the plain route
+    with it against the same route without; also the share of outputs
+    whose bf16 value it changes).  f32: the kernel, the plain version and
+    emulations of the kernel's 3xTF32 products (sums on the CUDA cores,
+    sums in the tensor cores, and with a random relative error of up to
+    2^-22 on each exponential, about 2 ulp, as a stand-in for
+    ``ex2.approx``) against an f64 plain version: max and mean |error|, the
+    max per eighth of the rows (row i sums over i + 1 keys), and
+    ``toward_zero``, the mean of (x - f64)·sign(f64) over the mean
+    |x - f64| (-1 when every error shrinks the value's magnitude)."""
+    from repro_torch.kernels.flash_attention import (causal_attention_plain,
+                                                     flash_attention)
+    got = flash_attention(*flat)
+    q, k, v = (t.float() for t in flat)
+    if dtype == torch.bfloat16:
+        want = causal_attention_plain(q, k, v)
+        steps = _bf16_steps(got, want.bfloat16())
+        route = _causal(q, k, v)
+        p16 = _causal(q, k, v, round_p=lambda p: p.bfloat16().float())
+        readings = dict(
+            kernel_within_steps_of_rounded_plain={
+                n: float((steps <= n).float().mean()) for n in (0, 1, 2)},
+            p_rounding_changes_rounded_output=float(
+                (p16.bfloat16() != route.bfloat16()).float().mean()))
+        for name, x, ref in (("kernel", got.float(), want),
+                             ("output_rounding", want.bfloat16().float(),
+                              want),
+                             ("p_rounding", p16, route)):
+            readings.update({f"{name}_max_abs": float((x - ref).abs().max()),
+                             f"{name}_mean_abs": float(
+                                 (x - ref).abs().mean())})
+        return readings
+    ref = _causal(q.double(), k.double(), v.double())
+    gen = torch.Generator(device=q.device).manual_seed(15)
+
+    def noisy_exp2(x):
+        return torch.exp2(x) * (1 + (2 * torch.rand(
+            x.shape, generator=gen, device=x.device) - 1) * 2.0 ** -22)
+
+    def tensor_core_sums():
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return _causal(q, k, v, mm=_mm_3xtf32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+    out = {}
+    for name, fn in (
+            ("kernel", lambda: got),
+            ("plain", lambda: causal_attention_plain(q, k, v)),
+            ("emulated_3xtf32", lambda: _causal(q, k, v, mm=_mm_3xtf32)),
+            ("emulated_3xtf32_tensor_core_sums", tensor_core_sums),
+            ("emulated_3xtf32_ex2_error",
+             lambda: _causal(q, k, v, mm=_mm_3xtf32, exp2=noisy_exp2))):
+        diff = fn().double() - ref
+        mag = diff.abs()
+        out[name] = dict(
+            max_abs=float(mag.max()), mean_abs=float(mag.mean()),
+            toward_zero=float((diff * ref.sign()).mean() / mag.mean()),
+            max_abs_by_eighth=[float(e) for e in mag.amax(dim=(0, 2))
+                               .view(8, -1).amax(1)])
+        del diff, mag
+    return out
 
 
 def phase_flash(dev):
     """B8 through ``mha_causal`` at qwen3-0.6b's attention width (16 heads,
     8 kv heads, head_dim 128: repro configs/qwen3_0_6b.py) and the
     train_4k length (S = 4096), batch cut to 1, in f32 and bf16."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (LIBRARY,
+                                                     flash_attention,
                                                      mha_causal)
     b, s, h, kv, hd = QWEN3_ATTENTION
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1311,7 +1497,14 @@ def phase_flash(dev):
         rec = dict(max_abs_err=err, tolerance=tol,
                    **flash_case(dtype, flat))
         say(f"B8 {json.dumps(rec)}")
+        sdpa_tflop_s = rec["bound_flops"] / rec["library_ms"] / 1e9
+        say(f"B8 {dtype}: {rec['tflop_s']} TFLOP/s, "
+            f"{100 * rec['bound_share']}% of its {rec['bound_by']} bound; "
+            f"SDPA {sdpa_tflop_s} TFLOP/s")
+        say(f"B8 {dtype} numerics "
+            f"{json.dumps(flash_numerics(dtype, flat))}")
         recs.append(rec)
+    say(f"B8 SASS and resources {json.dumps(sass_readings(LIBRARY.path))}")
     return recs, launches
 
 

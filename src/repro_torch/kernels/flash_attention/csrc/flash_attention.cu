@@ -8,234 +8,813 @@
 //   o[b, i] = sum over j <= i of softmax_j(q[b, i] . k[b, j] / sqrt(d))
 //             * v[b, j]
 // with the reference's online softmax: per query row a running max m
-// (from -1e30), sum l and accumulator acc, q scaled before the dot, masked
-// scores set to -1e30, and o = acc / max(l, 1e-30) in the input's type.
-// Inputs are f32 or bf16 (converted to f32 as they are staged); all
-// arithmetic is f32.
+// (from -1e30), sum l and accumulator acc, masked scores set to -1e30, and
+// o = acc / max(l, 1e-30) in the input's type.  Scores are scaled by
+// 1/sqrt(d) in f32 after the product and the exponentials are taken in
+// base 2 (ex2 of s * scale * log2 e - m, one FFMA); every sum is f32.
 //
 // What bounds it on the H100: operations.  A (BH, S, d) causal pass does
 // 2 * BH * d * S * (S + 1) flops on 4 * BH * S * d elements (S = 4096,
-// d = 128: ~1000 flops per element).  This first kernel does them on the
-// CUDA cores in f32, not on the tensor cores (wgmma is later work), and
-// keeps every intermediate on chip:
+// d = 128: ~1000 flops per element), so both instantiations run on the
+// tensor cores and keep every intermediate on chip.
 //
-// * one thread block of 8 warps per (bh, 64-row q tile), heaviest tiles
-//   first; the scaled q tile and each 64-row K and V tile are staged in
-//   shared memory as f32 (rows padded to d + 4 floats so that the lanes'
-//   16-byte K reads fall in distinct banks); past 48 KB (d >= 64) the launch
-//   function raises the kernel's dynamic shared memory limit;
-// * kv tiles that lie wholly above the diagonal are never loaded (the
-//   causal skip); with 64-row q and kv tiles every loaded tile holds at
-//   least one unmasked key for each of the block's rows;
-// * each warp owns 8 query rows: lane l scores keys l and l + 32 of the
-//   tile against them, the row max and sum are warp shuffles, and the
-//   probabilities go through shared memory to the P.V step, where lane l
-//   owns columns l, l + 32, ... of each row's accumulator (a row split over
-//   the warp: at d = 128 a lane holds 8 rows x 4 columns, no spills).
+// bf16 (flash_bf16_kernel): one block of three warpgroups per (bh, 128-row
+// q tile), heaviest tiles first.  Warpgroup 2 is the producer: it gives up
+// registers (setmaxnreg, which takes whole warpgroups) and one of its
+// threads loads the q tile once and each 128-key K and V tile into a
+// two-stage ring by TMA (128-byte swizzle, zero fill past S and past d),
+// with full and empty mbarriers for K and V apart.  Warpgroups 0 and 1
+// are the consumers, 64 q rows each: S = q.k^T is wgmma m64n128k16 with
+// both operands in shared memory (K-major); the online softmax runs on the
+// accumulator fragments (row max and sum across the 4 threads of a quad);
+// P is rounded to bf16 in registers and fed back as wgmma's A operand for
+// O += P.V (m64n{64,128}k16, V an MN-major B operand): the reference keeps
+// P in f32 there, so this product is less precise than the reference's
+// (the row sums l add the f32 P).  Each consumer
+// issues q.K_t and P_{t-1}.V_{t-1} together and runs tile t's softmax
+// while the second is in flight, and the two consumers take turns to
+// issue (named barriers 1 and 2), so one's softmax overlaps the other's
+// products.  The q and kv tiles are both 128 rows, so only the last
+// (diagonal) tile is masked and tiles above it are never loaded.  d < 64
+// is padded to 64 by the TMA's zero fill.
+//
+// f32 (flash_f32_kernel): 3xTF32 on mma.sync.m16n8k8: each operand is split
+// as hi = rna_tf32(x), lo = rna_tf32(x - hi) and every product is
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps ~1e-6 where one TF32 pass
+// would give ~1e-3 (whatever torch's TF32 flags say).  The tensor cores'
+// sums shrink toward zero, so the cross terms are summed apart from hi.hi,
+// and P.V from zero for each 16 keys (mma_3xtf32).  One block of 8 warps
+// per (bh, 128-row q tile), 16 rows per warp; the q tile and a two-stage
+// ring of 64-key K and V tiles are staged by cp.async as f32.  P stays f32
+// in registers: the S accumulator's columns (2c, 2c + 1) become the A
+// fragment's (c, c + 4), and V's rows are read in the same permuted order.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the
+                   // runtime's driver entry point, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 64;            // keys per kv tile
-constexpr int WARPS = 8;
-constexpr int ROWS = BQ / WARPS;  // query rows per warp
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load4(const float* p, float* f) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  f[0] = t.x;
-  f[1] = t.y;
-  f[2] = t.z;
-  f[3] = t.w;
+// ---------------------------------------------------------------------------
+// shared by both instantiations: the m16n8 accumulator layout
+// ---------------------------------------------------------------------------
+//
+// A thread of quad g = lane / 4, position c = lane % 4 holds, for each
+// 8-column block j, elements 4j + 2h + e at row g + 8h, column 8j + 2c + e.
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Stage rows r0 .. r0+63 of one (S, D) matrix into dst (row stride ld),
-// times mul, as f32; rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst,
-                                      int ld, int r0, int seq_len,
-                                      float mul) {
-  for (int i = threadIdx.x; i < BQ * D / 4; i += blockDim.x) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < seq_len) load4(src + (int64_t)(r0 + r) * D + c, f);
+// One tile's online-softmax update.  s holds the tile's raw scores and
+// leaves holding the probabilities; corr is the factor by which the P.V
+// accumulator is to be rescaled (rescale below).  key0 is the key of
+// element 0 (tile start + 2c), row0 the query row of h = 0; diag asks for
+// the causal mask.  m is kept in base 2 (scaled); l stays this thread's
+// share of the row sum (the quad's four shares are added at the end).
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float scale_log2, bool diag,
+                                             int key0, int row0) {
+  if (diag) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[r * ld + c + j] = f[j] * mul;
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (key0 + 8 * j + e > row0 + 8 * h) s[4 * j + 2 * h + e] = MASKED;
   }
+  float mx[2] = {MASKED, MASKED};
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mx[h] = fmaxf(mx[h], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+  float neg_m[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2);  // scale > 0
+    corr[h] = ex2(m[h] - m_new);
+    m[h] = m_new;
+    neg_m[h] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p =
+            ex2(fmaf(s[4 * j + 2 * h + e], scale_log2, neg_m[h]));
+        s[4 * j + 2 * h + e] = p;
+        sum[h] += p;
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+}
+
+template <int NO>
+__device__ __forceinline__ void rescale(float (&acc)[NO],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[4 * j + 2 * h] *= corr[h];
+      acc[4 * j + 2 * h + 1] *= corr[h];
+    }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// o_bh: this head's (S, D) output; writes the thread's two rows, columns
+// below D, as acc / max(l, 1e-30).
+template <int D, typename T, int NO>
+__device__ __forceinline__ void store_rows(T* __restrict__ o_bh,
+                                           const float (&acc)[NO],
+                                           float (&l)[2], int row0, int c,
+                                           int seq_len) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = row0 + 8 * h;
+    if (row >= seq_len) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    T* orow = o_bh + (int64_t)row * D + 2 * c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(orow + 8 * j, acc[4 * j + 2 * h] / denom,
+             acc[4 * j + 2 * h + 1] / denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma with a TMA-fed K/V ring
+// ---------------------------------------------------------------------------
+
+constexpr int B_BM = 128;          // q rows per block (2 consumer warpgroups)
+constexpr int B_BN = 128;          // keys per kv tile
+constexpr int B_STAGES = 2;        // K/V ring depth
+constexpr int B_THREADS = 384;     // warpgroups 0-1 consume, 2 produces
+constexpr int B_CONSUMER_WARPS = 8;
+constexpr int BOX_BYTES = 128 * 128;  // one TMA box: 128 rows x 64 bf16
+static_assert(B_BM == B_BN, "the last kv tile must be the diagonal one");
+
+template <int D>
+struct Bf16Tiles {
+  static constexpr int DP = D < 64 ? 64 : D;  // width on chip (zero fill)
+  static constexpr int BOXES = DP / 64;       // 128-byte swizzle spans
+  static constexpr int TILE_BYTES = BOXES * BOX_BYTES;  // q, K or V tile
+  // 1024 bytes of slack to align the tiles for the 128-byte swizzle, the
+  // q tile, 2 x STAGES kv tiles, then the mbarriers
+  static constexpr int SMEM = 1024 + (1 + 2 * B_STAGES) * TILE_BYTES +
+                              8 * (1 + 4 * B_STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of the (D, S, BH) tensor map at (column c0, row c1, head c2).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads of the accumulators above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FA_ACC8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) . B (16 x 128,
+// shared, K-major); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_ACC8(0), FA_ACC8(8), FA_ACC8(16), FA_ACC8(24), FA_ACC8(32),
+        FA_ACC8(40), FA_ACC8(48), FA_ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16 bf16, registers) . B (16 x 128, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_ACC8(0), FA_ACC8(8), FA_ACC8(16), FA_ACC8(24), FA_ACC8(32),
+        FA_ACC8(40), FA_ACC8(48), FA_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16 bf16, registers) . B (16 x 64, shared,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : FA_ACC8(0), FA_ACC8(8), FA_ACC8(16), FA_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S = q . K^T for one kv tile (issued, not waited on): 16 columns of d
+// per wgmma, 4 per 128-byte swizzle span.
+template <typename L>
+__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t sq_wg,
+                                        uint32_t sk_st) {
+#pragma unroll
+  for (int kk = 0; kk < L::DP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss_n128(s, desc_sw128(sq_wg + off, 16, 1024),
+                  desc_sw128(sk_st + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += P . V for one kv tile (issued, not waited on): 16 keys per
+// wgmma; V is MN-major (d contiguous), the next 64 columns of d one box
+// on (LBO), the next 8 keys 1024 bytes on (SBO).
+template <typename L>
+__device__ __forceinline__ void pv_tile(float (&acc)[L::DP / 2],
+                                        const uint32_t (&pa)[B_BN / 16][4],
+                                        uint32_t sv_st) {
+#pragma unroll
+  for (int kt = 0; kt < B_BN / 16; ++kt)
+    wgmma_rs(acc, pa[kt],
+             desc_sw128(sv_st + kt * 16 * 128, BOX_BYTES, 1024));
+}
+
+// P (bf16) as wgmma's A operand: columns 16kt .. 16kt + 15 are blocks 2kt
+// and 2kt + 1 of the S accumulator.
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[B_BN / 16][4],
+                                        const float (&s)[64]) {
+#pragma unroll
+  for (int kt = 0; kt < B_BN / 16; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kt][i] = pack_bf16(s[8 * kt + 2 * i], s[8 * kt + 2 * i + 1]);
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 template <int D>
-constexpr int smem_floats() {
-  return 2 * BQ * (D + 4) + BK * D + WARPS * ROWS * BK;
+__global__ void __launch_bounds__(B_THREADS, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      __nv_bfloat16* __restrict__ o, int bh_count,
+                      int seq_len, int n_q_tiles, float scale_log2) {
+  using L = Bf16Tiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + L::TILE_BYTES;              // + stage * TILE
+  const uint32_t sv = sk + B_STAGES * L::TILE_BYTES;   // + stage * TILE
+  const uint32_t bar_q = sv + B_STAGES * L::TILE_BYTES;
+  const uint32_t k_full = bar_q + 8;                   // + 8 * stage
+  const uint32_t v_full = k_full + 8 * B_STAGES;
+  const uint32_t k_empty = v_full + 8 * B_STAGES;
+  const uint32_t v_empty = k_empty + 8 * B_STAGES;
+
+  const int qt = n_q_tiles - 1 - blockIdx.x / bh_count;  // heaviest first
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = qt * B_BM;
+  const int n_kv = qt + 1;   // kv tiles 0 .. qt; tile qt is the diagonal
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < B_STAGES; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, B_CONSUMER_WARPS);
+      mbar_init(v_empty + 8 * st, B_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load; the rest exit
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, L::TILE_BYTES);
+      for (int c = 0; c < L::BOXES; ++c)
+        tma_load(sq + c * BOX_BYTES, &tm_q, 64 * c, q0, bh, bar_q);
+      for (int t = 0; t < n_kv; ++t) {
+        const int st = t % B_STAGES;
+        const uint32_t ph = (t / B_STAGES) & 1;
+        // a K slot frees when q.K is done, a V slot when P.V is: the next
+        // K lands while the last P.V runs (first round passes at once)
+        mbar_wait(k_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * st, L::TILE_BYTES);
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load(sk + st * L::TILE_BYTES + c * BOX_BYTES, &tm_k, 64 * c,
+                   t * B_BN, bh, k_full + 8 * st);
+        mbar_wait(v_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * st, L::TILE_BYTES);
+        for (int c = 0; c < L::BOXES; ++c)
+          tma_load(sv + st * L::TILE_BYTES + c * BOX_BYTES, &tm_v, 64 * c,
+                   t * B_BN, bh, v_full + 8 * st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int c = lane & 3;
+    const int row0 = q0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    const uint32_t sq_wg = sq + wg * 64 * 128;   // this warpgroup's rows
+
+    float s[64], acc[L::DP / 2], corr[2];
+    uint32_t pa[B_BN / 16][4];
+    float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
+
+    // Software pipeline over kv tiles: q.K_t and P_{t-1}.V_{t-1} are
+    // issued together, tile t's softmax runs while P_{t-1}.V_{t-1} does,
+    // and acc is rescaled once that is done.  The two warpgroups take
+    // turns to issue (each waits on barrier 1 + wg, then frees the
+    // other's), so one's softmax overlaps the other's products; warpgroup
+    // 0 goes first.
+    if (wg == 1) named_arrive(1);
+    mbar_wait(bar_q, 0);
+    mbar_wait(k_full, 0);
+    named_sync(1 + wg);
+    wgmma_fence();
+    qk_tile<L>(s, sq_wg, sk);
+    wgmma_commit();
+    named_arrive(2 - wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty);
+    softmax_tile(s, m, l, corr, scale_log2, n_kv == 1, 2 * c, row0);
+    to_bf16(pa, s);
+    for (int t = 1; t < n_kv; ++t) {
+      const int st = t % B_STAGES, prev = (t - 1) % B_STAGES;
+      const uint32_t ph = (t / B_STAGES) & 1;
+      const uint32_t ph_prev = ((t - 1) / B_STAGES) & 1;
+      mbar_wait(k_full + 8 * st, ph);
+      mbar_wait(v_full + 8 * prev, ph_prev);
+      named_sync(1 + wg);
+      wgmma_fence();
+      qk_tile<L>(s, sq_wg, sk + st * L::TILE_BYTES);
+      wgmma_commit();
+      pv_tile<L>(acc, pa, sv + prev * L::TILE_BYTES);
+      wgmma_commit();
+      named_arrive(2 - wg);
+      wgmma_wait<1>();                   // q.K_t done, P.V still running
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      softmax_tile(s, m, l, corr, scale_log2, t == n_kv - 1,
+                   t * B_BN + 2 * c, row0);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty + 8 * prev);
+      rescale(acc, corr);
+      to_bf16(pa, s);
+    }
+    const int last = (n_kv - 1) % B_STAGES;
+    mbar_wait(v_full + 8 * last, ((n_kv - 1) / B_STAGES) & 1);
+    named_sync(1 + wg);
+    wgmma_fence();
+    pv_tile<L>(acc, pa, sv + last * L::TILE_BYTES);
+    wgmma_commit();
+    if (wg == 0) named_arrive(2);     // the last turn: nobody waits after
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_rows<D>(o + (int64_t)bh * seq_len * D, acc, l, row0, c, seq_len);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(WARPS * 32)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           int seq_len, int n_q_tiles, float scale) {
-  constexpr int LD = D + 4;
-  constexpr int NC = (D + 31) / 32;  // accumulator columns per lane
-  extern __shared__ float4 smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // (BQ, LD), q * scale
-  float* ks = qs + BQ * LD;                        // (BK, LD)
-  float* vs = ks + BK * LD;                        // (BK, D)
-  float* ps = vs + BK * D;                         // (WARPS, ROWS, BK)
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
 
-  const int bh = blockIdx.x / n_q_tiles;
-  const int q0 = (n_q_tiles - 1 - blockIdx.x % n_q_tiles) * BQ;
+constexpr int F_BM = 128;      // q rows per block
+constexpr int F_BN = 64;       // keys per kv tile
+constexpr int F_WARPS = 8;     // 16 q rows each
+constexpr int F_THREADS = 32 * F_WARPS;
+
+// Row pitches in floats: q and K rows padded to d + 8 (conflict-free
+// 8-byte fragment reads), V rows to d + 4 (conflict-free 4-byte reads of
+// rows 2c and 2c + 1).
+template <int D>
+struct F32Tiles {
+  static constexpr int LDQK = D + 8;
+  static constexpr int LDV = D + 4;
+  static constexpr int STAGE = F_BN * (LDQK + LDV);   // K, then V
+  static constexpr int SMEM = (F_BM * LDQK + 2 * STAGE) * 4;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a . b in 3xTF32: big += hi . hi, small += the two cross terms.  The
+// tensor cores do not round their f32 sums to nearest: each mma shrinks
+// the accumulator's magnitude by up to about an ulp.  So the cross terms
+// (~2^-11 of hi . hi) are summed apart, where that loss is negligible, and
+// the callers start big from zero for a short run of mma and add big +
+// small into their running sums with rounded FADDs.
+__device__ __forceinline__ void mma_3xtf32(float* big, float* small,
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// Rows r0 .. r0 + rows - 1 of one head's (S, D) matrix into dst (row
+// stride LD floats) by 16-byte cp.async; rows past S are zero.
+template <int D, int LD>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           float* dst, int r0, int rows,
+                                           int seq_len) {
+  for (int i = threadIdx.x; i < rows * D / 4; i += F_THREADS) {
+    const int r = i / (D / 4);
+    const int col = (i % (D / 4)) * 4;
+    const bool live = r0 + r < seq_len;
+    const float* from = src + (int64_t)(live ? r0 + r : 0) * D + col;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     smem_u32(dst + r * LD + col)),
+                 "l"(from), "r"(live ? 16 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int bh_count, int seq_len, int n_q_tiles,
+                     float scale_log2) {
+  using L = F32Tiles<D>;
+  constexpr int LDQK = L::LDQK, LDV = L::LDV;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);   // (F_BM, LDQK)
+  float* kv = qs + F_BM * LDQK;   // stage t at t * STAGE: K, then V
+
+  const int qt = n_q_tiles - 1 - blockIdx.x / bh_count;  // heaviest first
+  const int bh = blockIdx.x % bh_count;
+  const int q0 = qt * F_BM;
   const int64_t base = (int64_t)bh * seq_len * D;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* pw = ps + warp * ROWS * BK;
+  const int g = lane >> 2, c = lane & 3;
+  const int w_first = q0 + warp * 16;     // the warp's first q row
+  const int n_kv = (min(q0 + F_BM, seq_len) - 1) / F_BN + 1;
 
-  stage<T, D>(q + base, qs, LD, q0, seq_len, scale);
+  stage_rows<D, LDQK>(q + base, qs, q0, F_BM, seq_len);
+  cp_async_commit();
+  stage_rows<D, LDQK>(k + base, kv, 0, F_BN, seq_len);
+  stage_rows<D, LDV>(v + base, kv + F_BN * LDQK, 0, F_BN, seq_len);
+  cp_async_commit();
 
-  float m_i[ROWS], l_i[ROWS], acc[ROWS][NC];
+  float acc[D / 2];
+  float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_i[i] = MASKED;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int q_last = min(q0 + BQ, seq_len) - 1;
-  for (int k0 = 0; k0 <= q_last; k0 += BK) {  // causal skip past q_last
-    __syncthreads();                           // last tile fully consumed
-    stage<T, D>(k + base, ks, LD, k0, seq_len, 1.f);
-    stage<T, D>(v + base, vs, D, k0, seq_len, 1.f);
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      float* next = kv + ((t + 1) & 1) * L::STAGE;
+      stage_rows<D, LDQK>(k + base, next, (t + 1) * F_BN, F_BN, seq_len);
+      stage_rows<D, LDV>(v + base, next + F_BN * LDQK, (t + 1) * F_BN,
+                         F_BN, seq_len);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const float* ks = kv + (t & 1) * L::STAGE;
+    const float* vs = ks + F_BN * LDQK;
+    const int k0 = t * F_BN;
+    if (k0 <= w_first + 15) {    // else every key is above the warp's rows
+      float s[F_BN / 2], s_small[F_BN / 2];
+#pragma unroll
+      for (int i = 0; i < F_BN / 2; ++i) s[i] = s_small[i] = 0.f;
+      // S = q . K^T over 8 columns of d per step.  The sum over d does
+      // not care which column an mma k-slot carries, so slots c and c + 4
+      // take columns 2c and 2c + 1 in both q and K: one float2 each.
+      const float* qw = qs + (warp * 16 + g) * LDQK + 2 * c;
+      const float* kw = ks + g * LDQK + 2 * c;
+#pragma unroll 2
+      for (int kd = 0; kd < D / 8; ++kd) {
+        const float2 a0 = *reinterpret_cast<const float2*>(qw + kd * 8);
+        const float2 a1 =
+            *reinterpret_cast<const float2*>(qw + 8 * LDQK + kd * 8);
+        uint32_t ah[4], al[4];
+        split_tf32(a0.x, ah[0], al[0]);
+        split_tf32(a1.x, ah[1], al[1]);
+        split_tf32(a0.y, ah[2], al[2]);
+        split_tf32(a1.y, ah[3], al[3]);
+#pragma unroll
+        for (int nb = 0; nb < F_BN / 8; ++nb) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              kw + nb * 8 * LDQK + kd * 8);
+          mma_3xtf32(&s[4 * nb], &s_small[4 * nb], ah, al, b.x, b.y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < F_BN / 2; ++i) s[i] += s_small[i];
 
-    float s[ROWS][2];
+      float corr[2];
+      softmax_tile(s, m, l, corr, scale_log2, k0 + F_BN - 1 > w_first,
+                   k0 + 2 * c, w_first + g);
+      rescale(acc, corr);
+
+      // O += P . V over 8 keys per step: A's columns (c, c + 4) are the
+      // accumulator's keys (2c, 2c + 1), so V's rows 2c and 2c + 1 are
+      // B's rows c and c + 4.  The product over each 16 keys is summed
+      // from zero, NG blocks of 8 columns of d at a time (NG independent
+      // mma chains), and added to acc once.  (Longer runs of keys held more
+      // P fragments live and spilled.)
+      constexpr int KH = 2;                      // 8-key steps a run
+      constexpr int NG = D / 8 < 4 ? D / 8 : 4;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int c = 0; c < D; c += 4) {
-      float ka[4], kb[4];
-      load4(ks + lane * LD + c, ka);
-      load4(ks + (lane + 32) * LD + c, kb);
+      for (int k0h = 0; k0h < F_BN / 8; k0h += KH) {
+        uint32_t ph[KH][4], pl[KH][4];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        float qv[4];
-        load4(qs + (warp * ROWS + i) * LD + c, qv);
+        for (int kb = 0; kb < KH; ++kb) {
+          const float* p = &s[4 * (k0h + kb)];
+          split_tf32(p[0], ph[kb][0], pl[kb][0]);
+          split_tf32(p[2], ph[kb][1], pl[kb][1]);
+          split_tf32(p[1], ph[kb][2], pl[kb][2]);
+          split_tf32(p[3], ph[kb][3], pl[kb][3]);
+        }
+        const float* vr = vs + (k0h * 8 + 2 * c) * LDV + g;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][0] += qv[j] * ka[j];
-          s[i][1] += qv[j] * kb[j];
+        for (int nb0 = 0; nb0 < D / 8; nb0 += NG) {
+          float big[4 * NG], small[4 * NG];
+#pragma unroll
+          for (int i = 0; i < 4 * NG; ++i) big[i] = small[i] = 0.f;
+#pragma unroll
+          for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+            for (int n = 0; n < NG; ++n)
+              mma_3xtf32(&big[4 * n], &small[4 * n], ph[kb], pl[kb],
+                         vr[kb * 8 * LDV + (nb0 + n) * 8],
+                         vr[(kb * 8 + 1) * LDV + (nb0 + n) * 8]);
+#pragma unroll
+          for (int i = 0; i < 4 * NG; ++i)
+            acc[4 * nb0 + i] += big[i] + small[i];
         }
       }
     }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int q_pos = q0 + warp * ROWS + i;
-      if (k0 + lane > q_pos) s[i][0] = MASKED;
-      if (k0 + lane + 32 > q_pos) s[i][1] = MASKED;
-      float mx = fmaxf(s[i][0], s[i][1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float p0 = expf(s[i][0] - m_new);
-      const float p1 = expf(s[i][1] - m_new);
-      const float corr = expf(m_i[i] - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[i] = l_i[i] * corr + sum;
-      m_i[i] = m_new;
-      pw[i * BK + lane] = p0;
-      pw[i * BK + lane + 32] = p1;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) acc[i][n] *= corr;
-    }
-    __syncwarp();
-
-    for (int j = 0; j < BK; ++j) {
-      float vv[NC];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int c = lane + 32 * n;
-        vv[n] = c < D ? vs[j * D + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float p = pw[i * BK + j];
-#pragma unroll
-        for (int n = 0; n < NC; ++n) acc[i][n] += p * vv[n];
-      }
-    }
-    __syncwarp();  // pw is rewritten by the next tile
+    __syncthreads();   // the stage is rewritten two tiles on
   }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int q_pos = q0 + warp * ROWS + i;
-    if (q_pos >= seq_len) continue;
-    const float denom = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + base + (int64_t)q_pos * D;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int c = lane + 32 * n;
-      if (c < D) store1(orow + c, acc[i][n] / denom);
-    }
-  }
+  store_rows<D>(o + base, acc, l, w_first + g, c, seq_len);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq_len, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  static bool attr_set = false;  // set once, before any graph capture
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// (BH, S, d) bf16 as a 3-d map (d, S, BH), 128-row x 64-column boxes with
+// the 128-byte swizzle; columns past d and rows past S read as zero.
+static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq_len,
+                    int head_dim) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)head_dim, (cuuint64_t)seq_len,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)head_dim * 2,
+                                 (cuuint64_t)seq_len * head_dim * 2};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
+                int seq_len, float scale, cudaStream_t stream) {
+  constexpr int bytes = Bf16Tiles<D>::SMEM;
+  // set once per instantiation, before any graph capture
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = make_map(&maps[i], ptrs[i], bh, seq_len, D);
+    if (err) return err;
   }
-  const int n_q_tiles = (seq_len + BQ - 1) / BQ;
+  const int n_q_tiles = (seq_len + B_BM - 1) / B_BM;
   const int64_t blocks = (int64_t)bh * n_q_tiles;
-  flash_attention_kernel<T, D><<<(unsigned)blocks, WARPS * 32, bytes,
-                                 stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, seq_len, n_q_tiles,
-      scale);
+  flash_bf16_kernel<D><<<(unsigned)blocks, B_THREADS, bytes, stream>>>(
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, bh, seq_len, n_q_tiles,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int bh,
-             int seq_len, int head_dim, float scale, cudaStream_t s) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, bh, seq_len, scale, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, seq_len, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, seq_len, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, seq_len, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
+               int seq_len, float scale, cudaStream_t stream) {
+  constexpr int bytes = F32Tiles<D>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const int n_q_tiles = (seq_len + F_BM - 1) / F_BM;
+  const int64_t blocks = (int64_t)bh * n_q_tiles;
+  flash_f32_kernel<D><<<(unsigned)blocks, F_THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, bh,
+      seq_len, n_q_tiles, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int seq_len, int is_bf16, float scale, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, o, bh, seq_len, scale, s)
+                 : launch_f32<D>(q, k, v, o, bh, seq_len, scale, s);
 }
 
 // q, k, v, o: (bh, seq_len, head_dim), f32 (is_bf16 = 0) or bf16
@@ -249,9 +828,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return 0;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    return launch_d<__nv_bfloat16>(q, k, v, o, bh, seq_len, head_dim, scale,
-                                   s);
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
+    case 32:
+      return launch<32>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return launch_d<float>(q, k, v, o, bh, seq_len, head_dim, scale, s);
 }

@@ -5,8 +5,12 @@ Port of ``repro.kernels.flash_attention.flash_attention.flash_attention``:
 causal ``softmax(q·kᵀ/√d)·v`` on ``(BH, S, d)`` with the kv heads already
 repeated, f32 accumulation, output in ``q``'s type.  The CUDA kernel
 (``csrc/flash_attention.cu``) keeps the reference's online softmax and
-constants with its own tiling (64-row q and kv tiles), for d ∈ {16, 32,
-64, 128} and f32 or bf16 inputs.
+constants with its own tiling, for d ∈ {16, 32, 64, 128}: bf16 inputs run
+on ``wgmma`` fed by a TMA K/V ring (128-row q and kv tiles), f32 inputs as
+3xTF32 on ``mma.sync`` (128-row q, 64-row kv tiles), never single-pass
+TF32 and whatever torch's TF32 flags say.  The bf16 kernel rounds the
+probabilities P to bf16 before P·v, where the reference keeps P in f32
+(its row sums stay f32); the f32 kernel keeps P in f32.
 
 ``flash_attention`` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises.
@@ -52,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q.dtype``.
 
     ``block_q``/``block_k`` are the reference's tiles: they are cut to S and
-    must divide it, as there; the CUDA kernel tiles by 64 on its own.
+    must divide it, as there; the CUDA kernel tiles on its own.
     """
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k, v all float32 or all "

@@ -413,11 +413,74 @@ def test_flash_attention_kernel_bf16(cuda, hd):
     rng = np.random.default_rng(hd)
     q, k, v = (torch.from_numpy(rng.normal(size=(2, 192, 2, hd)).astype(
         np.float32)).to(cuda).bfloat16() for _ in range(3))
+    before = flash_attention.launches
     got = mha_causal(q, k, v, block_q=64, block_k=64)
+    assert flash_attention.launches == before + 1
     want = mha_causal(q.float(), k.float(), v.float(), use_kernel=False)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def _flat_qkv(bh, s, d, seed, dev, dtype):
+    """(BH, S, d) q, k, v drawn from a numpy seed, in ``dtype`` on ``dev``."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(bh, s, d)).astype(
+        np.float32)).to(dev).to(dtype) for _ in range(3))
+
+
+def _one_launch(q, k, v):
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, block_q=32, block_k=32)   # divide S
+    assert flash_attention.launches == before + 1
+    return out
+
+
+# S = 96, 192, 320: ragged 64- and 128-row tiles, and q tiles that are not
+# the kv tiles (f32 pairs 128-row q tiles with 64-row kv tiles)
+@pytest.mark.parametrize("s", [96, 192, 320])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_f32_kernel_shapes(cuda, d, s):
+    q, k, v = _flat_qkv(3, s, d, d + s, cuda, torch.float32)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("s", [96, 192, 320])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bf16_kernel_shapes(cuda, d, s):
+    q, k, v = _flat_qkv(3, s, d, d + s, cuda, torch.bfloat16)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def test_flash_attention_bf16_kernel_long_rows(cuda):
+    # eight 128-key tiles per row at the last q tile: the ring wraps
+    q, k, v = _flat_qkv(2, 1024, 128, 1024, cuda, torch.bfloat16)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def test_flash_attention_f32_kernel_ignores_tf32_flags(cuda):
+    # the kernel's precision is its own: 3xTF32 whatever torch allows
+    q, k, v = _flat_qkv(2, 320, 128, 7, cuda, torch.float32)
+    want = causal_attention_plain(q, k, v)          # before the flag
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = _one_launch(q, k, v)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert float((got - want).abs().max()) <= 2e-5
 
 
 def test_new_wrappers_raise_on_unsupported_dtypes(cuda):

@@ -3,6 +3,8 @@ the reference's ``mha_causal(use_kernel=False)`` and
 ``causal_attention_ref``, at ``tests/test_kernels.py``'s shapes and bars
 (2e-5 f32; 2e-2 for bf16 against the f32 oracle).  The reference's Pallas
 body is not the anchor: it does not run in interpret mode on this jax."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,3 +80,81 @@ def test_blocks_are_cut_to_the_sequence():
     q = torch.randn(2, 64, 16)
     out = flash_attention(q, q, q, block_q=256, block_k=256)
     assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's rounding points, emulated in plain torch on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude, then mask them off."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tensor_core_mm(a: torch.Tensor, b: torch.Tensor, split: bool):
+    """``a @ b`` from TF32 operands and f32 sums: one pass of the rounded
+    operands, or 3xTF32 (hi = tf32(x), lo = tf32(x - hi); the cross terms
+    first, then hi·hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulated_kernel(q, k, v, mode: str) -> torch.Tensor:
+    """Causal attention on (BH, S, d) f32 tensors with the kernel's rounding:
+    ``mode`` "3xtf32" (the f32 kernel), "tf32" (one TF32 pass, what the f32
+    kernel does not do) or "bf16" (bf16 q, k, v with exact products and f32
+    sums, P rounded to bf16 before P·V, the output to bf16).  Scores are
+    scaled after the product, in base 2, as the kernel keeps them."""
+    s, d = q.shape[1:]
+    if mode == "bf16":
+        q, k, v = (t.bfloat16().float() for t in (q, k, v))
+        sc = q @ k.transpose(1, 2)
+    else:
+        sc = _tensor_core_mm(q, k.transpose(1, 2), mode == "3xtf32")
+    x = sc * (math.log2(math.e) / math.sqrt(d))
+    causal = torch.ones((s, s), dtype=torch.bool).tril_()
+    x = x.masked_fill(~causal, -1e30)
+    p = torch.exp2(x - x.max(dim=-1, keepdim=True).values)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if mode == "bf16":
+        return ((p.bfloat16().float() @ v) / denom).bfloat16().float()
+    return _tensor_core_mm(p, v, mode == "3xtf32") / denom
+
+
+@pytest.mark.parametrize("s", [256, 1024])
+def test_kernel_rounding_points_hold_the_bars(s):
+    """At d = 128 against ``causal_attention_ref``: 3xTF32 within the f32
+    bar (2e-5), bf16 with P rounded to bf16 within its bar (2e-2), and one
+    TF32 pass beyond 2e-5: why the f32 kernel splits its operands."""
+    rng = np.random.default_rng(15 + s)
+    q, k, v = (rng.normal(size=(2, s, 128)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = np.asarray(causal_attention_ref(*map(jnp.asarray, (q, k, v))))
+    err = {mode: float(np.abs(_emulated_kernel(tq, tk, tv, mode).numpy()
+                              - want).max())
+           for mode in ("3xtf32", "tf32")}
+    assert err["3xtf32"] <= 2e-5
+    assert err["tf32"] > 2e-5
+    # bf16: the oracle sees the same bf16 values, in f32
+    q16, k16, v16 = (np.array(jnp.asarray(a, jnp.bfloat16).astype(
+        jnp.float32)) for a in (q, k, v))
+    want16 = np.asarray(causal_attention_ref(*map(jnp.asarray,
+                                                  (q16, k16, v16))))
+    got16 = _emulated_kernel(tq, tk, tv, "bf16").numpy()
+    assert float(np.abs(got16 - want16).max()) <= 2e-2
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32's spacing just above 1
+    x = torch.tensor([one + ulp / 2, one + ulp / 4, -(one + ulp / 2),
+                      one + 3 * ulp / 2, 3.0], dtype=torch.float32)
+    got = _tf32(x).tolist()
+    assert got == [one + ulp, one, -(one + ulp), one + 2 * ulp, 3.0]
