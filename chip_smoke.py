@@ -6,8 +6,9 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   the eight CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
-   ``nvcc`` (started together) and print the build seconds;
+   the eight CUDA kernels from the seven sources of
+   ``src/repro_torch/kernels/*/csrc`` (B2 and B5 share one) with ``nvcc``
+   (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
    card (≤1e-5) at the bucket-16 serving plan (D = 16 and 7), the Cora-scale
    full graph (D = 16) and the n=4096/e=16384 graph (D = 64), timed beside
@@ -23,11 +24,18 @@ Phases, each of which raises (exit code 1) on any failure:
    timed and traced with ``torch.profiler`` (device time per step);
 5. serving, device sampler — the same with ``sampler="device"``; the draw
    kernel ran too, and parity holds against the host-sampled replay;
-6. SpGEMM kernel — ``spgemm_hashpad`` against its plain version (≤1e-5) at
-   three A·A plans: gcn-cora's Â² (Cora-scale, sym-normed with self loops),
-   the n=4096/e=16384 power-law graph and a Pubmed-scale stand-in
-   (n=19717, e=88648); each timed beside ``torch.sparse.mm(A, A)``
-   (cuSPARSE SpGEMM, structure included) and the whole ``cuda`` executor;
+6. SpGEMM kernel — ``spgemm_hashpad`` on B's compact cells against its
+   compact plain version and the dense-slab oracle gathered through
+   ``out_row``/``out_bucket`` (≤1e-5), and against itself run to run
+   (bitwise), at three A·A plans: gcn-cora's Â² (Cora-scale, sym-normed
+   with self loops), the n=4096/e=16384 power-law graph and a Pubmed-scale
+   stand-in (n=19717, e=88648); each timed graph-replayed and eager beside
+   eager ``torch.sparse.mm(A, A)`` (cuSPARSE SpGEMM, structure included),
+   the whole ``cuda`` executor, and the port's whole A·A from the host's
+   arrays (symbolic, pack and numeric: what cuSPARSE's one call does),
+   with its bound (the function's own bytes and operations; the count of
+   the earlier dense-slab kernels as ``slab_bound_bytes``) and the plan's
+   device bytes beside those of the dense-slab layout;
 7. SpGEMM executor and the two-hop path — the ``cuda`` executor against
    ``reference`` at the three plans and against ``dense`` at the first two
    (≤1e-4); then, counted, ``two_hop_graph`` and ``coarsen_graph`` with
@@ -46,10 +54,12 @@ Phases, each of which raises (exit code 1) on any failure:
    sampler="device")`` serving 256 requests as in phase 5, held to offline
    replay within ``Q8_E2E_TOL``, with one warm bucket-16 step traced and
    held against the same step on the CPU;
-9. int8 SpGEMM and the two-hop path — ``spgemm_hashpad_q8`` against its
-   plain version (≤1e-5) at phase 6's three plans, timed beside phase 6's
-   ``spgemm_hashpad`` and cuSPARSE; the baked ``cuda_q8`` executor against
-   ``reference`` under ``q8_gate``, timed beside the ``cuda`` executor;
+9. int8 SpGEMM and the two-hop path — ``spgemm_hashpad_q8`` on the baked
+   int8 cells against its compact plain version and the dense int8 oracle
+   (≤1e-5) and run to run (bitwise) at phase 6's three plans, timed as in
+   phase 6 beside phase 6's ``spgemm_hashpad`` and cuSPARSE; the baked
+   ``cuda_q8`` executor against ``reference`` under ``q8_gate``, timed
+   beside the ``cuda`` executor;
    then, counted, ``two_hop_graph``, ``coarsen_graph`` and gcn-cora over
    the Â² plan, all with ``cuda_q8``, held against ``reference`` / ``dense``
    and against the same int8 calls on the CPU;
@@ -498,58 +508,132 @@ def spgemm_plans(dev):
     return plans
 
 
+CELL_FIELDS = ("cell_ptr", "cell_lane", "cell_bucket", "cell_val", "cell_src",
+               "cell_src_ptr", "cell_q8")
+
+
+def plan_bytes(plan) -> dict:
+    """Device bytes of an ``SpgemmPlan``: its tensors now, and the same
+    plan in the layout before B's compact cells (no ``cell_*`` fields, and
+    with ``cuda_q8`` a dense ``(n_chunks·width, pad_width)`` int8 slab)."""
+    import dataclasses
+
+    def nbytes(names):
+        return sum(t.numel() * t.element_size() for t in
+                   (getattr(plan, n) for n in names)
+                   if isinstance(t, torch.Tensor))
+    now = nbytes([f.name for f in dataclasses.fields(plan)])
+    before = now - nbytes(CELL_FIELDS)
+    if plan.cell_q8 is not None:
+        before += plan.n_chunks * plan.width * plan.pad_width
+    return dict(plan_bytes=now, plan_bytes_dense_slab_layout=before)
+
+
+def spgemm_bound(plan, tiles, value_bytes: int,
+                 peak_ops_per_s: float) -> dict:
+    """The least time for the hash-pad function on this plan's data.
+    Bytes: A's live coefficient columns, each compact cell once (lane,
+    bucket, value), the cell pointers, C's buckets read and values written,
+    remaining, block_ptr, c_indptr (and the two per-chunk scales of the
+    int8 kernel).  Operations: 2 per product of a nonzero coefficient with
+    a cell of its lane.  ``slab_bound_bytes`` is the count of the earlier
+    dense-slab kernels (each live slab row once, the pad written once),
+    kept so their readings stay comparable."""
+    k, w, h, br = plan.n_chunks, plan.width, plan.pad_width, plan.block_rows
+    live = int(plan.ell_remaining.sum())
+    scale_bytes = 8 * k if value_bytes == 1 else 0
+    n_bytes = (live * br * value_bytes + plan.n_cells * (8 + value_bytes)
+               + 4 * ((k + 1) + 2 * plan.nnz_out + k
+                      + plan.ell_block_ptr.numel() + plan.c_indptr.numel())
+               + scale_bytes)
+    a_nz = (tiles.reshape(k, br, w) != 0).sum(1)                # (k, w)
+    chunk = torch.repeat_interleave(
+        torch.arange(k, device=plan.device),
+        (plan.cell_ptr[1:] - plan.cell_ptr[:-1]).long())
+    n_ops = 2 * int(a_nz[chunk, plan.cell_lane.long()].sum())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_ops_per_s
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=n_bytes, bound_ops=n_ops, live_lanes=live,
+                n_cells=plan.n_cells,
+                slab_bound_bytes=value_bytes * live * (h + br) + scale_bytes
+                + 4 * (k + plan.ell_block_ptr.numel() + plan.n_blocks * br * h))
+
+
+def whole_build_ms(plan, backend: str) -> float:
+    """Wall ms of the port's whole A·B from the host's COO arrays, best of
+    two: the host symbolic phase and pack (``make_spgemm_plan`` with
+    ``backend``'s layout only) and the numeric phase, synchronized.  That
+    is the work ``torch.sparse.mm`` does in one call (C's structure and
+    values); the kernel's ms is the numeric phase alone."""
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse.spgemm import make_spgemm_plan
+    a_rows, a_cols, b_rows, b_cols, a_vals, b_vals = (
+        t.cpu().numpy() for t in (plan.a_rows, plan.a_cols, plan.b_rows,
+                                  plan.b_cols, plan.a_base, plan.b_base))
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = make_spgemm_plan(a_rows, a_cols, plan.n_rows, b_rows, b_cols,
+                             plan.n_inner, plan.n_cols, a_vals=a_vals,
+                             b_vals=b_vals, executors=(backend,),
+                             device=plan.device)
+        sb.spgemm(p, backend=backend)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
 def spgemm_case(name, plan):
     from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                                spgemm_hashpad_compact_plain,
                                                 spgemm_hashpad_plain)
     from repro_torch.sparse import backend as sb
     from repro_torch.sparse.spgemm.numeric import hashed_slab
-    slab = hashed_slab(plan)
-    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a, slab)
+    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a, plan.cell_ptr,
+            plan.cell_lane, plan.cell_bucket, plan.cell_val, plan.c_indptr,
+            plan.out_bucket)
     kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
-    c_pad = spgemm_hashpad(*args, **kw)
-    plain = spgemm_hashpad_plain(*args, **kw)
+    c_vals = spgemm_hashpad(*args, **kw)
+    again = spgemm_hashpad(*args, **kw)
+    plain = spgemm_hashpad_compact_plain(*args, **kw)
+    oracle = spgemm_hashpad_plain(
+        plan.ell_remaining, plan.ell_block_ptr, plan.ell_a,
+        hashed_slab(plan), **kw)[plan.out_row.long(), plan.out_bucket.long()]
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(c_pad).all()), f"B2 {name}: non-finite pad")
-    err = float((c_pad - plain).abs().max())
+    check(c_vals.shape == (plan.nnz_out,) and bool(
+        torch.isfinite(c_vals).all()), f"B2 {name}: malformed C values")
+    err = float((c_vals - plain).abs().max())
     check(err <= KERNEL_TOL, f"B2 {name}: max|kernel-plain| {err:.3e} > "
                              f"{KERNEL_TOL}")
-    del plain
-    big = slab.numel() > 1 << 28                    # > 1 GB of slab
+    err_oracle = float((c_vals - oracle).abs().max())
+    check(err_oracle <= KERNEL_TOL, f"B2 {name}: max|kernel-dense oracle| "
+                                    f"{err_oracle:.3e} > {KERNEL_TOL}")
+    check(torch.equal(again, c_vals), f"B2 {name}: two calls differ")
+    del plain, oracle, again
+    big = plan.nnz_out > 200_000
     a_csr = torch.sparse_coo_tensor(
         torch.stack([plan.a_rows.long(), plan.a_cols.long()]), plan.a_base,
         (plan.n_rows, plan.n_inner),
         check_invariants=True).coalesce().to_sparse_csr()
     rec = dict(
         shape=f"{name} H={plan.pad_width}", max_abs_err=err,
-        ms=graph_ms(lambda: spgemm_hashpad(*args, **kw),
-                    calls=5 if big else 20, replays=4),
-        plain_ms=eager_ms(lambda: spgemm_hashpad_plain(*args, **kw),
+        dense_oracle_err=err_oracle, run_to_run_equal=True,
+        ms=graph_ms(lambda: spgemm_hashpad(*args, **kw)),
+        eager_ms=eager_ms(lambda: spgemm_hashpad(*args, **kw)),
+        plain_ms=eager_ms(lambda: spgemm_hashpad_compact_plain(*args, **kw),
                           iters=3 if big else 10),
         library_ms=eager_ms(lambda: torch.sparse.mm(a_csr, a_csr),
                             iters=10),
-        executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda"),
-                             iters=3 if big else 10))
-    # least bytes (as the kernel needs them): each live slab row (lanes
-    # u < remaining[k]) once, the live coefficient columns once, remaining
-    # and block_ptr, and the pad written once; padded_bytes counts the
-    # whole tiles.  Least operations: 2 per product of a nonzero
-    # coefficient with a nonzero slab entry of the same lane.
-    k, w, h, br = plan.n_chunks, plan.width, plan.pad_width, plan.block_rows
-    live = int(plan.ell_remaining.sum())
-    n_bytes = 4 * (live * (h + br) + k + plan.ell_block_ptr.numel()
-                   + c_pad.numel())
-    padded_bytes = 4 * (slab.numel() + plan.ell_a.numel() + k
-                        + plan.ell_block_ptr.numel() + c_pad.numel())
-    a_nz = (plan.ell_a.reshape(k, br, w) != 0).sum(1)
-    s_nz = (slab.reshape(k, w, h) != 0).sum(2)
-    n_flops = 2 * int((a_nz.long() * s_nz.long()).sum())
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, padded_bytes=padded_bytes,
-               bound_flops=n_flops, live_lanes=live,
-               library_note="torch.sparse.mm(A_csr, A_csr): cuSPARSE "
-                            "SpGEMM, structure included, eager")
+        executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda")),
+        whole_build_ms=whole_build_ms(plan, "cuda"),
+        library_note="torch.sparse.mm(A_csr, A_csr): cuSPARSE SpGEMM, "
+                     "structure included, eager; set it beside "
+                     "whole_build_ms (symbolic + pack + numeric), not "
+                     "beside the kernel's numeric phase alone",
+        **spgemm_bound(plan, plan.ell_a, 4, F32_FLOPS_PER_S),
+        **plan_bytes(plan))
     say(f"B2 {json.dumps(rec)}")
     return rec
 
@@ -864,20 +948,33 @@ def q8_step_vs_cpu(server, seeds) -> dict:
 
 def spgemm_q8_case(name, plan, b2):
     from repro_torch.kernels.spgemm_pad import (spgemm_hashpad_q8,
+                                                spgemm_hashpad_q8_compact_plain,
                                                 spgemm_hashpad_q8_plain)
     from repro_torch.sparse import backend as sb
     from repro_torch.sparse import quantize as qz
+    from repro_torch.sparse.spgemm.numeric import hashed_slab_q8
     args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
-            plan.ell_a_scale, plan.slab_q8, plan.slab_scale)
+            plan.ell_a_scale, plan.cell_ptr, plan.cell_lane, plan.cell_bucket,
+            plan.cell_q8, plan.slab_scale, plan.c_indptr, plan.out_bucket)
     kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
-    c_pad = spgemm_hashpad_q8(*args, **kw)
-    plain = spgemm_hashpad_q8_plain(*args, **kw)
+    c_vals = spgemm_hashpad_q8(*args, **kw)
+    again = spgemm_hashpad_q8(*args, **kw)
+    plain = spgemm_hashpad_q8_compact_plain(*args, **kw)
+    oracle = spgemm_hashpad_q8_plain(
+        plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
+        plan.ell_a_scale, hashed_slab_q8(plan), plan.slab_scale,
+        **kw)[plan.out_row.long(), plan.out_bucket.long()]
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(c_pad).all()), f"B5 {name}: non-finite pad")
-    err = float((c_pad - plain).abs().max())
+    check(c_vals.shape == (plan.nnz_out,) and bool(
+        torch.isfinite(c_vals).all()), f"B5 {name}: malformed C values")
+    err = float((c_vals - plain).abs().max())
     check(err <= KERNEL_TOL, f"B5 {name}: max|kernel-plain| {err:.3e} > "
                              f"{KERNEL_TOL}")
-    del plain
+    err_oracle = float((c_vals - oracle).abs().max())
+    check(err_oracle <= KERNEL_TOL, f"B5 {name}: max|kernel-dense oracle| "
+                                    f"{err_oracle:.3e} > {KERNEL_TOL}")
+    check(torch.equal(again, c_vals), f"B5 {name}: two calls differ")
+    del plain, oracle, again
     got = sb.spgemm(plan, backend="cuda_q8")
     check(got.shape == (plan.nnz_out,) and bool(torch.isfinite(got).all()),
           f"spgemm cuda_q8 {name}: malformed result")
@@ -887,39 +984,25 @@ def spgemm_q8_case(name, plan, b2):
     check(qz.q8_gate(dev_ref, bound),
           f"spgemm {name}: cuda_q8 vs reference {dev_ref:.3e} over the "
           f"bound {bound:.3e}")
-    big = plan.slab_q8.numel() > 1 << 30             # > 1 GB of int8 slab
+    big = plan.nnz_out > 200_000
     rec = dict(
         shape=f"{name} H={plan.pad_width}", max_abs_err=err,
-        ms=graph_ms(lambda: spgemm_hashpad_q8(*args, **kw),
-                    calls=5 if big else 20, replays=4),
+        dense_oracle_err=err_oracle, run_to_run_equal=True,
+        ms=graph_ms(lambda: spgemm_hashpad_q8(*args, **kw)),
+        eager_ms=eager_ms(lambda: spgemm_hashpad_q8(*args, **kw)),
         f32_kernel_ms=b2["ms"],
-        plain_ms=eager_ms(lambda: spgemm_hashpad_q8_plain(*args, **kw),
+        plain_ms=eager_ms(lambda: spgemm_hashpad_q8_compact_plain(*args,
+                                                                  **kw),
                           iters=3 if big else 10),
         library_ms=b2["library_ms"],
         library_note="torch.sparse.mm(A_csr, A_csr) on the f32 operands, "
                      "timed in phase 6 of this run: cuSPARSE SpGEMM, the "
-                     "nearest library call (no int8 SpGEMM)",
-        q8_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda_q8"),
-                                iters=3 if big else 10),
-        f32_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda"),
-                                 iters=3 if big else 10),
-        q8_executor_vs_reference=dev_ref, q8_bound=bound)
-    # least bytes: each live slab row once (pad_width int8), each live
-    # coefficient column once (block_rows int8), both scales, remaining and
-    # block_ptr, and the f32 pad written once.  Least operations: 2 int8
-    # operations per product of a nonzero coefficient with a nonzero slab
-    # entry of the same lane.
-    k, h, br = plan.n_chunks, plan.pad_width, plan.block_rows
-    live = int(plan.ell_remaining.sum())
-    n_bytes = (live * (h + br) + 4 * (3 * k + plan.ell_block_ptr.numel()
-                                      + c_pad.numel()))
-    a_nz = (plan.ell_a_q8.reshape(k, br, -1) != 0).sum(1)
-    s_nz = (plan.slab_q8.reshape(k, -1, h) != 0).sum(2)
-    n_ops = 2 * int((a_nz.long() * s_nz.long()).sum())
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, bound_ops=n_ops, live_lanes=live)
+                     "nearest library call (no int8 SpGEMM), eager",
+        q8_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda_q8")),
+        f32_executor_ms=eager_ms(lambda: sb.spgemm(plan, backend="cuda")),
+        whole_build_ms=whole_build_ms(plan, "cuda_q8"),
+        q8_executor_vs_reference=dev_ref, q8_bound=bound,
+        **spgemm_bound(plan, plan.ell_a_q8, 1, INT8_OPS_PER_S))
     say(f"B5 {json.dumps(rec)}")
     return rec
 
@@ -1537,7 +1620,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     libraries = [gustavson_spmm.LIBRARY, gustavson_spmm.LIBRARY_Q8,
                  forest_sampler.LIBRARY, spgemm_pad.LIBRARY,
-                 spgemm_pad.LIBRARY_Q8, embedding_bag.LIBRARY, sddmm.LIBRARY,
+                 embedding_bag.LIBRARY, sddmm.LIBRARY,
                  flash_attention.LIBRARY]
     secs = build.build(libraries)
     say(f"built {' + '.join(lib.name for lib in libraries)} with nvcc in "
@@ -1639,7 +1722,7 @@ def main() -> int:
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
         dict(name="spgemm_hashpad_q8", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"
-                    "spgemm_hashpad_q8.cu",
+                    "spgemm_hashpad.cu",
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:168",
              launches=two_hop_q8["launches"]["spgemm_hashpad_q8"],
              max_abs_err=max(c["max_abs_err"] for c in b5),

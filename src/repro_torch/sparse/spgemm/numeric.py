@@ -14,12 +14,17 @@ plan's row-major CSR order).  Executors, registered in
                   C3 — the live interim set is one wave, not the bloat);
 * ``cuda``      — the hash-pad kernel (``kernels/spgemm_pad``), the
                   counterpart of the reference's ``pallas``: A's dedup-chunk
-                  coefficient tiles × the hashed B slab, folded into a pad
-                  held in registers, evicted at the block's last chunk;
+                  coefficient tiles × B's compact cells (the hashed slab's
+                  nonzeros), folded into a shared-memory pad indexed by
+                  bucket and evicted straight into C's values;
 * ``cuda_q8``   — the int8 hash-pad kernel on the same layout, the
                   counterpart of ``pallas_q8``: both operands int8 with one
                   scale per chunk.  With the plan's values it reads the
-                  int8 slab baked at plan time and builds no slab at all.
+                  int8 cells baked at plan time.
+
+Neither builds the dense ``(n_chunks·width, pad_width)`` slab that the
+reference's kernels stream; ``hashed_slab`` and ``hashed_slab_q8`` build it
+for the dense-slab plain versions and the tests.
 
 Values may be swapped per call (``a_vals``/``b_vals``; ``None`` uses the
 baked defaults) — structure is plan state, values are data.  That split is
@@ -37,11 +42,12 @@ from repro_torch.core import spgemm as core_spgemm
 from repro_torch.core.eviction import rolling_accumulate
 from repro_torch.sparse.backend import SpgemmBackend, register_spgemm_backend
 from repro_torch.sparse.plan import scatter_tiles
-from repro_torch.sparse.spgemm.symbolic import SpgemmPlan, make_spgemm_plan
+from repro_torch.sparse.spgemm.symbolic import (SpgemmPlan, cell_chunk,
+                                                make_spgemm_plan)
 from repro_torch.sparse.stats import record_value
 
-__all__ = ["hashed_slab", "spgemm_to_coo", "two_hop_graph",
-           "cached_two_hop_graph", "two_hop_cache_clear"]
+__all__ = ["hashed_slab", "hashed_slab_q8", "cell_values", "spgemm_to_coo",
+           "two_hop_graph", "cached_two_hop_graph", "two_hop_cache_clear"]
 
 
 def _vals(plan: SpgemmPlan, vals, base: torch.Tensor) -> torch.Tensor:
@@ -96,13 +102,14 @@ def _reference_spgemm(plan: SpgemmPlan, a_vals, b_vals) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# cuda — hash-pad kernel on the dedup-chunk + hashed-slab layout
+# cuda — hash-pad kernel on the dedup-chunk tiles and B's compact cells
 # ---------------------------------------------------------------------------
 
 def hashed_slab(plan: SpgemmPlan, b_vals=None) -> torch.Tensor:
     """The dense hashed B slab ``(n_chunks·width, pad_width)``: lane u of
     chunk k holds B row ``u_cols[k, u]``, each value at its output column's
-    bucket.  Entries that share a cell (duplicate B entries) add."""
+    bucket.  Entries that share a cell (duplicate B entries) add.  Only the
+    dense-slab plain versions and the tests build it."""
     _require_layout(plan, "slab_row", "cuda")
     bv = _vals(plan, b_vals, plan.b_base)
     slab = torch.zeros((plan.n_chunks * plan.width, plan.pad_width),
@@ -112,42 +119,75 @@ def hashed_slab(plan: SpgemmPlan, b_vals=None) -> torch.Tensor:
     return slab
 
 
+def hashed_slab_q8(plan: SpgemmPlan) -> torch.Tensor:
+    """The baked int8 cells scattered into the dense int8 slab
+    ``(n_chunks·width, pad_width)`` that the reference's bake holds."""
+    _require_layout(plan, "cell_q8", "cuda_q8")
+    slab = torch.zeros((plan.n_chunks * plan.width, plan.pad_width),
+                       dtype=torch.int8, device=plan.device)
+    row = (cell_chunk(plan.cell_ptr, plan.n_cells) * plan.width
+           + plan.cell_lane.long())
+    slab[row, plan.cell_bucket.long()] = plan.cell_q8
+    return slab
+
+
+def cell_values(plan: SpgemmPlan, b_vals=None) -> torch.Tensor:
+    """B's value at each compact cell ``(n_cells,)`` f32: the entries that
+    share a cell summed in entry order from zero, as ``hashed_slab`` adds
+    them.  ``None`` gives the plan's baked ``cell_val``."""
+    _require_layout(plan, "cell_ptr", "cuda")
+    if b_vals is None:
+        return plan.cell_val
+    g = _vals(plan, b_vals, plan.b_base)[plan.cell_src.long()]
+    cell = torch.repeat_interleave(
+        torch.arange(plan.n_cells, device=plan.device),
+        (plan.cell_src_ptr[1:] - plan.cell_src_ptr[:-1]).long(),
+        output_size=plan.pp_dedup)
+    return g.new_zeros(plan.n_cells).index_put_((cell,), g, accumulate=True)
+
+
+def _a_tiles(plan: SpgemmPlan, a_vals) -> torch.Tensor:
+    # A values given: scatter-add through the packer's slot map (duplicate
+    # A entries share a cell), the SpMM path's coefficient scatter
+    if a_vals is None:
+        return plan.ell_a
+    return scatter_tiles(plan.ell_a, plan.ell_slots,
+                         _vals(plan, a_vals, plan.a_base))
+
+
 def _cuda_spgemm(plan: SpgemmPlan, a_vals, b_vals) -> torch.Tensor:
     from repro_torch.kernels.spgemm_pad import spgemm_hashpad
     _require_layout(plan, "ell_a", "cuda")
-    # A values given: scatter-add through the packer's slot map (duplicate
-    # A entries share a cell), the SpMM path's coefficient scatter
-    a_tiles = plan.ell_a if a_vals is None else scatter_tiles(
-        plan.ell_a, plan.ell_slots, _vals(plan, a_vals, plan.a_base))
-    c_pad = spgemm_hashpad(plan.ell_remaining, plan.ell_block_ptr, a_tiles,
-                           hashed_slab(plan, b_vals),
-                           block_rows=plan.block_rows,
-                           pad_width=plan.pad_width)
-    return c_pad[plan.out_row.long(), plan.out_bucket.long()]
+    return spgemm_hashpad(plan.ell_remaining, plan.ell_block_ptr,
+                          _a_tiles(plan, a_vals), plan.cell_ptr,
+                          plan.cell_lane, plan.cell_bucket,
+                          cell_values(plan, b_vals), plan.c_indptr,
+                          plan.out_bucket, block_rows=plan.block_rows,
+                          pad_width=plan.pad_width)
 
 
 def _cuda_q8_spgemm(plan: SpgemmPlan, a_vals, b_vals) -> torch.Tensor:
     from repro_torch.kernels.spgemm_pad import spgemm_hashpad_q8
-    from repro_torch.sparse.quantize import quantize_chunk_tiles
+    from repro_torch.sparse.quantize import (quantize_chunk_entries,
+                                             quantize_chunk_tiles)
     _require_layout(plan, "ell_a", "cuda_q8")
     if a_vals is None and plan.ell_a_q8 is not None:
         a_q8, a_scale = plan.ell_a_q8, plan.ell_a_scale
     else:
-        a_tiles = plan.ell_a if a_vals is None else scatter_tiles(
-            plan.ell_a, plan.ell_slots, _vals(plan, a_vals, plan.a_base))
-        a_q8, a_scale = quantize_chunk_tiles(a_tiles, plan.n_chunks)
-    if b_vals is None and plan.slab_q8 is not None:
-        # the baked int8 slab: no scatter at run time, where the f32
-        # executor rebuilds its slab on every call
-        slab_q8, slab_scale = plan.slab_q8, plan.slab_scale
+        a_q8, a_scale = quantize_chunk_tiles(_a_tiles(plan, a_vals),
+                                             plan.n_chunks)
+    if b_vals is None and plan.cell_q8 is not None:
+        cell_q8, slab_scale = plan.cell_q8, plan.slab_scale
     else:
-        slab_q8, slab_scale = quantize_chunk_tiles(hashed_slab(plan, b_vals),
-                                                   plan.n_chunks)
-    c_pad = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr, a_q8,
-                              a_scale, slab_q8, slab_scale,
-                              block_rows=plan.block_rows,
-                              pad_width=plan.pad_width)
-    return c_pad[plan.out_row.long(), plan.out_bucket.long()]
+        cell_q8, slab_scale = quantize_chunk_entries(
+            cell_values(plan, b_vals), cell_chunk(plan.cell_ptr, plan.n_cells),
+            plan.n_chunks)
+    return spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr, a_q8,
+                             a_scale, plan.cell_ptr, plan.cell_lane,
+                             plan.cell_bucket, cell_q8, slab_scale,
+                             plan.c_indptr, plan.out_bucket,
+                             block_rows=plan.block_rows,
+                             pad_width=plan.pad_width)
 
 
 register_spgemm_backend(SpgemmBackend("dense", _dense_spgemm))

@@ -24,9 +24,11 @@ libraries split it:
 The host part is copied from the reference so that every plan array is
 bitwise equal to its own: the same ``default_rng(seed + growths)`` γ draws
 and the same pad growth.  ``make_spgemm_plan`` packages it all — plus the
-A-side dedup-chunk coefficient tiles and the B-side hashed slab scatter map
-— into a ``SpgemmPlan`` of tensors on one device; for ``cuda_q8`` it also
-bakes both operands as int8 with one scale per chunk.
+A-side dedup-chunk coefficient tiles, the B-side hashed slab scatter map
+and that slab's nonzero cells (``compact_cells``), which is what the
+kernels read — into a ``SpgemmPlan`` of tensors on one device; for
+``cuda_q8`` it also bakes A's tiles and B's cells as int8 with one scale
+per chunk.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from repro_torch.sparse.stats import record_count, record_value
 
 __all__ = ["SpgemmSymbolic", "SpgemmPlan", "symbolic", "make_spgemm_plan",
            "hash_bucket", "hash_dedup_row_nnz", "find_block_gammas",
-           "ALL_SPGEMM_EXECUTORS"]
+           "compact_cells", "ALL_SPGEMM_EXECUTORS"]
 
 MAX_PP_INT32 = (1 << 31) - 1
 
@@ -299,6 +301,7 @@ class SpgemmPlan:
     reseeds: int             # γ draws burned by the injectivity search
     collisions: int          # bucket collisions seen during the search
     pad_growths: int         # ×2 pad expansions before every block seeded
+    n_cells: int             # B's compact cells (≤ pp_dedup; 0 without cuda)
 
     # --- COO inputs (structure; values are the *_base defaults) ---
     a_rows: T = None     # (nnz_a,) int32
@@ -319,6 +322,9 @@ class SpgemmPlan:
     pp_slot: T = None    # (n_waves·chunk,) int32; pad ⇒ ghost slot nnz_out
 
     # --- cuda executor: A coefficient tiles + hashed B slab + gather ---
+    # (slab_* is the reference's scatter map of the dense hashed slab; the
+    # kernels read its nonzero cells, cell_*, and gather C through
+    # c_indptr and out_bucket)
     ell_u_cols: T = None     # (n_chunks, width) int32
     ell_a: T = None          # (n_chunks·block_rows, width) f32
     ell_out_block: T = None  # (n_chunks,) int32
@@ -334,12 +340,22 @@ class SpgemmPlan:
     out_bucket: T = None     # (nnz_out,) int32 into pad lanes
     gammas: T = None         # (n_blocks,) uint32 — per-block γ
 
-    # --- cuda_q8 executor: baked int8 A tiles + quantized hashed slab ---
-    # (the default-values path then pays no slab scatter at run time)
+    # --- B's compact cells: the hashed slab's distinct (lane, bucket) ----
+    # chunk by chunk, each chunk's cells ordered by (bucket, lane), so a
+    # run of equal buckets is one pad column's work for the chunk
+    cell_ptr: T = None       # (n_chunks+1,) int32 — chunk k's cells
+    cell_lane: T = None      # (n_cells,) int32 — lane u within the chunk
+    cell_bucket: T = None    # (n_cells,) int32 — pad bucket
+    cell_val: T = None       # (n_cells,) f32 — b_base summed per cell
+    cell_src: T = None       # (pp_dedup,) int32 — slab_src grouped by cell
+    cell_src_ptr: T = None   # (n_cells+1,) int32 — each cell's cell_src
+
+    # --- cuda_q8 executor: baked int8 A tiles + quantized B cells ---
+    # (the default-values path then quantizes nothing at run time)
     ell_a_q8: T = None       # (n_chunks·block_rows, width) int8
     ell_a_scale: T = None    # (n_chunks,) f32
-    slab_q8: T = None        # (n_chunks·width, pad_width) int8
-    slab_scale: T = None     # (n_chunks,) f32
+    cell_q8: T = None        # (n_cells,) int8 — cell_val quantized
+    slab_scale: T = None     # (n_chunks,) f32 — per chunk, as the dense slab
 
     @property
     def bloat_pct(self) -> float:
@@ -391,9 +407,10 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
     * ``cuda`` — the hash-pad layout: A packed into dedup-chunk coefficient
       tiles (with each chunk's live-lane count and each block's chunk
       range, which the kernel walks), per-block γ found by reseeded search,
-      B's rows hashed into a per-chunk slab scatter map, and the pad → C
-      gather;
-    * ``cuda_q8`` — the same layout, plus the A tiles and the hashed slab
+      B's rows hashed into a per-chunk slab scatter map, that slab's
+      nonzero cells (``compact_cells``) with the plan's B values summed
+      into them, and the pad → C gather;
+    * ``cuda_q8`` — the same layout, plus the A tiles and B's cells
       quantized to int8 with one scale per chunk (``_bake_q8``).
     """
     for ex in executors:
@@ -429,7 +446,7 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
         c_col=i32(sym.c_col),
         pp_dedup=0, pad_width=0, block_rows=int(block_rows), n_blocks=0,
         n_chunks=0, width=0, chunk=max(1, min(int(chunk), max(pp, 1))),
-        n_waves=0, reseeds=0, collisions=0, pad_growths=0)
+        n_waves=0, reseeds=0, collisions=0, pad_growths=0, n_cells=0)
 
     if "reference" in executors:
         # pp → slot maps padded to a wave multiple (ghost slot for padding)
@@ -489,6 +506,13 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
         slab_col = hash_bucket(sym.b_cols_sorted[b_pos],
                                np.repeat(g_lane, lens), pad_width)
 
+        # --- B's compact cells: B values summed per cell in entry order ----
+        cells, entry_cell = compact_cells(slab_row, slab_col, slab_src,
+                                          int(n_chunks), int(width),
+                                          int(pad_width))
+        cell_val = np.zeros(cells["cell_lane"].size, np.float32)
+        np.add.at(cell_val, entry_cell, bv[slab_src])
+
         # --- pad → C gather -----------------------------------------------
         out_bucket = hash_bucket(sym.c_col,
                                  gammas[sym.c_row // block_rows], pad_width)
@@ -513,44 +537,77 @@ def make_spgemm_plan(a_rows: np.ndarray, a_cols: np.ndarray, n_rows: int,
             slab_row=i32(slab_row), slab_col=i32(slab_col),
             slab_src=i32(slab_src),
             out_row=i32(sym.c_row), out_bucket=i32(out_bucket),
-            gammas=t(gammas))
+            gammas=t(gammas), n_cells=int(cell_val.size),
+            cell_val=t(cell_val), **{k: i32(v) for k, v in cells.items()})
         if "cuda_q8" in executors:
-            kw.update(_bake_q8(kw["ell_a"], slab_row, slab_col,
-                               bv[slab_src], int(n_chunks), int(width),
-                               int(pad_width)))
+            kw.update(_bake_q8(kw["ell_a"], kw["cell_val"], kw["cell_ptr"],
+                               int(n_chunks)))
 
     return SpgemmPlan(**kw)
 
 
-def _bake_q8(ell_a: torch.Tensor, slab_row: np.ndarray, slab_col: np.ndarray,
-             slab_vals: np.ndarray, n_chunks: int, width: int,
-             pad_width: int) -> dict:
-    """int8 A tiles and hashed slab, bitwise equal to the reference's bake
-    (a host ``np.add.at`` into the dense f32 slab, then
-    ``quantize_chunk_tiles``) without building the dense f32 slab.
+def compact_cells(slab_row: np.ndarray, slab_col: np.ndarray,
+                  slab_src: np.ndarray, n_chunks: int, width: int,
+                  pad_width: int) -> Tuple[dict, np.ndarray]:
+    """The hashed B slab as its nonzero cells, in the layout the kernels
+    walk.  A cell is one distinct (slab row, bucket) of the scatter map
+    ``slab_row``/``slab_col``/``slab_src``; entries that share one
+    (duplicate B entries) are one cell whose value is their sum.
 
-    Entries that share a slab cell (duplicate B entries) are summed on the
-    host over the compact cell list, in entry order as ``np.add.at`` sums
-    them.  The cells are then quantized on the plan's device: a chunk's
-    scale is the max over its nonzero cells, which is the dense tile's max.
-    Only the int8 slab is dense (``n_chunks·width·pad_width`` bytes)."""
+    Returns ``(fields, entry_cell)``: ``fields`` holds the plan's
+    ``cell_ptr`` (n_chunks+1,), ``cell_lane``, ``cell_bucket`` (n_cells,),
+    ``cell_src`` (pp_dedup,) and ``cell_src_ptr`` (n_cells+1,), with chunk
+    k's cells at ``cell_ptr[k] .. cell_ptr[k+1]`` ordered by (bucket,
+    lane) and cell c's B entries at ``cell_src[cell_src_ptr[c] ..
+    cell_src_ptr[c+1]]`` in entry order; ``entry_cell`` maps each scatter
+    map entry to its cell."""
+    row = np.asarray(slab_row, np.int64)
+    chunk = row // width
+    key = (chunk * pad_width + np.asarray(slab_col, np.int64)) * width \
+        + (row - chunk * width)
+    order = np.argsort(key, kind="stable")     # entry order within a cell
+    skey = key[order]
+    new = np.ones(skey.size, bool)
+    new[1:] = skey[1:] != skey[:-1]
+    starts = np.flatnonzero(new)
+    ukey = skey[starts]
+    entry_cell = np.empty(key.size, np.int64)
+    entry_cell[order] = np.cumsum(new) - 1
+    fields = dict(
+        cell_ptr=np.searchsorted(ukey // (pad_width * width),
+                                 np.arange(n_chunks + 1)),
+        cell_lane=ukey % width, cell_bucket=(ukey // width) % pad_width,
+        cell_src=np.asarray(slab_src)[order],
+        cell_src_ptr=np.append(starts, key.size))
+    return fields, entry_cell
+
+
+def _bake_q8(ell_a: torch.Tensor, cell_val: torch.Tensor,
+             cell_ptr: torch.Tensor, n_chunks: int) -> dict:
+    """int8 A tiles and B cells, bitwise equal to the reference's bake (a
+    host ``np.add.at`` into the dense f32 slab, then
+    ``quantize_chunk_tiles``) at every cell, without a dense slab.
+
+    ``cell_val`` already sums the entries that share a cell in entry order,
+    as ``np.add.at`` sums them; a chunk's scale is the max over its cells,
+    which is the dense tile's max, and every other slab entry is zero.
+    ``numeric.hashed_slab_q8`` scatters the int8 cells into the dense
+    layout."""
     from repro_torch.sparse.quantize import (quantize_chunk_entries,
                                              quantize_chunk_tiles,
                                              record_q8_stats)
-    dev = ell_a.device
     a_q8, a_scale = quantize_chunk_tiles(ell_a, n_chunks)
-    cell = slab_row.astype(np.int64) * pad_width + slab_col
-    cells, inv = np.unique(cell, return_inverse=True)
-    cell_vals = np.zeros(cells.size, np.float32)
-    np.add.at(cell_vals, inv, slab_vals.astype(np.float32))
-    cells_t = torch.from_numpy(cells).to(dev)
-    q, slab_scale = quantize_chunk_entries(
-        torch.from_numpy(cell_vals).to(dev), cells_t // (width * pad_width),
-        n_chunks)
-    slab_q8 = torch.zeros((n_chunks * width, pad_width), dtype=torch.int8,
-                          device=dev)
-    slab_q8.view(-1)[cells_t] = q
+    cell_q8, slab_scale = quantize_chunk_entries(
+        cell_val, cell_chunk(cell_ptr, cell_val.numel()), n_chunks)
     record_q8_stats(a_scale)
     record_q8_stats(slab_scale)
-    return dict(ell_a_q8=a_q8, ell_a_scale=a_scale, slab_q8=slab_q8,
+    return dict(ell_a_q8=a_q8, ell_a_scale=a_scale, cell_q8=cell_q8,
                 slab_scale=slab_scale)
+
+
+def cell_chunk(cell_ptr: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """The chunk of each compact cell, on ``cell_ptr``'s device."""
+    n_chunks = cell_ptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(n_chunks, device=cell_ptr.device),
+        (cell_ptr[1:] - cell_ptr[:-1]).to(torch.int64), output_size=n_cells)

@@ -20,15 +20,21 @@ from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                 spmm_dedup_chunks_q8_plain)
 from repro_torch.kernels.sddmm import edge_scores, sddmm, sddmm_plain
 from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                            spgemm_hashpad_compact_plain,
                                             spgemm_hashpad_plain,
                                             spgemm_hashpad_q8,
+                                            spgemm_hashpad_q8_compact_plain,
                                             spgemm_hashpad_q8_plain)
+from repro_torch.kernels.spgemm_pad import spgemm_pad as hashpad_module
+from repro_torch.kernels.spgemm_pad.spgemm_pad import H_TILE
 from repro_torch.sparse import quantize as qz
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.graph import pack_dedup_chunks
 from repro_torch.sparse.plan import block_ptr_from_first, make_plan
 from repro_torch.sparse.spgemm import make_spgemm_plan
+from repro_torch.sparse.spgemm.numeric import hashed_slab_q8
 from repro_torch.sparse.sampler import _mix64
+from spgemm_cells import drop_block_chunks, with_dead_lane_cells
 
 pytestmark = pytest.mark.gpu
 
@@ -107,12 +113,37 @@ def test_cuda_executor_matches_dense(cuda):
     assert float((got - want).abs().max()) <= 1e-4
 
 
-def _spgemm_plan(n, e, seed, dev, **kw):
+def _spgemm_plan(n, e, seed, dev, dup=False, **kw):
     rng = np.random.default_rng(seed)
     r, s = rng.integers(0, n, e), rng.integers(0, n, e)
+    if dup:
+        r[:5], s[:5] = 7, 3         # B entry (7, 3) five times: one cell
     w = rng.normal(size=e).astype(np.float32)
     return make_spgemm_plan(r, s, n, r, s, n, a_vals=w, b_vals=w,
                             device=dev, **kw), rng
+
+
+def _b2_args(plan, a=None, cell_val=None):
+    return (plan.ell_remaining, plan.ell_block_ptr,
+            plan.ell_a if a is None else a, plan.cell_ptr, plan.cell_lane,
+            plan.cell_bucket, plan.cell_val if cell_val is None else cell_val,
+            plan.c_indptr, plan.out_bucket)
+
+
+def _dense_of_cells(plan, vals):
+    """The cells scattered into the dense hashed slab (the oracle's input)."""
+    chunk = torch.repeat_interleave(
+        torch.arange(plan.n_chunks, device=vals.device),
+        (plan.cell_ptr[1:] - plan.cell_ptr[:-1]).long())
+    slab = torch.zeros((plan.n_chunks * plan.width, plan.pad_width),
+                       dtype=vals.dtype, device=vals.device)
+    slab[chunk * plan.width + plan.cell_lane.long(),
+         plan.cell_bucket.long()] = vals
+    return slab
+
+
+def _gather(plan, c_pad):
+    return c_pad[plan.out_row.long(), plan.out_bucket.long()]
 
 
 @pytest.mark.parametrize("n,e,width_cap,pad_slack,lanes", [
@@ -120,8 +151,8 @@ def _spgemm_plan(n, e, seed, dev, **kw):
     (300, 3000, 128, 2.0, "h_tiles"),     # pad split into several h tiles
     (64, 1500, 8, 2.0, "chunks"),         # several chunks per block
     (64, 1500, 8, 64.0, "h_tiles")])
-def test_hashpad_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
-                                      lanes):
+def test_hashpad_kernel_matches_plain(cuda, monkeypatch, n, e, width_cap,
+                                      pad_slack, lanes):
     plan, rng = _spgemm_plan(n, e, seed=n + e, dev=cuda, width_cap=width_cap,
                              pad_slack=pad_slack)
     if lanes == "below_32":
@@ -130,44 +161,120 @@ def test_hashpad_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
         assert plan.pad_width > 256
     else:
         assert plan.n_chunks > plan.n_blocks
-    slab = torch.from_numpy(rng.normal(size=(
-        plan.n_chunks * plan.width, plan.pad_width)).astype(np.float32)
-                            ).to(cuda)
-    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a, slab)
+    if pad_slack > 2.0:                  # several bucket tiles by default
+        assert plan.pad_width > H_TILE
+    vals = torch.from_numpy(rng.normal(size=plan.n_cells).astype(
+        np.float32)).to(cuda)
+    args = _b2_args(plan, cell_val=vals)
     kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
     before = spgemm_hashpad.launches
     got = spgemm_hashpad(*args, **kw)
     assert spgemm_hashpad.launches == before + 1
-    want = spgemm_hashpad_plain(*args, **kw)
+    want = spgemm_hashpad_compact_plain(*args, **kw)
+    oracle = _gather(plan, spgemm_hashpad_plain(
+        plan.ell_remaining, plan.ell_block_ptr, plan.ell_a,
+        _dense_of_cells(plan, vals), **kw))
     torch.cuda.synchronize()
-    assert got.device.type == "cuda"
+    assert got.device.type == "cuda" and got.shape == (plan.nnz_out,)
     assert float((got - want).abs().max()) <= 1e-5
+    assert float((got - oracle).abs().max()) <= 1e-5
+    assert torch.equal(spgemm_hashpad(*args, **kw), got)    # run to run
+    # the same pad split into tiles of 64 buckets: the same bits
+    monkeypatch.setattr(hashpad_module, "H_TILE", 64)
+    assert torch.equal(spgemm_hashpad(*args, **kw), got)
 
 
 def test_hashpad_kernel_never_reads_dead_lanes(cuda):
     plan, _ = _spgemm_plan(64, 500, seed=4, dev=cuda)
+    kw = dict(block_rows=8, pad_width=plan.pad_width)
+    want = spgemm_hashpad(*_b2_args(plan), **kw)
     lane = torch.arange(plan.width, device=cuda)
-    dead = (lane[None, :] >= plan.ell_remaining[:, None]).reshape(-1)
-    slab = torch.zeros((plan.n_chunks * plan.width, plan.pad_width),
-                       device=cuda)
-    slab[dead] = float("nan")
-    got = spgemm_hashpad(plan.ell_remaining, plan.ell_block_ptr, plan.ell_a,
-                         slab, block_rows=8, pad_width=plan.pad_width)
-    assert bool(dead.any()) and bool(torch.isfinite(got).all())
+    dead = lane[None, :] >= plan.ell_remaining[:, None]
+    a = torch.where(dead.repeat_interleave(8, 0), float("nan"), plan.ell_a)
+    ptr, c_lane, c_bucket, c_val = with_dead_lane_cells(
+        plan, plan.cell_val, float("nan"))
+    assert bool(dead.any()) and c_lane.numel() > plan.n_cells
+    got = spgemm_hashpad(plan.ell_remaining, plan.ell_block_ptr,
+                         a.contiguous(), ptr, c_lane, c_bucket, c_val,
+                         plan.c_indptr, plan.out_bucket, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_hashpad_kernels_block_without_chunks(cuda, dtype):
+    plan, _ = _spgemm_plan(120, 900, seed=9, dev=cuda,
+                           executors=("cuda_q8",))
+    b = plan.n_blocks // 2
+    kw = dict(block_rows=8, pad_width=plan.pad_width)
+    out = (plan.c_indptr, plan.out_bucket)
+    if dtype == "f32":
+        args = (*drop_block_chunks(plan, b, plan.ell_a, plan.cell_val), *out)
+        got = spgemm_hashpad(*args, **kw)
+        want = spgemm_hashpad_compact_plain(*args, **kw)
+    else:
+        rem, bp, a, a_scale, slab_scale, *cells = drop_block_chunks(
+            plan, b, plan.ell_a_q8, plan.cell_q8,
+            (plan.ell_a_scale, plan.slab_scale))
+        args = (rem, bp, a, a_scale, *cells, slab_scale, *out)
+        got = spgemm_hashpad_q8(*args, **kw)
+        want = spgemm_hashpad_q8_compact_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(args[1][b + 1] - args[1][b]) == 0
+    rows = plan.c_indptr[8 * b], plan.c_indptr[min(8 * b + 8, plan.n_rows)]
+    assert int(rows[1] - rows[0]) > 0
+    assert torch.equal(got[rows[0]:rows[1]],
+                       torch.zeros_like(got[rows[0]:rows[1]]))
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_hashpad_kernels_narrower_pad_width_gives_nan(cuda, dtype):
+    """A pad width below the plan's: C's entries whose bucket no longer
+    fits come out NaN, the rest as at the plan's width — never the memory
+    that the output's allocation held before (poisoned here first)."""
+    plan, _ = _spgemm_plan(300, 3000, seed=11, dev=cuda,
+                           executors=("cuda_q8",))
+    if dtype == "f32":
+        fn, args = spgemm_hashpad, _b2_args(plan)
+    else:
+        fn, args = spgemm_hashpad_q8, _b5_args(plan)
+    full = fn(*args, block_rows=8, pad_width=plan.pad_width)
+    half = plan.pad_width // 2
+    junk = torch.full((plan.nnz_out,), 12345.0, device=cuda)
+    del junk                           # its block is the next allocation's
+    got = fn(*args, block_rows=8, pad_width=half)
+    want = spgemm_hashpad_compact_plain(*args, block_rows=8, pad_width=half) \
+        if dtype == "f32" else spgemm_hashpad_q8_compact_plain(
+            *args, block_rows=8, pad_width=half)
+    torch.cuda.synchronize()
+    out = plan.out_bucket >= half
+    assert bool(out.any()) and bool((~out).any())
+    assert bool(torch.isnan(got[out]).all())
+    assert torch.equal(got[~out], full[~out])
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert float((got[~out] - want[~out]).abs().max()) <= 1e-5
 
 
 def test_spgemm_cuda_executor_matches_reference(cuda):
-    plan, rng = _spgemm_plan(500, 4000, seed=5, dev=cuda)
-    got = sb.spgemm(plan, backend="cuda")
-    assert float((got - sb.spgemm(plan, backend="reference")).abs().max()
-                 ) <= 1e-4
-    assert float((got - sb.spgemm(plan, backend="dense")).abs().max()
-                 ) <= 1e-4
-    av = torch.from_numpy(rng.normal(size=plan.nnz_a).astype(np.float32)
-                          ).to(cuda)
-    got = sb.spgemm(plan, av, None, backend="cuda")
-    want = sb.spgemm(plan, av, None, backend="reference")
-    assert float((got - want).abs().max()) <= 1e-4
+    for dup in (False, True):
+        plan, rng = _spgemm_plan(500, 4000, seed=5, dev=cuda, dup=dup)
+        if dup:
+            assert plan.n_cells < plan.pp_dedup     # entries share cells
+        got = sb.spgemm(plan, backend="cuda")
+        assert float((got - sb.spgemm(plan, backend="reference")).abs().max()
+                     ) <= 1e-4
+        assert float((got - sb.spgemm(plan, backend="dense")).abs().max()
+                     ) <= 1e-4
+        assert torch.equal(sb.spgemm(plan, backend="cuda"), got)
+        av, bv = (torch.from_numpy(rng.normal(size=n).astype(np.float32)
+                                   ).to(cuda)
+                  for n in (plan.nnz_a, plan.nnz_b))
+        for a2, b2 in ((av, None), (None, bv), (av, bv)):
+            got = sb.spgemm(plan, a2, b2, backend="cuda")
+            want = sb.spgemm(plan, a2, b2, backend="reference")
+            assert float((got - want).abs().max()) <= 1e-4
+            assert torch.equal(sb.spgemm(plan, a2, b2, backend="cuda"), got)
 
 
 # ---------------------------------------------------------------------------
@@ -241,15 +348,23 @@ def test_spmm_q8_wrapper_raises_on_f32(cuda):
         spmm_dedup_chunks_q8(u, rem, ptr, a.float(), sa, x, sx, block_rows=8)
 
 
+def _b5_args(plan, a_q8=None, cell_q8=None):
+    return (plan.ell_remaining, plan.ell_block_ptr,
+            plan.ell_a_q8 if a_q8 is None else a_q8, plan.ell_a_scale,
+            plan.cell_ptr, plan.cell_lane, plan.cell_bucket,
+            plan.cell_q8 if cell_q8 is None else cell_q8, plan.slab_scale,
+            plan.c_indptr, plan.out_bucket)
+
+
 @pytest.mark.parametrize("n,e,width_cap,pad_slack,lanes", [
     (200, 100, 128, 2.0, "below_32"),
     (300, 3000, 128, 2.0, "h_tiles"),
     (64, 1500, 8, 2.0, "chunks"),
     (64, 1500, 8, 64.0, "h_tiles")])
-def test_hashpad_q8_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
-                                         lanes):
+def test_hashpad_q8_kernel_matches_plain(cuda, monkeypatch, n, e, width_cap,
+                                         pad_slack, lanes):
     plan, _ = _spgemm_plan(n, e, seed=n + e, dev=cuda, width_cap=width_cap,
-                           pad_slack=pad_slack,
+                           pad_slack=pad_slack, dup=True,
                            executors=("reference", "cuda_q8"))
     if lanes == "below_32":
         assert plan.pad_width < 32
@@ -257,44 +372,54 @@ def test_hashpad_q8_kernel_matches_plain(cuda, n, e, width_cap, pad_slack,
         assert plan.pad_width > 256
     else:
         assert plan.n_chunks > plan.n_blocks
-    args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
-            plan.ell_a_scale, plan.slab_q8, plan.slab_scale)
+    if pad_slack > 2.0:
+        assert plan.pad_width > H_TILE
+    args = _b5_args(plan)
     kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
     before = spgemm_hashpad_q8.launches
     got = spgemm_hashpad_q8(*args, **kw)
     assert spgemm_hashpad_q8.launches == before + 1
-    want = spgemm_hashpad_q8_plain(*args, **kw)
+    want = spgemm_hashpad_q8_compact_plain(*args, **kw)
+    oracle = _gather(plan, spgemm_hashpad_q8_plain(
+        plan.ell_remaining, plan.ell_block_ptr, plan.ell_a_q8,
+        plan.ell_a_scale, hashed_slab_q8(plan), plan.slab_scale, **kw))
     torch.cuda.synchronize()
-    assert got.device.type == "cuda"
+    assert got.device.type == "cuda" and got.shape == (plan.nnz_out,)
     assert float((got - want).abs().max()) <= 1e-5
+    assert float((got - oracle).abs().max()) <= 1e-5
+    assert torch.equal(spgemm_hashpad_q8(*args, **kw), got)
+    monkeypatch.setattr(hashpad_module, "H_TILE", 64)
+    assert torch.equal(spgemm_hashpad_q8(*args, **kw), got)
 
 
 def test_hashpad_q8_kernel_never_reads_dead_lanes(cuda):
     plan, _ = _spgemm_plan(64, 1500, seed=4, dev=cuda, width_cap=8,
                            executors=("cuda_q8",))
     kw = dict(block_rows=8, pad_width=plan.pad_width)
-    want = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
-                             plan.ell_a_q8, plan.ell_a_scale, plan.slab_q8,
-                             plan.slab_scale, **kw)
+    want = spgemm_hashpad_q8(*_b5_args(plan), **kw)
     lane = torch.arange(plan.width, device=cuda)
     dead = lane[None, :] >= plan.ell_remaining[:, None]
-    slab = torch.where(dead.reshape(-1, 1), 127, plan.slab_q8).to(torch.int8)
     a = torch.where(dead.repeat_interleave(8, 0), -127,
                     plan.ell_a_q8).to(torch.int8)
+    ptr, c_lane, c_bucket, c_q8 = with_dead_lane_cells(plan, plan.cell_q8,
+                                                       127)
+    assert bool(dead.any()) and c_lane.numel() > plan.n_cells
     got = spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
-                            a.contiguous(), plan.ell_a_scale,
-                            slab.contiguous(), plan.slab_scale, **kw)
+                            a.contiguous(), plan.ell_a_scale, ptr, c_lane,
+                            c_bucket, c_q8, plan.slab_scale, plan.c_indptr,
+                            plan.out_bucket, **kw)
     torch.cuda.synchronize()
-    assert bool(dead.any()) and torch.equal(got, want)
+    assert torch.equal(got, want)
 
 
 def test_hashpad_q8_wrapper_raises_on_f32(cuda):
     plan, _ = _spgemm_plan(64, 500, seed=6, dev=cuda, executors=("cuda_q8",))
+    args = list(_b5_args(plan))
+    args[7] = plan.cell_q8.float()
+    before = spgemm_hashpad_q8.launches
     with pytest.raises(TypeError):
-        spgemm_hashpad_q8(plan.ell_remaining, plan.ell_block_ptr,
-                          plan.ell_a_q8, plan.ell_a_scale,
-                          plan.slab_q8.float(), plan.slab_scale,
-                          block_rows=8, pad_width=plan.pad_width)
+        spgemm_hashpad_q8(*args, block_rows=8, pad_width=plan.pad_width)
+    assert spgemm_hashpad_q8.launches == before
 
 
 def test_q8_executors_within_their_bounds(cuda):

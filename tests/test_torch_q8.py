@@ -25,12 +25,15 @@ from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                 spmm_dedup_chunks_q8,
                                                 spmm_dedup_chunks_q8_plain)
 from repro_torch.kernels.spgemm_pad import (spgemm_hashpad_q8,
+                                            spgemm_hashpad_q8_compact_plain,
                                             spgemm_hashpad_q8_plain)
 from repro_torch.sparse import backend as tsb
 from repro_torch.sparse import graph as tgraph
 from repro_torch.sparse import plan as tplan
 from repro_torch.sparse import quantize as tq
 from repro_torch.sparse import spgemm as tsp
+from repro_torch.sparse.spgemm import numeric as tnum
+from spgemm_cells import with_dead_lane_cells
 
 TOL = 1e-6          # same int8 operands, same fold: only f32 rounding left
 STEP_TOL = 1e-5     # a whole quantized serving step (two layers)
@@ -352,51 +355,76 @@ def test_spgemm_plan_q8_fields_bitwise_equal_reference(width_cap):
         assert tp.n_chunks > tp.n_blocks
     for f in ("ell_a_q8", "ell_a_scale", "slab_q8", "slab_scale", "ell_a",
               "slab_row", "slab_col"):
-        a, b = getattr(tp, f).numpy(), np.asarray(getattr(jp, f))
+        # the dense int8 slab: the port's int8 cells scattered into it
+        a = (tnum.hashed_slab_q8(tp) if f == "slab_q8"
+             else getattr(tp, f)).numpy()
+        b = np.asarray(getattr(jp, f))
         assert a.dtype == b.dtype and np.array_equal(a, b), f
+    # one int8 value per cell: the (7, 3) entries share one
+    assert tp.cell_q8.shape == (tp.n_cells,) and tp.n_cells < tp.pp_dedup
+
+
+def _b5_args(tp, a_q8=None, cells=None):
+    cells = (tp.cell_ptr, tp.cell_lane, tp.cell_bucket,
+             tp.cell_q8) if cells is None else cells
+    return (tp.ell_remaining, tp.ell_block_ptr,
+            tp.ell_a_q8 if a_q8 is None else a_q8, tp.ell_a_scale, *cells,
+            tp.slab_scale, tp.c_indptr, tp.out_bucket)
 
 
 @pytest.mark.parametrize("width_cap", [128, 8])
 def test_b5_plain_matches_reference_kernel(width_cap):
     tp, jp, _ = _spgemm_case(width_cap, seed=2)
     kw = dict(block_rows=8, pad_width=tp.pad_width)
-    args = (tp.ell_remaining, tp.ell_block_ptr, tp.ell_a_q8, tp.ell_a_scale,
-            tp.slab_q8, tp.slab_scale)
-    got = spgemm_hashpad_q8_plain(*args, **kw)
+    slab_q8 = tnum.hashed_slab_q8(tp)
+    dense_args = (tp.ell_remaining, tp.ell_block_ptr, tp.ell_a_q8,
+                  tp.ell_a_scale, slab_q8, tp.slab_scale)
+    dense = spgemm_hashpad_q8_plain(*dense_args, **kw)
     want = jax_hashpad_q8(jp.ell_out_block, jp.ell_first, jp.ell_evict,
                           jp.ell_a_q8, jp.ell_a_scale, jp.slab_q8,
                           jp.slab_scale, n_blocks=jp.n_blocks,
                           interpret=True, **kw)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+    np.testing.assert_allclose(dense.numpy(), np.asarray(want), rtol=0,
                                atol=TOL)
+    # the wrapper on the int8 cells (the compact plain version on the CPU,
+    # no launch): the dense plain version gathered, bitwise
     before = spgemm_hashpad_q8.launches
-    assert torch.equal(spgemm_hashpad_q8(*args, **kw), got)
+    got = spgemm_hashpad_q8(*_b5_args(tp), **kw)
     assert spgemm_hashpad_q8.launches == before
-    # dead slab rows and dead coefficient lanes are never read
+    gather = (tp.out_row.long(), tp.out_bucket.long())
+    assert torch.equal(got, dense[gather])
+    assert torch.equal(got, spgemm_hashpad_q8_compact_plain(*_b5_args(tp),
+                                                            **kw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[gather],
+                               rtol=0, atol=TOL)
+    # dead slab rows, dead coefficient lanes and cells on dead lanes are
+    # never read
     dead = torch.arange(tp.width)[None, :] >= tp.ell_remaining[:, None]
-    slab = torch.where(dead.reshape(-1, 1), 127, tp.slab_q8).to(torch.int8)
+    slab = torch.where(dead.reshape(-1, 1), 127, slab_q8).to(torch.int8)
     a = torch.where(dead.repeat_interleave(8, 0), -127,
                     tp.ell_a_q8).to(torch.int8)
     poisoned = spgemm_hashpad_q8_plain(tp.ell_remaining, tp.ell_block_ptr, a,
                                        tp.ell_a_scale, slab, tp.slab_scale,
                                        **kw)
-    assert bool(dead.any()) and torch.equal(poisoned, got)
+    assert bool(dead.any()) and torch.equal(poisoned, dense)
+    cells = with_dead_lane_cells(tp, tp.cell_q8, 127)
+    assert cells[1].numel() > tp.n_cells
+    assert torch.equal(spgemm_hashpad_q8(*_b5_args(tp, a, cells), **kw), got)
 
 
 @pytest.mark.parametrize("bad", ["f32_slab", "scale_shape", "pad_width"])
 def test_b5_wrapper_raises(bad):
     tp, _, _ = _spgemm_case()
-    args = [tp.ell_remaining, tp.ell_block_ptr, tp.ell_a_q8, tp.ell_a_scale,
-            tp.slab_q8, tp.slab_scale]
+    args = list(_b5_args(tp))
     kw = dict(block_rows=8, pad_width=tp.pad_width)
     err = TypeError
     if bad == "f32_slab":
-        args[4] = args[4].float()
+        args[7] = args[7].float()                  # the cell values
     elif bad == "scale_shape":
-        args[5] = args[5][:-1].contiguous()
+        args[8] = args[8][:-1].contiguous()
         err = ValueError
     else:
-        kw["pad_width"] = tp.pad_width * 2
+        kw["pad_width"] = tp.pad_width * 3         # not a power of two
         err = ValueError
     with pytest.raises(err):
         spgemm_hashpad_q8(*args, **kw)
@@ -442,8 +470,28 @@ def test_cuda_q8_spgemm_rectangular_and_cuda_only_plan():
     # a plan built for `cuda` only quantizes at call time: the same result
     cuda_only = tsp.make_spgemm_plan(ar, ac, 40, br, bc, 64, 24, device=CPU,
                                      executors=("cuda",), **kw)
-    assert cuda_only.slab_q8 is None
+    assert cuda_only.cell_q8 is None
     assert torch.equal(tsb.spgemm(cuda_only, backend="cuda_q8"), got)
+
+
+@pytest.mark.parametrize("swap", ["a", "b"])
+def test_cuda_q8_spgemm_one_operand_swapped(swap):
+    tp, jp, rng = _spgemm_case(8, seed=4)
+    v = rng.normal(size=tp.nnz_a if swap == "a" else tp.nnz_b).astype(
+        np.float32)
+    targs = (_t(v), None) if swap == "a" else (None, _t(v))
+    jargs = (jnp.asarray(v), None) if swap == "a" else (None, jnp.asarray(v))
+    got = tsb.spgemm(tp, *targs, backend="cuda_q8")
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jsb.spgemm(jp, *jargs, backend="pallas_q8")),
+        rtol=0, atol=TOL)
+    # the same int8 cells the bake gives, quantized at call time
+    cuda_only = tsp.make_spgemm_plan(
+        np.asarray(tp.a_rows), np.asarray(tp.a_cols), tp.n_rows,
+        np.asarray(tp.b_rows), np.asarray(tp.b_cols), tp.n_inner,
+        a_vals=tp.a_base.numpy(), b_vals=tp.b_base.numpy(), width_cap=8,
+        executors=("cuda",), device=CPU)
+    assert torch.equal(tsb.spgemm(cuda_only, *targs, backend="cuda_q8"), got)
 
 
 def _graphs(n=150, e=700, seed=5):

@@ -27,12 +27,18 @@ from repro_torch.convert import gcn_params_from_jax
 from repro_torch.core import eviction as tev
 from repro_torch.core import spgemm as tcore
 from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
-                                            spgemm_hashpad_plain)
+                                            spgemm_hashpad_compact_plain,
+                                            spgemm_hashpad_plain,
+                                            spgemm_hashpad_q8,
+                                            spgemm_hashpad_q8_compact_plain,
+                                            spgemm_hashpad_q8_plain)
 from repro_torch.models.gnn import gcn as tgcn
 from repro_torch.sparse import backend as tsb
 from repro_torch.sparse import graph as tgraph
 from repro_torch.sparse import plan as tplan
 from repro_torch.sparse import spgemm as tsp
+from repro_torch.sparse.spgemm import numeric as tnum
+from spgemm_cells import drop_block_chunks, with_dead_lane_cells
 
 KERNEL_TOL = 1e-5
 EXEC_TOL = 1e-4
@@ -122,14 +128,24 @@ def test_symbolic_equals_reference(name):
         np.asarray(ac), np.bincount(br, minlength=m))
 
 
+# the port's own plan fields: live-lane counts, chunk ranges, B's cells
+PORT_FIELDS = ("ell_remaining", "ell_block_ptr", "n_cells", "cell_ptr",
+               "cell_lane", "cell_bucket", "cell_val", "cell_src",
+               "cell_src_ptr", "cell_q8")
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_make_spgemm_plan_bitwise_equal(name):
     tp, jp = _plans(name)
-    n_tensors = 0
+    # the reference's dense int8 slab, from the port's int8 cells
+    slab_q8 = np.asarray(jp.slab_q8)
+    got_q8 = tnum.hashed_slab_q8(tp).numpy()
+    assert got_q8.dtype == slab_q8.dtype and np.array_equal(got_q8, slab_q8)
+    n_tensors = 1
     for f in dataclasses.fields(tp):
         a = getattr(tp, f.name)
-        if f.name in ("ell_remaining", "ell_block_ptr"):
-            continue                          # the port's own additions
+        if f.name in PORT_FIELDS:
+            continue
         b = getattr(jp, f.name)
         if isinstance(a, torch.Tensor):
             b = np.asarray(b)
@@ -216,6 +232,17 @@ def test_eviction_helpers_equal_reference():
 # the kernel's plain version against the Pallas kernel and its oracle
 # ---------------------------------------------------------------------------
 
+def _cells_args(tp, a=None, cell_val=None):
+    return (tp.ell_remaining, tp.ell_block_ptr, tp.ell_a if a is None else a,
+            tp.cell_ptr, tp.cell_lane, tp.cell_bucket,
+            tp.cell_val if cell_val is None else cell_val, tp.c_indptr,
+            tp.out_bucket)
+
+
+def _gather(tp, pad):
+    return pad[tp.out_row.long(), tp.out_bucket.long()]
+
+
 @pytest.mark.parametrize("name,width_cap", [("powerlaw", 128),
                                             ("powerlaw", 8),
                                             ("rectangular", 128),
@@ -225,63 +252,77 @@ def test_hashpad_plain_matches_reference_kernel_and_oracle(name, width_cap):
     if width_cap == 8:
         assert tp.n_chunks > tp.n_blocks            # several chunks a block
     rng = np.random.default_rng(tp.n_chunks)
-    slab = np.zeros((tp.n_chunks * tp.width, tp.pad_width), np.float32)
-    np.add.at(slab, (tp.slab_row.numpy(), tp.slab_col.numpy()),
-              rng.normal(size=tp.pp_dedup).astype(np.float32))
+    bv = torch.from_numpy(rng.normal(size=tp.nnz_b).astype(np.float32))
+    slab = tnum.hashed_slab(tp, bv)
     a = tp.ell_a.numpy()
-    got = spgemm_hashpad(tp.ell_remaining, tp.ell_block_ptr, tp.ell_a,
-                         torch.from_numpy(slab), block_rows=tp.block_rows,
-                         pad_width=tp.pad_width)
-    assert got.shape == (tp.n_blocks * tp.block_rows, tp.pad_width)
-    assert torch.equal(got, spgemm_hashpad_plain(
-        tp.ell_remaining, tp.ell_block_ptr, tp.ell_a, torch.from_numpy(slab),
-        block_rows=tp.block_rows, pad_width=tp.pad_width))
-    kw = dict(block_rows=tp.block_rows, n_blocks=tp.n_blocks,
-              pad_width=tp.pad_width)
+    kw = dict(block_rows=tp.block_rows, pad_width=tp.pad_width)
+    dense = spgemm_hashpad_plain(tp.ell_remaining, tp.ell_block_ptr,
+                                 tp.ell_a, slab, **kw)
+    assert dense.shape == (tp.n_blocks * tp.block_rows, tp.pad_width)
+    # the wrapper on B's compact cells: C's values, the compact plain
+    # version's, and the dense plain version's gathered (≤1e-5: the dense
+    # version sums through bmm, in another order)
+    args = _cells_args(tp, cell_val=tnum.cell_values(tp, bv))
+    got = spgemm_hashpad(*args, **kw)
+    assert got.shape == (tp.nnz_out,)
+    assert torch.equal(got, spgemm_hashpad_compact_plain(*args, **kw))
+    np.testing.assert_allclose(got.numpy(), _gather(tp, dense).numpy(),
+                               rtol=0, atol=KERNEL_TOL)
+    jkw = dict(block_rows=tp.block_rows, n_blocks=tp.n_blocks,
+               pad_width=tp.pad_width)
     kern = jax_hashpad(jp.ell_out_block, jp.ell_first, jp.ell_evict,
-                       jnp.asarray(a), jnp.asarray(slab), interpret=True,
-                       h_tile=min(tp.pad_width, 128), **kw)
+                       jnp.asarray(a), jnp.asarray(slab.numpy()),
+                       interpret=True, h_tile=min(tp.pad_width, 128), **jkw)
     oracle = spgemm_hashpad_ref(jp.ell_out_block, jnp.asarray(a),
-                                jnp.asarray(slab), tp.block_rows,
+                                jnp.asarray(slab.numpy()), tp.block_rows,
                                 tp.n_blocks, tp.pad_width)
-    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=0,
-                               atol=KERNEL_TOL)
-    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=0,
-                               atol=KERNEL_TOL)
+    for want in (kern, oracle):
+        np.testing.assert_allclose(dense.numpy(), np.asarray(want), rtol=0,
+                                   atol=KERNEL_TOL)
+        np.testing.assert_allclose(
+            got.numpy(), _gather(tp, torch.from_numpy(np.array(want))),
+            rtol=0, atol=KERNEL_TOL)
 
 
 def test_hashpad_plain_never_reads_dead_lanes():
     tp, _ = _plans("powerlaw")
-    slab = torch.zeros((tp.n_chunks * tp.width, tp.pad_width))
-    slab.index_put_((tp.slab_row.long(), tp.slab_col.long()),
-                    torch.ones(tp.pp_dedup), accumulate=True)
-    want = spgemm_hashpad(tp.ell_remaining, tp.ell_block_ptr, tp.ell_a,
-                          slab, block_rows=8, pad_width=tp.pad_width)
+    kw = dict(block_rows=8, pad_width=tp.pad_width)
     lane = torch.arange(tp.width)
-    dead = (lane[None, :] >= tp.ell_remaining[:, None]).reshape(-1)
+    dead = lane[None, :] >= tp.ell_remaining[:, None]
     assert bool(dead.any())
-    poisoned = slab.clone()
-    poisoned[dead] = float("nan")
-    a = tp.ell_a.clone().reshape(tp.n_chunks, 8, tp.width)
-    a[dead.reshape(tp.n_chunks, 1, tp.width).expand_as(a)] = float("nan")
-    got = spgemm_hashpad(tp.ell_remaining, tp.ell_block_ptr,
-                         a.reshape(-1, tp.width), poisoned, block_rows=8,
-                         pad_width=tp.pad_width)
+    a = torch.where(dead.repeat_interleave(8, 0), float("nan"), tp.ell_a)
+    # the wrapper on compact cells: dead coefficient lanes and cells on
+    # dead lanes are never read
+    want = spgemm_hashpad(*_cells_args(tp), **kw)
+    ptr, c_lane, c_bucket, c_val = with_dead_lane_cells(tp, tp.cell_val,
+                                                        float("nan"))
+    assert c_lane.numel() > tp.n_cells
+    got = spgemm_hashpad(tp.ell_remaining, tp.ell_block_ptr, a, ptr, c_lane,
+                         c_bucket, c_val, tp.c_indptr, tp.out_bucket, **kw)
     assert torch.equal(got, want)
+    # the dense-slab oracle: dead slab rows are never read either
+    slab = tnum.hashed_slab(tp)
+    clean = spgemm_hashpad_plain(tp.ell_remaining, tp.ell_block_ptr,
+                                 tp.ell_a, slab, **kw)
+    poisoned = slab.clone()
+    poisoned[dead.reshape(-1)] = float("nan")
+    assert torch.equal(spgemm_hashpad_plain(tp.ell_remaining,
+                                            tp.ell_block_ptr, a, poisoned,
+                                            **kw), clean)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "pad", "ptr", "contig"])
 def test_hashpad_wrapper_raises(bad):
     tp, _ = _plans("powerlaw")
-    slab = torch.zeros((tp.n_chunks * tp.width, tp.pad_width))
-    args = dict(remaining=tp.ell_remaining, block_ptr=tp.ell_block_ptr,
-                a=tp.ell_a, slab=slab)
+    args = dict(zip(("remaining", "block_ptr", "a", "cell_ptr", "cell_lane",
+                     "cell_bucket", "cell_val", "c_indptr", "out_bucket"),
+                    _cells_args(tp)))
     kw = dict(block_rows=8, pad_width=tp.pad_width)
     err = ValueError
     if bad == "dtype":
-        args["slab"], err = slab.double(), TypeError
+        args["cell_val"], err = tp.cell_val.double(), TypeError
     elif bad == "shape":
-        args["slab"] = slab[:-1]
+        args["cell_val"] = tp.cell_val[:-1]
     elif bad == "pad":
         kw["pad_width"] = tp.pad_width + 8
     elif bad == "ptr":
@@ -290,6 +331,137 @@ def test_hashpad_wrapper_raises(bad):
         args["a"] = torch.zeros(tp.width, tp.n_chunks * 8).t()
     with pytest.raises(err):
         spgemm_hashpad(**args, **kw)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_hashpad_wrapper_narrower_pad_width_gives_nan(dtype):
+    """A pad width below the plan's: C's entries whose bucket no longer
+    fits come out NaN and the rest as at the plan's width, bitwise (their
+    columns get the same cells in the same order) — never a value from
+    nowhere."""
+    tp, _ = _plans("powerlaw")
+    if dtype == "f32":
+        fn, args = spgemm_hashpad, _cells_args(tp)
+    else:
+        fn = spgemm_hashpad_q8
+        args = (tp.ell_remaining, tp.ell_block_ptr, tp.ell_a_q8,
+                tp.ell_a_scale, tp.cell_ptr, tp.cell_lane, tp.cell_bucket,
+                tp.cell_q8, tp.slab_scale, tp.c_indptr, tp.out_bucket)
+    full = fn(*args, block_rows=8, pad_width=tp.pad_width)
+    half = tp.pad_width // 2
+    got = fn(*args, block_rows=8, pad_width=half)
+    out = tp.out_bucket >= half
+    assert bool(out.any()) and bool((~out).any())
+    assert bool(torch.isnan(got[out]).all())
+    assert torch.equal(got[~out], full[~out])
+
+
+# ---------------------------------------------------------------------------
+# B's compact cells and the compact plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("width_cap", [128, 8])
+def test_compact_cells_scatter_to_the_reference_slab(name, width_cap):
+    tp, jp = _plans(name, width_cap=width_cap)
+    _, _, _, _, _, _, _, _, bv = _case(name)
+    # the cells, scattered, are the reference's slab scatter map np.add.at'd
+    # in entry order (duplicate B entries included), bitwise
+    want = np.zeros((tp.n_chunks * tp.width, tp.pad_width), np.float32)
+    np.add.at(want, (np.asarray(jp.slab_row), np.asarray(jp.slab_col)),
+              bv[np.asarray(jp.slab_src)])
+    chunk = np.repeat(np.arange(tp.n_chunks), np.diff(tp.cell_ptr.numpy()))
+    row = chunk * tp.width + tp.cell_lane.numpy()
+    got = np.zeros_like(want)
+    got[row, tp.cell_bucket.numpy()] = tp.cell_val.numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, tnum.hashed_slab(tp).numpy())
+    assert tp.n_cells == np.count_nonzero(
+        np.bincount(row * tp.pad_width + tp.cell_bucket.numpy()))
+    # each chunk's cells ordered by (bucket, lane), on live lanes
+    key = (chunk * tp.pad_width + tp.cell_bucket.numpy()) * tp.width \
+        + tp.cell_lane.numpy()
+    assert np.all(np.diff(key) > 0)
+    assert np.all(tp.cell_lane.numpy() < tp.ell_remaining.numpy()[chunk])
+    # cell_src holds every slab entry once, grouped by cell in entry order
+    src_ptr = tp.cell_src_ptr.numpy()
+    assert src_ptr[0] == 0 and src_ptr[-1] == tp.pp_dedup
+    assert np.array_equal(np.sort(tp.cell_src.numpy()),
+                          np.sort(np.asarray(jp.slab_src)))
+    # swapped B values: the cells of hashed_slab, bitwise
+    b2 = torch.from_numpy(np.random.default_rng(3).normal(
+        size=tp.nnz_b).astype(np.float32))
+    assert torch.equal(tnum.cell_values(tp, b2),
+                       tnum.hashed_slab(tp, b2)[row, tp.cell_bucket.long()])
+
+
+@pytest.mark.parametrize("name", ["powerlaw", "rectangular", "empty_rows",
+                                  "empty_block"])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_compact_plain_equals_dense_plain_gathered(name, dtype):
+    """The compact plain versions against the dense-slab plain versions
+    gathered through out_row / out_bucket: f32 within 1e-6 (the dense one
+    sums through bmm), int8 bitwise (exact integer sums, the same fold)."""
+    case = "powerlaw" if name == "empty_block" else name
+    tp, _ = _plans(case, width_cap=8)
+    kw = dict(block_rows=8, pad_width=tp.pad_width)
+    if dtype == "f32":
+        tiles, vals, scales = tp.ell_a, tp.cell_val, ()
+        slab = tnum.hashed_slab(tp)
+    else:
+        tiles, vals = tp.ell_a_q8, tp.cell_q8
+        scales = (tp.ell_a_scale, tp.slab_scale)
+        slab = tnum.hashed_slab_q8(tp)
+    b = tp.n_blocks // 2
+    if name == "empty_block":
+        rem, bp, tiles_, *rest = drop_block_chunks(tp, b, tiles, vals,
+                                                   scales)
+        scales_ = tuple(rest[:len(scales)])
+        cells = tuple(rest[len(scales):])
+        keep = torch.ones(tp.n_chunks, dtype=torch.bool)
+        keep[int(tp.ell_block_ptr[b]):int(tp.ell_block_ptr[b + 1])] = False
+        slab = slab.reshape(tp.n_chunks, -1)[keep].reshape(-1, tp.pad_width)
+        assert int(bp[b]) == int(bp[b + 1])
+    else:
+        rem, bp, tiles_, scales_ = (tp.ell_remaining, tp.ell_block_ptr,
+                                    tiles, scales)
+        cells = (tp.cell_ptr, tp.cell_lane, tp.cell_bucket, vals)
+    out = (tp.c_indptr, tp.out_bucket)
+    if dtype == "f32":
+        got = spgemm_hashpad_compact_plain(rem, bp, tiles_, *cells, *out,
+                                           **kw)
+        dense = spgemm_hashpad_plain(rem, bp, tiles_, slab, **kw)
+        np.testing.assert_allclose(got.numpy(), _gather(tp, dense).numpy(),
+                                   rtol=0, atol=1e-6)
+    else:
+        got = spgemm_hashpad_q8_compact_plain(
+            rem, bp, tiles_, scales_[0], *cells[:3], cells[3], scales_[1],
+            *out, **kw)
+        dense = spgemm_hashpad_q8_plain(rem, bp, tiles_, scales_[0], slab,
+                                        scales_[1], **kw)
+        assert torch.equal(got, _gather(tp, dense))
+    if name == "empty_block":
+        lo, hi = (int(tp.c_indptr[min(8 * i, tp.n_rows)]) for i in (b, b + 1))
+        assert hi > lo and not bool(got[lo:hi].any())
+
+
+def test_no_executor_builds_the_dense_slab(monkeypatch):
+    tp, _ = _plans("empty_rows")
+    rng = np.random.default_rng(2)
+    av = torch.from_numpy(rng.normal(size=tp.nnz_a).astype(np.float32))
+    bv = torch.from_numpy(rng.normal(size=tp.nnz_b).astype(np.float32))
+    calls = [(backend, a2, b2) for backend in ("cuda", "cuda_q8")
+             for a2, b2 in ((None, None), (av, bv), (None, bv), (av, None))]
+    want = [tsb.spgemm(tp, a2, b2, backend=backend)
+            for backend, a2, b2 in calls]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("an executor built the dense hashed slab")
+    monkeypatch.setattr(tnum, "hashed_slab", refuse)
+    monkeypatch.setattr(tnum, "hashed_slab_q8", refuse)
+    for (backend, a2, b2), w in zip(calls, want):
+        got = tsb.spgemm(tp, a2, b2, backend=backend)
+        assert got.shape == (tp.nnz_out,) and torch.equal(got, w)
 
 
 # ---------------------------------------------------------------------------
