@@ -72,14 +72,21 @@ Phases, each of which raises (exit code 1) on any failure:
     ``build_recsys_step`` for serve_p99, serve_bulk and retrieval_cand
     (1 query, 1,000,000 candidates), each held against the same step
     through the plain lookup (≤1e-5) and traced with ``torch.profiler``;
-11. sddmm — ``edge_scores`` at the Cora-scale graph (d = 64) and the
-    ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100), counted,
-    against the plain version (≤1e-5 relative and absolute), timed beside
+11. sddmm — ``edge_scores`` at the Cora-scale graph (d = 64), the
+    ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100) and
+    that shape with skewed sources drawn on the card (``src = floor(N·u²)``,
+    ~40K edges on row 0), counted, against the plain version (≤1e-5
+    relative and absolute) and against itself run to run (bitwise), timed
+    with ``grouped_floor_ms`` (each distinct x row once, one y row per
+    edge, indices and scores) beside the bound and, at ogb_products scale,
+    each kernel of one call traced (``kernels_ms``); the first two also on
+    src-sorted edges (``src_sorted_ms``) and beside
     ``torch.sparse.sampled_addmm`` on a CSR pattern built beforehand and,
     as ``library_with_pattern_ms``, with the argsort, bincount, cumsum and
     ``sparse_csr_tensor`` that build that pattern from the unsorted
     (src, dst) and the scatter of the scores back to the caller's edge
-    order inside the timed call;
+    order inside the timed call; then the scores of a permuted
+    ogb_products edge list, permuted back, must equal the unpermuted ones;
 12. flash attention — ``mha_causal`` at qwen3-0.6b's attention width (16
     heads, 8 kv heads, head_dim 128), S = 4096, batch 1, in f32 and bf16,
     counted, against the f32 plain version (≤2e-5 f32, ≤2e-2 bf16), timed
@@ -1229,9 +1236,26 @@ def phase_dlrm(dev):
     return b6, steps, launches
 
 
-def sddmm_case(name, src, dst, x, y):
+B7_GROUPED, B7_DIRECT = 0, 2 ** 63 - 1   # thresholds that force a path
+
+
+def on_b7_path(threshold, fn):
+    """``fn()`` with B7's grouping threshold set to ``threshold`` bytes."""
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels.sddmm.sddmm")
+    old, mod.GROUP_ABOVE_X_BYTES = mod.GROUP_ABOVE_X_BYTES, threshold
+    try:
+        return fn()
+    finally:
+        mod.GROUP_ABOVE_X_BYTES = old
+
+
+def sddmm_case(name, src, dst, x, y, library=True):
     """B7 through ``edge_scores`` against its plain version (≤1e-5
-    relative and absolute), timed beside ``torch.sparse.sampled_addmm``."""
+    relative and absolute) and against itself run to run (bitwise), timed
+    on the path the wrapper takes (``ms``) and on each path forced
+    (``grouped_ms``, ``direct_ms``), beside ``torch.sparse.sampled_addmm``
+    unless ``library`` is False."""
     import torch.nn.functional as F
     from repro_torch.kernels.sddmm import edge_scores, sddmm, sddmm_plain
     e, d = src.shape[0], x.shape[1]
@@ -1245,16 +1269,44 @@ def sddmm_case(name, src, dst, x, y):
     check(excess <= KERNEL_TOL, f"B7 {name}: kernel vs plain {err:.3e} "
                                 "beyond 1e-5 + 1e-5*|plain|")
     del want
+    check(torch.equal(edge_scores(src, dst, x, y), got),
+          f"B7 {name}: scores differ from run to run")
     pad = (-e) % 256
     src_p, dst_p = F.pad(src, (0, pad)), F.pad(dst, (0, pad))
     big = e > 1 << 24
-    rec = dict(
-        shape=f"{name} E={e} D={d}", max_abs_err=err,
-        ms=graph_ms(lambda: sddmm(src_p, dst_p, x, y),
-                    **(dict(calls=5, replays=4) if big else {})),
-        plain_ms=eager_ms(lambda: sddmm_plain(src, dst, x, y),
-                          iters=3 if big else 20))
+    graph_kw = dict(calls=5, replays=4) if big else {}
+    rec = dict(shape=f"{name} E={e} D={d}", max_abs_err=err,
+               run_to_run_equal=True,
+               ms=graph_ms(lambda: sddmm(src_p, dst_p, x, y), **graph_kw))
+    for path, threshold in (("grouped", B7_GROUPED), ("direct", B7_DIRECT)):
+        rec[f"{path}_ms"] = on_b7_path(threshold, lambda: graph_ms(
+            lambda: sddmm(src_p, dst_p, x, y), **graph_kw))
+    if big:        # device ms of each kernel of one call, from a trace
+        rec["kernels_ms"] = trace_steps(lambda: sddmm(src_p, dst_p, x, y),
+                                        3, "sddmm", top=8)["top_ms_per_step"]
     del src_p, dst_p
+    # least bytes: the indices once, each distinct x and y row they name
+    # once, the scores once.  Least operations: 2 per element of each pair.
+    # The grouped design's floor: each distinct x row once, one y row per
+    # edge (no reuse of y in L2), the indices and the scores.
+    rows = [int(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+                .index_fill_(0, i.long(), True).sum())
+            for t, i in ((x, src), (y, dst))]
+    n_bytes = 4 * (3 * e + d * sum(rows))
+    n_flops = 2 * e * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+    floor_bytes = 4 * (3 * e + d * (rows[0] + e))
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes, bound_flops=n_flops,
+               grouped_floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3,
+               grouped_floor_bytes=floor_bytes)
+    if not library:
+        rec.update(plain_ms=None, library_ms=None)
+        say(f"B7 {json.dumps(rec)}")
+        return rec
+    rec["plain_ms"] = eager_ms(lambda: sddmm_plain(src, dst, x, y),
+                               iters=3 if big else 20)
     # torch.sparse.sampled_addmm on the CSR pattern of (src, dst), edges in
     # (src, dst) order; the pattern repeats edges, which CSR may refuse
 
@@ -1268,13 +1320,15 @@ def sddmm_case(name, src, dst, x, y):
             crow, dst.long()[order], torch.zeros(e, device=x.device),
             (x.shape[0], y.shape[0]))
     order, pattern = csr_pattern()
-    # the kernel on the same edges in that (src, dst) order: consecutive
-    # warps then share x rows in L2, as the CSR pattern lets cuSPARSE do
+    # the kernel on the same edges in that (src, dst) order: the caller has
+    # grouped them already
     src_s = F.pad(src[order], (0, pad))
     dst_s = F.pad(dst[order], (0, pad))
     rec["src_sorted_ms"] = graph_ms(lambda: sddmm(src_s, dst_s, x, y),
-                                    **(dict(calls=5, replays=4) if big
-                                       else {}))
+                                    **graph_kw)
+    for path, threshold in (("grouped", B7_GROUPED), ("direct", B7_DIRECT)):
+        rec[f"src_sorted_{path}_ms"] = on_b7_path(threshold, lambda: graph_ms(
+            lambda: sddmm(src_s, dst_s, x, y), **graph_kw))
     del src_s, dst_s
     y_t = y.T
     try:
@@ -1308,25 +1362,16 @@ def sddmm_case(name, src, dst, x, y):
         rec["library_with_pattern_ms"] = eager_ms(library_with_pattern,
                                                   iters=3 if big else 20)
     del pattern, order
-    # least bytes: the indices once, each distinct x and y row they name
-    # once, the scores once.  Least operations: 2 per element of each pair.
-    rows = [int(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
-                .index_fill_(0, i.long(), True).sum())
-            for t, i in ((x, src), (y, dst))]
-    n_bytes = 4 * (3 * e + d * sum(rows))
-    n_flops = 2 * e * d
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, bound_flops=n_flops)
     say(f"B7 {json.dumps(rec)}")
     return rec
 
 
 def phase_sddmm(dev):
-    """B7 through ``edge_scores`` at the Cora-scale graph (d = 64) and at
-    the ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100,
-    indices and features drawn on the card)."""
+    """B7 through ``edge_scores`` at the Cora-scale graph (d = 64), at the
+    ogb_products shape (2,449,029 nodes, 61,859,140 edges, d = 100, indices
+    and features drawn on the card) and at that shape with skewed sources
+    (``src = floor(N·u²)``, ~40K edges on row 0); then the permutation
+    check at ogb_products."""
     from repro_torch.data.synthetic import cora_like
     from repro_torch.kernels.sddmm import edge_scores, sddmm
     rng = np.random.default_rng(11)
@@ -1341,16 +1386,70 @@ def phase_sddmm(dev):
                               dtype=torch.int32) for _ in range(2)]
     products += [torch.randn((n, d), generator=gen, device=dev)
                  for _ in range(2)]
+    u = torch.rand(e, generator=gen, device=dev, dtype=torch.float64)
+    skewed = [(n * u * u).floor().clamp_max(n - 1).to(torch.int32),
+              products[1], products[2], products[3]]
+    del u
+    hub = int((skewed[0] == 0).sum())
     sddmm.launches = 0
     edge_scores(*cora)
     edge_scores(*products)
+    edge_scores(*skewed)
     torch.cuda.synchronize()
     launches = sddmm.launches
-    check(launches == 2, f"B7: {launches} launches on the edge_scores path, "
-                         "expected 2")
+    check(launches == 3, f"B7: {launches} launches on the edge_scores path, "
+                         "expected 3")
     recs = [sddmm_case("cora_like", *cora),
-            sddmm_case("ogb_products", *products)]
+            sddmm_case("ogb_products", *products),
+            sddmm_case("ogb_products_skewed", *skewed, library=False)]
+    recs[2]["hub_edges"] = hub
+    del skewed
+    # scores of a permuted edge list, permuted back, equal the unpermuted
+    perm = torch.randperm(e, generator=gen, device=dev)
+    want = edge_scores(*products)
+    permuted = edge_scores(products[0][perm], products[1][perm],
+                           *products[2:])
+    back = torch.empty_like(permuted)
+    back[perm] = permuted
+    torch.cuda.synchronize()
+    check(torch.equal(back, want), "B7 ogb_products: permuted edges give "
+                                   "other scores")
+    recs[1]["permutation_equal"] = True
+    say(f"B7 permutation check at ogb_products: equal; hub row 0 of the "
+        f"skewed case holds {hub} edges")
+    del perm, want, permuted, back
+    recs[1]["path_sweep"] = b7_path_sweep(dev, products[2], products[3], gen)
     return recs, launches
+
+
+def b7_path_sweep(dev, x_full, y_full, gen):
+    """Both B7 paths on uniform random edges at ogb_products' width and
+    mean degree (E / N = 25.26), x (and y) from ¼ to 8× the card's L2:
+    where grouping by source starts to pay.  The two paths must give the
+    same bits."""
+    from repro_torch.kernels.sddmm import sddmm
+    n_all, e_all, d = OGB_PRODUCTS
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    sweep = []
+    for share in (0.25, 0.5, 1, 2, 4, 8):
+        n = int(share * l2) // (4 * d)
+        e = round(n * e_all / n_all) // 256 * 256
+        src, dst = (torch.randint(0, n, (e,), generator=gen, device=dev,
+                                  dtype=torch.int32) for _ in range(2))
+        x, y = x_full[:n], y_full[:n]
+        rec = dict(x_over_l2=share, nx=n, e=e)
+        got = {}
+        for path, threshold in (("grouped", B7_GROUPED),
+                                ("direct", B7_DIRECT)):
+            got[path] = on_b7_path(threshold,
+                                   lambda: sddmm(src, dst, x, y))
+            rec[f"{path}_ms"] = on_b7_path(threshold, lambda: graph_ms(
+                lambda: sddmm(src, dst, x, y), calls=10, replays=5))
+        check(torch.equal(got["grouped"], got["direct"]),
+              f"B7 path sweep at {share}x L2: the paths' scores differ")
+        sweep.append(rec)
+    say(f"B7 path sweep (L2 {l2} B) {json.dumps(sweep)}")
+    return sweep
 
 
 def flash_case(dtype, flat):
@@ -1738,6 +1837,9 @@ def main() -> int:
              source="src/repro_torch/kernels/sddmm/csrc/sddmm.cu",
              replaces="src/repro/kernels/sddmm/sddmm.py:54",
              launches=b7_launches,
+             launches_note="edge_scores calls: one kernel each on the "
+                           "direct path, 8 kernels and 2 memsets on the "
+                           "grouped path (ogb_products)",
              max_abs_err=max(c["max_abs_err"] for c in b7),
              shape=b7[1]["shape"], **{k: b7[1][k] for k in keys}),
         dict(name="flash_attention", route="cuda",

@@ -3,8 +3,9 @@ counter.
 
 Port of ``repro.kernels.embedding_bag.embedding_bag.embedding_bag``: for ids
 ``(B, F, M)`` and a table ``(V, D)``, ``out[b, f·D:(f+1)·D] = Σ_m
-table[ids[b, f, m]]``.  The CUDA kernel (``csrc/embedding_bag.cu``) runs one
-warp per bag and sums the bag's rows in registers in m order; the plain
+table[ids[b, f, m]]``.  The CUDA kernel (``csrc/embedding_bag.cu``) gives a
+bag ``lane_layout``'s lanes (two bags a warp at D = 64), keeps several bags'
+rows in flight and sums each bag in registers in m order; the plain
 version sums in the same order, so the two agree bit for bit.  Ids follow
 ``jnp.take``'s default, the reference oracle's: ``i`` in ``[-V, 0)`` reads
 row ``i + V``, and an id outside ``[-V, V)`` gives NaN.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import Tuple
 
 import torch
 
@@ -27,7 +29,7 @@ LIBRARY = build.KernelLibrary(
     functions=(("embedding_bag_launch",
                 (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_void_p)),))
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p)),))
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -54,15 +56,18 @@ def embedding_bag_plain(ids: torch.Tensor, table: torch.Tensor
     return out.reshape(b, -1)
 
 
-def _vec_width(dim: int, *tensors: torch.Tensor) -> int:
-    """Floats per lane load: 4, 2 or 1, dividing ``dim`` and every
-    pointer's float alignment, and leaving no more than one pass of the
-    warp's 32 lanes idle."""
-    for vec in (4, 2):
-        if (dim % vec == 0 and dim >= 32 * vec
-                and all(t.data_ptr() % (4 * vec) == 0 for t in tensors)):
-            return vec
-    return 1
+def lane_layout(dim: int, *tensors: torch.Tensor) -> Tuple[int, int]:
+    """(floats per load, lanes per bag): VEC = 4, 2 or 1, the widest that
+    divides ``dim`` and every pointer's float alignment; lanes = dim / VEC
+    rounded up to a power of two of at most 32 (wider rows take several
+    passes of 32 lanes)."""
+    vec = 1
+    for v in (4, 2):
+        if dim % v == 0 and all(t.data_ptr() % (4 * v) == 0
+                                for t in tensors):
+            vec = v
+            break
+    return vec, min(32, 1 << (max(1, dim // vec) - 1).bit_length())
 
 
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
@@ -71,7 +76,7 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
     ``(B, F·D)`` f32 (reshape to (B, F, D) outside).
 
     ``batch_tile`` is the reference's grid tile; the CUDA kernel has its own
-    (one warp per bag) and keeps only the reference's divisibility check.
+    (a fixed grid striding over bags) and keeps only the reference's divisibility check.
     """
     if ids.dtype != torch.int32 or table.dtype != torch.float32:
         raise TypeError(f"embedding_bag takes int32 ids and a float32 table, "
@@ -99,7 +104,7 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.embedding_bag_launch(
             ids.data_ptr(), table.data_ptr(), out.data_ptr(), b * f, m,
-            n_rows, dim, _vec_width(dim, table, out), stream)
+            n_rows, dim, *lane_layout(dim, table, out), stream)
     build.check_launch("embedding_bag", err)
     embedding_bag.launches += 1
     return out

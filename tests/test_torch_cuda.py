@@ -4,12 +4,17 @@ Marked ``gpu``: each test skips without a CUDA device.  On a machine with
 one, run ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where JAX is not installed.
 """
+import ctypes
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                embedding_bag_plain)
+from repro_torch.kernels.embedding_bag.embedding_bag import lane_layout
 from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                  flash_attention, mha_causal)
 from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
@@ -515,6 +520,191 @@ def test_sddmm_kernel_matches_plain(cuda):
         assert got.shape == (e,) and torch.equal(got.isnan(), want.isnan())
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-5,
                               equal_nan=True)
+
+
+# B7's two paths: the grouping threshold (x bytes) at 0 groups every call,
+# at its maximum none
+sddmm_module = importlib.import_module("repro_torch.kernels.sddmm.sddmm")
+SDDMM_PATHS = {"grouped": 0, "direct": 2 ** 63 - 1}
+
+
+@pytest.fixture(params=sorted(SDDMM_PATHS))
+def sddmm_path(request, cuda, monkeypatch):
+    monkeypatch.setattr(sddmm_module, "GROUP_ABOVE_X_BYTES",
+                        SDDMM_PATHS[request.param])
+    return request.param
+
+
+def _sddmm_args(n, ny, e, d, seed, dev, src=None):
+    rng = np.random.default_rng(seed)
+    if src is None:
+        src = rng.integers(-n, n, e)
+    dst = rng.integers(-ny, ny, e)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.normal(size=(ny, d)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        np.asarray(src, np.int32), dst.astype(np.int32), x, y)]
+
+
+def _sddmm_vs_plain(args):
+    before = sddmm.launches
+    got = sddmm(*args, edge_block=1)
+    assert sddmm.launches == before + (args[0].shape[0] > 0)
+    want = sddmm_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got.isnan(), want.isnan())
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("d", [1, 3, 7, 64, 100, 128, 257])
+def test_sddmm_paths_match_plain(sddmm_path, d):
+    n, ny, e = 300, 170, 5000
+    args = _sddmm_args(n, ny, e, d, d, "cuda")
+    args[0][:3] = torch.tensor([n, -n - 1, 2 ** 31 - 1])     # NaN scores
+    args[1][3:5] = torch.tensor([ny, -ny - 1])
+    got = _sddmm_vs_plain(args)
+    assert bool(got[:5].isnan().all()) and not bool(got[5:].isnan().any())
+
+
+def test_sddmm_paths_empty_edge_list(sddmm_path):
+    args = _sddmm_args(30, 20, 0, 16, 0, "cuda")
+    before = sddmm.launches
+    got = edge_scores(*args)
+    assert got.shape == (0,) and sddmm.launches == before
+
+
+def test_sddmm_paths_hub_source(sddmm_path):
+    # 90% of the edges on one source: the hub spans many chunks of 512
+    rng = np.random.default_rng(3)
+    n, e = 1000, 20000
+    src = np.where(rng.random(e) < 0.9, 7, rng.integers(0, n, e))
+    _sddmm_vs_plain(_sddmm_args(n, 900, e, 100, 3, "cuda", src=src))
+
+
+def test_sddmm_paths_sorted_sources(sddmm_path):
+    rng = np.random.default_rng(4)
+    n, e = 500, 12000
+    src = np.sort(rng.integers(0, n, e))
+    _sddmm_vs_plain(_sddmm_args(n, 700, e, 100, 4, "cuda", src=src))
+
+
+@pytest.mark.parametrize("sources", ["spread", "gapped"])
+def test_sddmm_grouped_scan_over_many_tiles(cuda, monkeypatch, sources):
+    # 600,001 counters: 293 scan tiles, more than one pass of the single
+    # block that scans the tile sums; "gapped" leaves ~600K empty groups
+    # between the first 100 sources and the last
+    monkeypatch.setattr(sddmm_module, "GROUP_ABOVE_X_BYTES", 0)
+    rng = np.random.default_rng(5)
+    n = 600_000
+    low = n if sources == "spread" else 100
+    src = np.concatenate([rng.integers(0, low, 150_000),
+                          np.full(50_000, n - 1)])
+    _sddmm_vs_plain(_sddmm_args(n, 1000, src.size, 4, 5, "cuda", src=src))
+
+
+def test_sddmm_grouped_scratch_words(cuda):
+    # csrc/sddmm.cu sizes the grouped path's scratch.  ogb_products at D =
+    # 100 (8 lanes): a rank and a grouped dst per edge (61,859,140 each),
+    # 2,449,030 group starts, scan tiles of 2048 (1196), chunks of 512
+    # (120,819), buckets of 4096 slots (15,103): ~0.5 GB
+    lib = build.load(sddmm_module.LIBRARY)
+
+    def words(n_edges, nx, lanes):
+        n = ctypes.c_int64(-1)
+        err = lib.sddmm_grouped_scratch(n_edges, nx, lanes,
+                                        ctypes.addressof(n))
+        return err, n.value
+    assert words(61_859_140, 2_449_029, 8) == (0, 126_304_428)
+    assert 4 * 126_304_428 == 505_217_712
+    assert words(0, 0, 1) == (0, 2)            # one start, one scan tile
+    assert words(4097, 10, 32) == (0, 2 * 4097 + 11 + 1 + 33 + 2)
+    assert words(10, 10, 3)[0] != 0            # lanes not a power of two
+
+
+def test_sddmm_grouped_launch_rejects_short_scratch(cuda):
+    lib = build.load(sddmm_module.LIBRARY)
+    src, dst, x, y = _sddmm_args(40, 30, 256, 8, 6, cuda)
+    out = torch.full((256,), 7.0, device=cuda)
+    n = ctypes.c_int64()
+    assert lib.sddmm_grouped_scratch(256, 40, 2, ctypes.addressof(n)) == 0
+    scratch = torch.empty(n.value, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (src, dst, x, y, out)]
+    assert lib.sddmm_grouped_launch(*ptrs, 256, 40, 30, 8, 4, 2,
+                                    scratch.data_ptr(), n.value - 1,
+                                    stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())            # nothing launched
+    assert lib.sddmm_grouped_launch(*ptrs, 256, 40, 30, 8, 4, 2,
+                                    scratch.data_ptr(), n.value, stream) == 0
+    want = sddmm_plain(src, dst, x, y)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("d", [7, 64, 100])
+def test_sddmm_scores_bitwise_stable(cuda, monkeypatch, d):
+    # run to run, under a permutation of the edges, and across both paths
+    args = _sddmm_args(400, 300, 9000, d, d + 1, cuda)
+    args[0][:2] = torch.tensor([400, -401])
+    perm = torch.from_numpy(np.random.default_rng(d).permutation(9000)).to(
+        cuda)
+    runs = {}
+    for path, threshold in SDDMM_PATHS.items():
+        monkeypatch.setattr(sddmm_module, "GROUP_ABOVE_X_BYTES", threshold)
+        first = sddmm(*args, edge_block=1)
+        assert _same(sddmm(*args, edge_block=1), first)
+        permuted = sddmm(args[0][perm].contiguous(),
+                         args[1][perm].contiguous(), *args[2:],
+                         edge_block=1)
+        back = torch.empty_like(permuted)
+        back[perm] = permuted
+        assert _same(back, first)
+        runs[path] = first
+    assert _same(runs["grouped"], runs["direct"])
+
+
+@pytest.mark.parametrize("d", [4, 16, 64, 96, 128, 200])
+@pytest.mark.parametrize("m", [1, 2, 4, 7])
+def test_embedding_bag_lane_layouts_match_plain(cuda, d, m):
+    rng = np.random.default_rng(d * 10 + m)
+    v = 500
+    ids = rng.integers(-v, v, (32, 3, m)).astype(np.int32)
+    ids.reshape(-1)[:2] = [v, -v - 1]                    # NaN bags
+    ids_t = torch.from_numpy(ids).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)
+                             ).to(cuda)
+    got = embedding_bag(ids_t, table)
+    want = embedding_bag_plain(ids_t, table)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("offset,vec", [(1, 1), (2, 2)])
+def test_embedding_bag_unaligned_table_view(cuda, offset, vec):
+    rng = np.random.default_rng(offset)
+    v, d = 300, 64
+    base = torch.from_numpy(rng.normal(size=v * d + 4).astype(np.float32)
+                            ).to(cuda)
+    table = base[offset:offset + v * d].view(v, d)
+    assert lane_layout(d, table)[0] == vec
+    ids_t = torch.from_numpy(rng.integers(0, v, (16, 5, 2)).astype(
+        np.int32)).to(cuda)
+    got = embedding_bag(ids_t, table)
+    assert torch.equal(got, embedding_bag_plain(ids_t, table))
+    assert torch.equal(got, embedding_bag(ids_t, table.clone()))
+
+
+def test_embedding_bag_grid_strides_over_bags(cuda):
+    # 212,992 bags: more than the fixed grid holds in one sweep
+    rng = np.random.default_rng(9)
+    ids_t = torch.from_numpy(rng.integers(0, 100_000, (8192, 26, 1)).astype(
+        np.int32)).to(cuda)
+    table = torch.randn((100_000, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+    got = embedding_bag(ids_t, table)
+    assert torch.equal(got, embedding_bag_plain(ids_t, table))
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd", [

@@ -89,3 +89,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         table_t = table_t.T.contiguous().T
     with pytest.raises(err):
         embedding_bag(ids_t, table_t, **kw)
+
+
+@pytest.mark.parametrize("dim,offset,want", [
+    (64, 0, (4, 16)),      # dlrm-rm2: two bags a warp, 16-byte loads
+    (128, 0, (4, 32)),
+    (96, 0, (4, 32)),      # 24 slices round up to 32 lanes
+    (200, 0, (4, 32)),     # 50 slices: two passes of 32 lanes
+    (16, 0, (4, 4)),
+    (4, 0, (4, 1)),
+    (6, 0, (2, 4)),        # 6 % 4 != 0: 3 float2 slices
+    (7, 0, (1, 8)),
+    (64, 1, (1, 32)),      # a table view one float off 16 bytes
+    (64, 2, (2, 32)),      # two floats off: 8-byte aligned
+])
+def test_lane_layout(dim, offset, want):
+    from repro_torch.kernels.embedding_bag.embedding_bag import lane_layout
+    base = torch.zeros(8 * dim + 8)
+    assert base.data_ptr() % 16 == 0
+    table = base[offset:offset + 8 * dim].view(8, dim)
+    out = torch.zeros(4, dim)
+    assert lane_layout(dim, table, out) == want

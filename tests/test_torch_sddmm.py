@@ -81,3 +81,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         dst = dst[:64]
     with pytest.raises(err):
         sddmm(src, dst, x, y, **kw)
+
+
+@pytest.mark.parametrize("dim,offset,want", [
+    (100, 0, (4, 8)),      # ogb_products: 25 float4 slices, 3-4 per lane
+    (64, 0, (4, 4)),
+    (128, 0, (4, 8)),
+    (512, 0, (4, 32)),
+    (1024, 0, (4, 32)),    # 256 slices: two column tiles of 32 x 4
+    (257, 0, (1, 32)),
+    (100, 1, (1, 32)),     # x one float off 16 bytes: scalar loads
+    (7, 0, (1, 2)),
+    (3, 0, (1, 1)),
+    (1, 0, (1, 1)),
+])
+def test_lane_layout(dim, offset, want):
+    from repro_torch.kernels.sddmm.sddmm import lane_layout
+    base = torch.zeros(4 * dim + 4)
+    assert base.data_ptr() % 16 == 0
+    x = base[offset:offset + 4 * dim].view(4, dim)
+    y = torch.zeros(3, dim)
+    assert lane_layout(dim, x, y) == want
+
+
+L2 = 50 * 2 ** 20          # the H100's L2
+CORA_X, PRODUCTS_X = 2708 * 64 * 4, 2_449_029 * 100 * 4
+
+
+@pytest.mark.parametrize("hook,n_edges,x_bytes,grouped", [
+    (None, 10_556, CORA_X, False),              # Cora-scale x: direct
+    (None, 61_859_140, PRODUCTS_X, True),       # ogb_products x: grouped
+    (None, 1000, 2 * L2, False),                # at the crossover: direct
+    (None, 1000, 2 * L2 + 4, True),             # one float past it
+    (None, 2 ** 31 - 2, PRODUCTS_X, True),      # the most edges int32 ranks
+    (None, 2 ** 31 - 1, PRODUCTS_X, False),     # more: the direct path
+    (None, 2 ** 33, PRODUCTS_X, False),
+    (0, 1, 4, True),                            # the tests' hook: grouped
+    (0, 2 ** 31 - 1, 4, False),                 # ... unless it cannot count
+    (2 ** 63 - 1, 61_859_140, PRODUCTS_X, False),   # hook: direct
+])
+def test_groups_by_source(monkeypatch, hook, n_edges, x_bytes, grouped):
+    module = importlib.import_module("repro_torch.kernels.sddmm.sddmm")
+    monkeypatch.setattr(module, "GROUP_ABOVE_X_BYTES", hook)
+    assert module.groups_by_source(n_edges, x_bytes, L2) is grouped
