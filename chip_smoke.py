@@ -6,14 +6,21 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   the eight CUDA kernels from the seven sources of
-   ``src/repro_torch/kernels/*/csrc`` (B2 and B5 share one) with ``nvcc``
-   (started together) and print the build seconds;
+   the eight CUDA kernels from the six sources of
+   ``src/repro_torch/kernels/*/csrc`` (B1 and B4 share one, B2 and B5
+   another) with ``nvcc`` (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
-   card (≤1e-5) at the bucket-16 serving plan (D = 16 and 7), the Cora-scale
-   full graph (D = 16) and the n=4096/e=16384 graph (D = 64), timed beside
-   ``torch.sparse.mm`` on the same CSR matrix; ``hash_draws`` against its
-   plain version and numpy's ``_mix64 % deg``, exactly equal;
+   card (≤1e-5) and against itself run to run (bitwise) at the bucket-16
+   serving plan (D = 16 and 7), the Cora-scale full graph (D = 16 and
+   1433), the n=4096/e=16384 graph (D = 64) and the sampled block of the
+   ``minibatch_lg`` shape (``build_bucket_structure(1024, (15, 10))``,
+   169,984 nodes, seeded weights, D = 602: x is 409 MB, eight times the
+   L2), timed beside ``torch.sparse.mm`` on the same CSR matrix, with
+   ``bound_share`` (bound ÷ kernel), ``vs_library`` (kernel ÷ library) and,
+   as a reading, ``gather_ms`` (``index_select`` of the live lanes' x rows:
+   what gathering them alone costs a library call);
+   ``hash_draws`` against its plain version and numpy's ``_mix64 % deg``,
+   exactly equal;
 3. full-graph forward — gcn-cora at full width on the Cora-scale graph,
    ``backend="cuda"`` against ``backend="dense"`` (≤1e-4), and the dense GPU
    run against the CPU (≤1e-4);
@@ -43,10 +50,12 @@ Phases, each of which raises (exit code 1) on any failure:
    against ``reference`` / ``dense`` / the CPU, with the Â² build's wall
    time by phase;
 8. int8 aggregation and serving — ``spmm_dedup_chunks_q8`` against its
-   plain version (≤1e-5) at phase 2's four shapes plus the Cora-scale graph
-   at D = 1433 (three scale tiles), each timed beside ``spmm_dedup_chunks``
-   at the same shape and ``torch.sparse.mm`` on the dequantized matrix (the
-   nearest library call: there is no int8 one); the ``cuda_q8`` executor
+   plain version (exactly equal) at phase 2's six shapes (D = 1433 in
+   three scale tiles), each timed beside ``spmm_dedup_chunks`` at the same
+   shape and ``torch.sparse.mm`` on the dequantized matrix (the nearest
+   library call: there is no int8 one), with ``bound_share``,
+   ``vs_library`` and ``gather_ms`` of the int8 rows; the ``cuda_q8``
+   executor
    against ``dense`` under ``q8_gate`` of its scale-derived bound;
    gcn-cora at full width with ``cuda_q8`` against ``dense`` (within
    ``Q8_E2E_TOL``) and its int8 aggregations replayed on the CPU from the
@@ -230,9 +239,12 @@ def spmm_case(name, plan, d, rng):
     y_plain = spmm_dedup_chunks_plain(*args, block_rows=br)
     torch.cuda.synchronize()
     err = float((y - y_plain).abs().max())
+    del y_plain
     check(bool(torch.isfinite(y).all()), f"B1 {name}: non-finite output")
     check(err <= KERNEL_TOL, f"B1 {name} d={d}: max|kernel-plain| {err:.3e}"
                              f" > {KERNEL_TOL}")
+    check(torch.equal(spmm_dedup_chunks(*args, block_rows=br), y),
+          f"B1 {name} d={d}: not bitwise equal run to run")
     a_csr = torch.sparse_coo_tensor(
         torch.stack([plan.rows, plan.cols]), plan.base_vals,
         (plan.n_rows, plan.n_rows),
@@ -241,13 +253,16 @@ def spmm_case(name, plan, d, rng):
                      - y[: plan.n_rows]).abs().max())
     check(lib_err <= EXECUTOR_TOL,
           f"B1 {name}: kernel vs torch.sparse.mm {lib_err:.3e}")
-    ms = graph_ms(lambda: spmm_dedup_chunks(*args, block_rows=br))
+    calls = 50 if y.numel() < 2 ** 26 else 5       # 50 × 409 MB is too much
+    ms = graph_ms(lambda: spmm_dedup_chunks(*args, block_rows=br), calls)
     rec = dict(
-        shape=f"{name} D={d}", max_abs_err=err, ms=ms,
+        shape=f"{name} D={d}", max_abs_err=err, run_to_run="bitwise",
+        ms=ms,
         eager_ms=eager_ms(lambda: spmm_dedup_chunks(*args, block_rows=br)),
         plain_ms=eager_ms(lambda: spmm_dedup_chunks_plain(*args,
-                                                          block_rows=br)),
-        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x)))
+                                                          block_rows=br),
+                          iters=50 if calls == 50 else 5),
+        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x), calls))
     # least bytes: what the function must read once and write once.  Only
     # the live lanes u < remaining[k] of a chunk carry data, so count those
     # u_cols and those (BR,) tile columns, not the padded (BR, W) tiles;
@@ -267,8 +282,28 @@ def spmm_case(name, plan, d, rng):
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bound_bytes=n_bytes, padded_bytes=padded_bytes,
                gathered_mb=4 * d * live_lanes / 1e6)
+    # a reading, not a gate: one library gather of the same live x rows
+    # (read and written once each), the floor of a gather-then-fold design
+    live_cols = plan.ell_u_cols[torch.from_numpy(live).to(dev)].long()
+    rec.update(bound_share=rec["bound_ms"] / ms,
+               vs_library=ms / rec["library_ms"],
+               gather_ms=graph_ms(lambda: x.index_select(0, live_cols),
+                                  calls))
     say(f"B1 {json.dumps(rec)}")
     return rec
+
+
+def minibatch_lg_plan(dev, rng):
+    """The sampled block of the repo's ``minibatch_lg`` shape (batch 1024,
+    fanouts (15, 10), ``repro`` configs/shapes.py:65) as the serving path
+    builds a bucket, with seeded weights: 169,984 nodes, 21,248 blocks.
+    At D = 602 its x (409 MB) is eight times the L2."""
+    from repro_torch.serve.buckets import build_bucket_structure
+    from repro_torch.sparse.plan import make_plan
+    st = build_bucket_structure(1024, (15, 10), with_loops=True)
+    w = rng.uniform(0.1, 1.0, st.n_edges).astype(np.float32)
+    return make_plan(st.senders, st.receivers, st.n_nodes, edge_weight=w,
+                     backends=("dense", "cuda", "cuda_q8"), device=dev)
 
 
 def phase_kernels(dev):
@@ -294,10 +329,13 @@ def phase_kernels(dev):
     flag = make_plan(s[:16384], r[:16384], 4097,
                      edge_weight=rng.normal(size=16384).astype(np.float32),
                      backends=backends, device=dev)
+    minibatch = minibatch_lg_plan(dev, rng)
     b1 = [spmm_case("bucket16", bucket, 16, rng),
           spmm_case("bucket16", bucket, 7, rng),
           spmm_case("cora_full", cora, 16, rng),
-          spmm_case("n4096_e16384", flag, 64, rng)]
+          spmm_case("n4096_e16384", flag, 64, rng),
+          spmm_case("cora_full", cora, 1433, rng),
+          spmm_case("minibatch_lg", minibatch, 602, rng)]
 
     # B3: the serving shape (16 trees × 15 second-hop lanes) plus edge values
     z = rng.integers(0, 2 ** 63, (16, 15), dtype=np.int64).view(np.uint64)
@@ -326,7 +364,7 @@ def phase_kernels(dev):
               bound_by="bytes")
     say(f"B3 {json.dumps(b3)}")
     return b1, b3, {"bucket16": bucket, "cora_full": cora,
-                    "n4096_e16384": flag}
+                    "n4096_e16384": flag, "minibatch_lg": minibatch}
 
 
 # ---------------------------------------------------------------------------
@@ -833,8 +871,8 @@ def spmm_q8_case(name, plan, d, rng):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(y).all()), f"B4 {name}: non-finite output")
     err = float((y - y_plain).abs().max())
-    check(err <= KERNEL_TOL, f"B4 {name} d={d}: max|kernel-plain| {err:.3e}"
-                             f" > {KERNEL_TOL}")
+    del y_plain
+    check(err == 0, f"B4 {name} d={d}: max|kernel-plain| {err:.3e} != 0")
     # the executor against dense, under the scale-derived bound
     y_exec = sb.aggregate(plan, None, x, backend="cuda_q8")
     dev_dense = float((y_exec - sb.aggregate(plan, None, x, backend="dense")
@@ -851,15 +889,17 @@ def spmm_q8_case(name, plan, d, rng):
           f"B4 {name}: kernel vs torch.sparse.mm(dequantized) {lib_err:.3e}")
     f32_args = (plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr,
                 plan.ell_a, x)
+    calls = 50 if y.numel() < 2 ** 26 else 5
     rec = dict(
         shape=f"{name} D={d}", max_abs_err=err,
         ms=graph_ms(lambda: spmm_dedup_chunks_q8(*args, block_rows=br,
-                                                 q_tile=qt)),
+                                                 q_tile=qt), calls),
         f32_kernel_ms=graph_ms(lambda: spmm_dedup_chunks(*f32_args,
-                                                         block_rows=br)),
+                                                         block_rows=br),
+                               calls),
         plain_ms=eager_ms(lambda: spmm_dedup_chunks_q8_plain(
-            *args, block_rows=br, q_tile=qt), iters=10),
-        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x_deq)),
+            *args, block_rows=br, q_tile=qt), iters=10 if calls == 50 else 3),
+        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x_deq), calls),
         library_note="torch.sparse.mm on the dequantized f32 matrix and "
                      "features (nearest library call: no int8 SpMM)",
         q8_executor_vs_dense=dev_dense, q8_bound=bound,
@@ -884,6 +924,11 @@ def spmm_q8_case(name, plan, d, rng):
     rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bound_bytes=n_bytes, padded_bytes=padded_bytes)
+    live_cols = plan.ell_u_cols[torch.from_numpy(live).to(dev)].long()
+    rec.update(bound_share=rec["bound_ms"] / rec["ms"],
+               vs_library=rec["ms"] / rec["library_ms"],
+               gather_ms=graph_ms(lambda: x_q8.index_select(0, live_cols),
+                                  calls))
     say(f"B4 {json.dumps(rec)}")
     return rec
 
@@ -894,7 +939,9 @@ def phase_q8_kernels(agg_plans):
             spmm_q8_case("bucket16", agg_plans["bucket16"], 7, rng),
             spmm_q8_case("cora_full", agg_plans["cora_full"], 16, rng),
             spmm_q8_case("n4096_e16384", agg_plans["n4096_e16384"], 64, rng),
-            spmm_q8_case("cora_full", agg_plans["cora_full"], 1433, rng)]
+            spmm_q8_case("cora_full", agg_plans["cora_full"], 1433, rng),
+            spmm_q8_case("minibatch_lg", agg_plans["minibatch_lg"], 602,
+                         rng)]
 
 
 def phase_q8_forward(dev, cora_plan, params, x_table):
@@ -1717,9 +1764,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    libraries = [gustavson_spmm.LIBRARY, gustavson_spmm.LIBRARY_Q8,
-                 forest_sampler.LIBRARY, spgemm_pad.LIBRARY,
-                 embedding_bag.LIBRARY, sddmm.LIBRARY,
+    libraries = [gustavson_spmm.LIBRARY, forest_sampler.LIBRARY,
+                 spgemm_pad.LIBRARY, embedding_bag.LIBRARY, sddmm.LIBRARY,
                  flash_attention.LIBRARY]
     secs = build.build(libraries)
     say(f"built {' + '.join(lib.name for lib in libraries)} with nvcc in "
@@ -1813,7 +1859,7 @@ def main() -> int:
              shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
         dict(name="spmm_dedup_chunks_q8", route="cuda",
              source="src/repro_torch/kernels/gustavson_spmm/csrc/"
-                    "spmm_dedup_chunks_q8.cu",
+                    "spmm_dedup_chunks.cu",
              replaces="src/repro/kernels/gustavson_spmm/gustavson_spmm.py"
                       ":299",
              launches=launches["spmm_dedup_chunks_q8"],

@@ -2,12 +2,16 @@
 plain versions, wrappers and launch counters.
 
 Port of ``repro.kernels.gustavson_spmm.gustavson_spmm.spmm_dedup_chunks``
-and ``spmm_dedup_chunks_q8``.  Each kernel (``csrc/spmm_dedup_chunks.cu``,
-``csrc/spmm_dedup_chunks_q8.cu``) runs one thread block per (output block,
-column tile of ``d_tile_for(D)`` ≤ 32 columns) and walks the block's chunk
-range ``block_ptr[b] .. block_ptr[b+1]``; each source says what bounds it.
-The int8 kernel's feature scales cover a wider *scale* tile,
-``auto_d_tile(D)`` (up to 512 columns); the two tiles are separate knobs.
+and ``spmm_dedup_chunks_q8``.  Both kernels are one templated walk in
+``csrc/spmm_dedup_chunks.cu``, built as one library: a group of threads
+owns one output block (8 rows) and a stripe of columns held in registers,
+one vector of ``lane_layout``'s width (as wide as D and the pointers allow)
+per thread; it walks the block's chunk range ``block_ptr[b] ..
+block_ptr[b+1]`` in slices of 64 lanes whose metadata lands in shared
+memory one slice ahead.  Several groups share a thread block where the
+plan is small (``blocks_per_cta``).  The int8 kernel's feature scales
+cover a *scale* tile, ``auto_d_tile(D)`` (up to 512 columns), which has
+nothing to do with the stripes.  The source says what bounds the kernels.
 
 The wrappers take the plain PyTorch version only for tensors on the CPU.
 For CUDA tensors they launch the kernel or raise.
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,35 +32,75 @@ LIBRARY = build.KernelLibrary(
     name="spmm_dedup_chunks",
     sources=(pathlib.Path(__file__).parent / "csrc"
              / "spmm_dedup_chunks.cu",),
-    functions=(("spmm_dedup_chunks_launch",
-                (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),))
+    functions=(("spmm_dedup_chunks_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
+               ("spmm_dedup_chunks_q8_launch",
+                (_P,) * 8 + (_I,) * 9 + (_P,))))
 
-LIBRARY_Q8 = build.KernelLibrary(
-    name="spmm_dedup_chunks_q8",
-    sources=(pathlib.Path(__file__).parent / "csrc"
-             / "spmm_dedup_chunks_q8.cu",),
-    functions=(("spmm_dedup_chunks_q8_launch",
-                (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 _P)),))
+ROWS = 8                  # output rows per block the kernels fold (csrc)
+MAX_THREADS = 256         # per thread block (csrc)
+MAX_GROUPS = 8            # output blocks per thread block (csrc)
+MAX_LANES = MAX_THREADS   # column threads a stripe (the GPU tests lower it)
+NARROW_VECTORS = 16       # rows of at most this many vectors: a row a thread
+MAX_SINGLE_TILE_D = 512   # auto_d_tile: one scale tile up to this width
+# A test hook, not a setting: output blocks per thread block.  None, the
+# default: ``blocks_per_cta``'s choice.  The GPU tests set it to 1 and to
+# the most a layout allows to hold the bits independent of it.
+BLOCKS_PER_CTA: Optional[int] = None
 
-MAX_D_TILE = 32
-STATIC_SHARED_BYTES = 48 * 1024     # dynamic smem above this needs opt-in
-MAX_SINGLE_TILE_D = 512  # auto_d_tile: one scale tile up to this width
+
+def lane_layout(d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
+    """(elements per load, column threads per stripe, rows a thread holds)
+    for rows of ``d`` columns.  The load is VEC = 4, 2 or 1 elements, the
+    widest that divides ``d`` and every pointer's alignment in its own
+    element size (f32: 16, 8 or 4 bytes; int8: 4, 2 or 1).  Rows of at
+    most ``NARROW_VECTORS`` vectors give each column thread one row
+    (``ROWS`` row threads a column), wider rows all ``ROWS`` rows; either
+    way a column thread holds one vector.  A stripe takes up to
+    ``MAX_LANES`` column threads, so wider rows take several stripes of
+    equal width; a power of two up to 32, else a multiple of 32."""
+    vec = 1
+    for v in (4, 2):
+        if d % v == 0 and all(t.data_ptr() % (v * t.element_size()) == 0
+                              for t in tensors):
+            vec = v
+            break
+    n_vec = max(1, d // vec)
+    rows = 1 if n_vec <= NARROW_VECTORS else ROWS
+    stripes = -(-n_vec // MAX_LANES)
+    per = -(-n_vec // stripes)
+    lanes = 1 << (per - 1).bit_length() if per <= 32 else -(-per // 32) * 32
+    return vec, lanes, rows
 
 
-def d_tile_for(d: int) -> int:
-    """Smallest power of two ≥ ``d``, capped at ``MAX_D_TILE``."""
-    t = 1
-    while t < min(d, MAX_D_TILE):
-        t *= 2
-    return t
+def stripes_for(d: int, vec: int, lanes: int) -> int:
+    """Column stripes of ``lanes`` column threads that cover ``d``
+    columns."""
+    return -(-(d // vec) // lanes)
+
+
+def group_threads(lanes: int, rows: int) -> int:
+    """Threads that fold one output block's stripe: ``lanes`` column
+    threads, times ``ROWS`` row threads where each holds one row."""
+    return lanes * (ROWS // rows)
+
+
+def blocks_per_cta(n_blocks: int, stripes: int, group: int,
+                   n_sms: int) -> int:
+    """Output blocks (groups of ``group`` threads) per thread block: enough
+    that one thread block per SM covers every (block, stripe), at most
+    ``MAX_GROUPS`` and ``MAX_THREADS`` threads.  ``BLOCKS_PER_CTA``
+    overrides it (clamped to the same limits)."""
+    most = max(1, min(MAX_GROUPS, MAX_THREADS // group))
+    want = (-(-n_blocks * stripes // max(1, n_sms))
+            if BLOCKS_PER_CTA is None else BLOCKS_PER_CTA)
+    return min(max(1, want), most)
 
 
 def auto_d_tile(d: int) -> int:
     """Width of an int8 feature *scale* tile (the reference's
     ``_auto_d_tile``): one tile up to ``MAX_SINGLE_TILE_D``; beyond that
-    the smallest even split, rounded up to 8 columns.  Not the thread
-    block's column tile (``d_tile_for``)."""
+    the smallest even split, rounded up to 8 columns.  Not a column
+    stripe of the kernels (``lane_layout``)."""
     if d <= MAX_SINGLE_TILE_D:
         return d
     n_tiles = -(-d // MAX_SINGLE_TILE_D)
@@ -150,6 +194,32 @@ def _check(u_cols, remaining, block_ptr, a, x, block_rows, dtype,
                          f"at least one of the {n_chunks} chunks")
 
 
+def _kernel_layout(u_cols, a, x, y,
+                   block_rows) -> Tuple[int, int, int, int]:
+    """What the CUDA kernels take beyond ``_check``, and their layout:
+    ``lane_layout``'s three numbers and the output blocks per thread
+    block.  The kernels fold ``ROWS``-row blocks and stage 64-lane slices
+    of ``u_cols`` and the tiles with 16-byte copies, so the width must be a
+    multiple of 16 and those two pointers 16-byte aligned (what
+    ``pack_dedup_chunks`` gives); each thread block stages at most
+    ``MAX_GROUPS`` × 2 slices (36 KB in f32), whatever the width."""
+    width = u_cols.shape[1]
+    if block_rows != ROWS:
+        raise ValueError(f"the CUDA kernels fold blocks of {ROWS} rows, not "
+                         f"block_rows={block_rows}")
+    if width % 16 or u_cols.data_ptr() % 16 or a.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernels need a width that is a multiple "
+                         f"of 16 (got {width}) and 16-byte aligned u_cols "
+                         "and tiles; pack with width_multiple=16")
+    n_blocks = y.shape[0] // ROWS
+    d = x.shape[1]
+    vec, lanes, rows = lane_layout(d, x, y)
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return vec, lanes, rows, blocks_per_cta(
+        n_blocks, stripes_for(d, vec, lanes),
+        group_threads(lanes, rows), n_sms)
+
+
 def spmm_dedup_chunks(u_cols: torch.Tensor, remaining: torch.Tensor,
                       block_ptr: torch.Tensor, a: torch.Tensor,
                       x: torch.Tensor, *, block_rows: int) -> torch.Tensor:
@@ -166,24 +236,18 @@ def spmm_dedup_chunks(u_cols: torch.Tensor, remaining: torch.Tensor,
         raise ValueError(f"spmm_dedup_chunks runs on cuda or cpu, not "
                          f"{x.device}")
     n_blocks = block_ptr.shape[0] - 1
-    width = u_cols.shape[1]
+    n_chunks, width = u_cols.shape
     d = x.shape[1]
-    d_tile = d_tile_for(d)
-    if d_tile * block_rows > 1024:
-        raise ValueError(f"block_rows={block_rows} × d_tile={d_tile} exceeds "
-                         "1024 threads per block")
-    if width * d_tile * 4 > STATIC_SHARED_BYTES:
-        raise ValueError(f"width={width} needs {width * d_tile * 4} bytes of "
-                         "shared memory; pack with a smaller width_cap")
     y = torch.empty((n_blocks * block_rows, d), dtype=x.dtype,
                     device=x.device)
+    vec, lanes, rows, groups = _kernel_layout(u_cols, a, x, y, block_rows)
     lib = build.load(LIBRARY)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spmm_dedup_chunks_launch(
             u_cols.data_ptr(), remaining.data_ptr(), block_ptr.data_ptr(),
-            a.data_ptr(), x.data_ptr(), y.data_ptr(), n_blocks, block_rows,
-            width, d, d_tile, stream)
+            a.data_ptr(), x.data_ptr(), y.data_ptr(), n_blocks, n_chunks,
+            width, d, vec, lanes, rows, groups, stream)
     build.check_launch("spmm_dedup_chunks", err)
     spmm_dedup_chunks.launches += 1
     return y
@@ -257,24 +321,19 @@ def spmm_dedup_chunks_q8(u_cols: torch.Tensor, remaining: torch.Tensor,
         raise ValueError(f"spmm_dedup_chunks_q8 runs on cuda or cpu, not "
                          f"{x_q8.device}")
     n_blocks = block_ptr.shape[0] - 1
-    width = u_cols.shape[1]
-    d_tile = d_tile_for(d)
-    if d_tile * block_rows > 1024:
-        raise ValueError(f"block_rows={block_rows} × d_tile={d_tile} exceeds "
-                         "1024 threads per block")
-    if width * d_tile * 4 > STATIC_SHARED_BYTES:
-        raise ValueError(f"width={width} needs {width * d_tile * 4} bytes of "
-                         "shared memory; pack with a smaller width_cap")
+    n_chunks, width = u_cols.shape
     y = torch.empty((n_blocks * block_rows, d), dtype=torch.float32,
                     device=x_q8.device)
-    lib = build.load(LIBRARY_Q8)
+    vec, lanes, rows, groups = _kernel_layout(u_cols, a_q8, x_q8, y,
+                                              block_rows)
+    lib = build.load(LIBRARY)
     with torch.cuda.device(x_q8.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spmm_dedup_chunks_q8_launch(
             u_cols.data_ptr(), remaining.data_ptr(), block_ptr.data_ptr(),
             a_q8.data_ptr(), a_scale.data_ptr(), x_q8.data_ptr(),
-            x_scale.data_ptr(), y.data_ptr(), n_blocks, block_rows, width,
-            d, d_tile, q_tile, stream)
+            x_scale.data_ptr(), y.data_ptr(), n_blocks, n_chunks, width, d,
+            q_tile, vec, lanes, rows, groups, stream)
     build.check_launch("spmm_dedup_chunks_q8", err)
     spmm_dedup_chunks_q8.launches += 1
     return y

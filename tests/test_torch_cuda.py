@@ -18,6 +18,7 @@ from repro_torch.kernels.embedding_bag.embedding_bag import lane_layout
 from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                  flash_attention, mha_causal)
 from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
+from repro_torch.kernels.gustavson_spmm import gustavson_spmm as spmm_module
 from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                 spmm_dedup_chunks,
                                                 spmm_dedup_chunks_plain,
@@ -89,6 +90,141 @@ def test_spmm_wrapper_raises_on_bf16(cuda):
     u, rem, ptr, a, x = _args(16, 60, 8, seed=2, width_cap=128, dev=cuda)
     with pytest.raises(TypeError):
         spmm_dedup_chunks(u, rem, ptr, a, x.to(torch.bfloat16), block_rows=8)
+
+
+def _offset_view(t, offset):
+    """``t``'s values in a buffer ``offset`` elements in (a view whose
+    pointer is only ``offset`` elements aligned)."""
+    base = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = base[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _spmm_both(args, q_tile=None):
+    """The f32 kernel on ``args`` = (u, rem, ptr, a, x) and the int8 kernel
+    on their quantized tiles and features."""
+    u, rem, ptr, a, x = args
+    a_q8, a_scale = qz.quantize_chunk_tiles(a, u.shape[0])
+    qt = auto_d_tile(x.shape[1]) if q_tile is None else q_tile
+    x_q8, x_scale = qz.quantize_feature_tiles(x, qt)
+    q8_args = (u, rem, ptr, a_q8, a_scale, x_q8, x_scale)
+    return (spmm_dedup_chunks(*args, block_rows=8),
+            spmm_dedup_chunks_q8(*q8_args, block_rows=8, q_tile=qt),
+            q8_args, qt)
+
+
+@pytest.mark.parametrize("d", [7, 16, 33, 64, 602, 1433])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_spmm_kernels_every_load_width(cuda, d, offset):
+    # wide and unaligned rows: x (and x_q8) viewed offset elements into a
+    # buffer, so lane_layout picks 4-, 2- and 1-element loads; the sums do
+    # not depend on the load width
+    u, rem, ptr, a, x = _args(300, 2000, d, seed=d + offset, width_cap=128,
+                              dev=cuda)
+    xv = _offset_view(x, offset)
+    got = spmm_dedup_chunks(u, rem, ptr, a, xv, block_rows=8)
+    want = spmm_dedup_chunks_plain(u, rem, ptr, a, xv, block_rows=8)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, spmm_dedup_chunks(u, rem, ptr, a, x,
+                                              block_rows=8))
+    _, q8, (u, rem, ptr, a_q8, a_scale, x_q8, x_scale), qt = _spmm_both(
+        (u, rem, ptr, a, x))
+    x_q8v = _offset_view(x_q8, offset)
+    assert spmm_module.lane_layout(d, x_q8v)[0] == (
+        1 if d % 2 or offset % 2 else 2 if d % 4 or offset else 4)
+    got_q8 = spmm_dedup_chunks_q8(u, rem, ptr, a_q8, a_scale, x_q8v,
+                                  x_scale, block_rows=8, q_tile=qt)
+    assert torch.equal(got_q8, q8)
+    assert torch.equal(got_q8, spmm_dedup_chunks_q8_plain(
+        u, rem, ptr, a_q8, a_scale, x_q8v, x_scale, block_rows=8,
+        q_tile=qt))
+
+
+def test_spmm_kernels_hub_split_over_many_chunks(cuda):
+    # one row with 260 distinct operands, width_cap 8: its block folds 33+
+    # chunks in order, with the next chunk's metadata loaded ahead
+    rng = np.random.default_rng(21)
+    n, d = 600, 96
+    rows = np.concatenate([np.full(260, 3), rng.integers(0, n, 1500)])
+    cols = np.concatenate([rng.permutation(n)[:260],
+                           rng.integers(0, n, 1500)])
+    vals = (rng.normal(size=rows.size) * 0.05).astype(np.float32)
+    ch = pack_dedup_chunks(rows, cols, vals, n, n, width_cap=8)
+    assert int((ch.out_block == 0).sum()) >= 200 // 8
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(cuda) for t in
+                 (ch.u_cols, ch.remaining,
+                  block_ptr_from_first(ch.first, ch.n_blocks), ch.a, x))
+    got, got_q8, q8_args, qt = _spmm_both(args)
+    want = spmm_dedup_chunks_plain(*args, block_rows=8)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got_q8, spmm_dedup_chunks_q8_plain(
+        *q8_args, block_rows=8, q_tile=qt))
+
+
+@pytest.mark.parametrize("d,width_cap", [(7, 128), (602, 128), (1433, 8)])
+def test_spmm_kernels_dead_lanes_poisoned_with_nan(cuda, d, width_cap):
+    # dead lanes name a NaN row (f32) or a row of 127s (int8) and carry NaN
+    # (f32) or -127 (int8) coefficients: the bits do not change
+    args = _args(200, 1500, d, seed=d, width_cap=width_cap, dev=cuda)
+    clean, clean_q8, (u, rem, ptr, a_q8, a_scale, x_q8, x_scale), qt = \
+        _spmm_both(args)
+    _, _, _, a, x = args
+    dead = torch.arange(u.shape[1], device=cuda)[None, :] >= rem[:, None]
+    assert bool(dead.any())
+    dead_rows = dead.repeat_interleave(8, 0)
+    u_bad = torch.where(dead, 200, u).to(torch.int32).contiguous()
+    x_bad = torch.cat([x, torch.full((1, d), float("nan"), device=cuda)])
+    a_bad = torch.where(dead_rows, float("nan"), a).contiguous()
+    assert torch.equal(spmm_dedup_chunks(u_bad, rem, ptr, a_bad, x_bad,
+                                         block_rows=8), clean)
+    x_q8_bad = torch.cat([x_q8, torch.full((1, d), 127, dtype=torch.int8,
+                                           device=cuda)])
+    a_q8_bad = torch.where(dead_rows, -127, a_q8).to(torch.int8).contiguous()
+    assert torch.equal(spmm_dedup_chunks_q8(
+        u_bad, rem, ptr, a_q8_bad, a_scale, x_q8_bad, x_scale, block_rows=8,
+        q_tile=qt), clean_q8)
+
+
+@pytest.mark.parametrize("d,width_cap", [(7, 128), (64, 8), (1433, 128)])
+def test_spmm_kernels_bitwise_across_stripes_and_blocks_per_cta(
+        cuda, monkeypatch, d, width_cap):
+    # the same bits run to run, whatever the stripe width (MAX_LANES) and
+    # the output blocks per thread block (BLOCKS_PER_CTA)
+    args = _args(400, 3000, d, seed=d, width_cap=width_cap, dev=cuda)
+    first, first_q8, _, _ = _spmm_both(args)
+    for max_lanes, per_cta in ((256, None), (32, 1), (32, 16), (4, 16),
+                               (256, 16), (8, 1)):
+        monkeypatch.setattr(spmm_module, "MAX_LANES", max_lanes)
+        monkeypatch.setattr(spmm_module, "BLOCKS_PER_CTA", per_cta)
+        got, got_q8, _, _ = _spmm_both(args)
+        assert torch.equal(got, first), (max_lanes, per_cta)
+        assert torch.equal(got_q8, first_q8), (max_lanes, per_cta)
+
+
+@pytest.mark.parametrize("d,q_tile", [(1433, None), (1433, 100), (602, 30),
+                                      (64, 24), (33, 10)])
+def test_spmm_q8_kernel_equals_plain_across_scale_tiles(cuda, d, q_tile):
+    # D = 1433 in three scale tiles (auto_d_tile), and scale tiles that a
+    # thread's 4 columns or a 16-byte row segment straddle
+    args = _args(300, 2000, d, seed=d + 1, width_cap=128, dev=cuda)
+    _, got, q8_args, qt = _spmm_both(args, q_tile)
+    assert q8_args[6].numel() == (3 if q_tile is None else -(-d // qt))
+    assert q_tile is None or q_tile % 16
+    assert torch.equal(got, spmm_dedup_chunks_q8_plain(
+        *q8_args, block_rows=8, q_tile=qt))
+
+
+def test_spmm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    u, rem, ptr, a, x = _args(40, 300, 16, seed=4, width_cap=128, dev=cuda)
+    with pytest.raises(ValueError, match="block_rows"):
+        spmm_dedup_chunks(u, rem, ptr, torch.cat([a, a]), x, block_rows=16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        spmm_dedup_chunks(u[:, :8].contiguous(), rem.clamp(max=8), ptr,
+                          a[:, :8].contiguous(), x, block_rows=8)
 
 
 def test_hash_draws_kernel_exact(cuda):

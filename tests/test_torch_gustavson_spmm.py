@@ -11,7 +11,8 @@ from repro.kernels.gustavson_spmm.ref import spmm_dedup_chunks_ref
 from repro.sparse.graph import pack_dedup_chunks
 from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
                                                 spmm_dedup_chunks_plain)
-from repro_torch.kernels.gustavson_spmm.gustavson_spmm import d_tile_for
+from repro_torch.kernels.gustavson_spmm.gustavson_spmm import (
+    blocks_per_cta, group_threads, lane_layout, stripes_for)
 from repro_torch.sparse.plan import block_ptr_from_first
 
 TOL = 1e-5
@@ -131,10 +132,52 @@ def test_plain_version_is_what_the_wrapper_runs_on_cpu():
     assert spmm_dedup_chunks.launches == 0      # no kernel on the CPU
 
 
-@pytest.mark.parametrize("d,tile", [(1, 1), (7, 8), (16, 16), (33, 32),
-                                    (600, 32)])
-def test_d_tile_is_smallest_power_of_two_capped(d, tile):
-    assert d_tile_for(d) == tile
+@pytest.mark.parametrize("d,dtype,offset,want", [
+    (1, torch.float32, 0, (1, 1, 1, 1)),
+    (7, torch.float32, 0, (1, 8, 1, 1)),       # D = 7: 4-byte rows
+    (16, torch.float32, 0, (4, 4, 1, 1)),      # bucket16: float4
+    (16, torch.float32, 2, (2, 8, 1, 1)),      # a view 8 bytes in
+    (16, torch.float32, 1, (1, 16, 1, 1)),
+    (33, torch.float32, 0, (1, 64, 8, 1)),
+    (64, torch.float32, 0, (4, 16, 1, 1)),
+    (128, torch.float32, 0, (4, 32, 8, 1)),
+    (602, torch.float32, 0, (2, 160, 8, 2)),   # minibatch_lg
+    (1433, torch.float32, 0, (1, 256, 8, 6)),  # Cora's features
+    (1433, torch.int8, 0, (1, 256, 8, 6)),     # int8: byte-aligned rows
+    (602, torch.int8, 0, (2, 160, 8, 2)),
+    (16, torch.int8, 0, (4, 4, 1, 1)),         # int8: 4-byte loads
+    (16, torch.int8, 3, (1, 16, 1, 1)),
+    (4096, torch.float32, 0, (4, 256, 8, 4)),
+    (4096, torch.float32, 1, (1, 256, 8, 16)),
+])
+def test_lane_layout_picks_load_width_rows_and_stripes(d, dtype, offset,
+                                                       want):
+    """(elements per load, column threads per stripe, rows a thread holds,
+    stripes): the widest load that D and the pointer allow, one row and one
+    a thread for rows of at most 16 vectors, else 8, one vector a thread,
+    stripes of at most 256 column threads and of equal width."""
+    base = torch.zeros(64 * d + 8, dtype=dtype)
+    x = base[offset:offset + 64 * d].view(64, d)
+    vec, lanes, rows = lane_layout(d, x)
+    stripes = stripes_for(d, vec, lanes)
+    assert (vec, lanes, rows, stripes) == want
+    per_stripe = lanes * vec          # columns
+    assert per_stripe * stripes >= d > per_stripe * (stripes - 1)
+
+
+def test_blocks_per_cta_fills_the_card_within_limits(monkeypatch):
+    # bucket16 (42 blocks of 4 column × 8 row threads) on 132 SMs: one
+    # block a thread block; Cora (339 blocks): three
+    assert group_threads(4, 1) == 32 and group_threads(160, 8) == 160
+    assert blocks_per_cta(42, 1, 32, 132) == 1
+    assert blocks_per_cta(339, 1, 32, 132) == 3
+    assert blocks_per_cta(513, 1, 128, 132) == 2       # 256 threads
+    assert blocks_per_cta(21248, 2, 160, 132) == 1
+    assert blocks_per_cta(10 ** 6, 1, 8, 132) == 8     # MAX_GROUPS
+    assert blocks_per_cta(10 ** 6, 1, 32, 132) == 8
+    from repro_torch.kernels.gustavson_spmm import gustavson_spmm as gs
+    monkeypatch.setattr(gs, "BLOCKS_PER_CTA", 100)
+    assert blocks_per_cta(42, 1, 8, 132) == 8
 
 
 def test_block_ptr_from_first():
