@@ -6,7 +6,8 @@
 Phases, each of which raises (exit code 1) on any failure:
 
 1. device — print the card's name and power limit (``nvidia-smi``), build
-   the eight CUDA kernels from the six sources of
+   the nine CUDA kernels (the eight Pallas kernels' counterparts and B3's
+   fused ``forest_sample``) from the seven sources of
    ``src/repro_torch/kernels/*/csrc`` (B1 and B4 share one, B2 and B5
    another) with ``nvcc`` (started together) and print the build seconds;
 2. kernels — ``spmm_dedup_chunks`` against its plain PyTorch version on the
@@ -20,7 +21,18 @@ Phases, each of which raises (exit code 1) on any failure:
    as a reading, ``gather_ms`` (``index_select`` of the live lanes' x rows:
    what gathering them alone costs a library call);
    ``hash_draws`` against its plain version and numpy's ``_mix64 % deg``,
-   exactly equal;
+   exactly equal; ``forest_sample`` (B3's fused route: a bucket's whole
+   device forest sample in one launch) against its plain version (the
+   eager per-hop loop around ``hash_draws``) on the card, exactly equal and
+   run to run, at bucket 1 and 16 at fanouts (5, 3) on the Cora-scale
+   graph, a bucket of 16 with 11 padding trees, a graph with empty rows
+   (every fifth and the last), three hops (2, 2, 2) and ``minibatch_lg``
+   (1024 trees at (15, 10) on a 232,965-node, 114,615,892-edge power-law
+   graph drawn on the card, 0.92 GB, copied once to the host for the
+   check), each also equal to the host sampler's bucket and timed
+   graph-replayed beside the eager plain path and its traced device
+   operations, with the bound (bytes once, each distinct ``indices`` slot
+   once, and 32-byte sectors as a reading);
 3. full-graph forward — gcn-cora at full width on the Cora-scale graph,
    ``backend="cuda"`` against ``backend="dense"`` (≤1e-4), and the dense GPU
    run against the CPU (≤1e-4);
@@ -29,8 +41,10 @@ Phases, each of which raises (exit code 1) on any failure:
    step is rebuilt after warm-up, the SpMM kernel ran, and results equal
    offline one-at-a-time replay (≤1e-5); then one warm bucket-16 step is
    timed and traced with ``torch.profiler`` (device time per step);
-5. serving, device sampler — the same with ``sampler="device"``; the draw
-   kernel ran too, and parity holds against the host-sampled replay;
+5. serving, device sampler — the same with ``sampler="device"``:
+   ``forest_sample`` launched once a step and ``hash_draws`` never, parity
+   holds against the host-sampled replay, and one warm bucket-16 fused step
+   (sampling and GCN body) is traced beside the sampler alone;
 6. SpGEMM kernel — ``spgemm_hashpad`` on B's compact cells against its
    compact plain version and the dense-slab oracle gathered through
    ``out_row``/``out_bucket`` (≤1e-5), and against itself run to run
@@ -61,8 +75,9 @@ Phases, each of which raises (exit code 1) on any failure:
    ``Q8_E2E_TOL``) and its int8 aggregations replayed on the CPU from the
    same inputs (≤1e-5); then, counted, ``GNNServer(backend="cuda_q8",
    sampler="device")`` serving 256 requests as in phase 5, held to offline
-   replay within ``Q8_E2E_TOL``, with one warm bucket-16 step traced and
-   held against the same step on the CPU;
+   replay within ``Q8_E2E_TOL``, with one warm bucket-16 host-input step
+   traced and held against the same step on the CPU, and the fused
+   device-sampled step traced as in phase 5;
 9. int8 SpGEMM and the two-hop path — ``spgemm_hashpad_q8`` on the baked
    int8 cells against its compact plain version and the dense int8 oracle
    (≤1e-5) and run to run (bitwise) at phase 6's three plans, timed as in
@@ -155,6 +170,8 @@ N_REQUESTS = 256
 B6_CASES = (("serve_p99", 512, 1), ("serve_bulk", 262144, 1),
             ("multi_hot", 4096, 4))
 OGB_PRODUCTS = (2_449_029, 61_859_140, 100)
+# minibatch_lg's graph (nodes, edges), repro configs/shapes.py:66-69
+MINIBATCH_LG_GRAPH = (232_965, 114_615_892)
 QWEN3_ATTENTION = (1, 4096, 16, 8, 128)
 
 
@@ -367,6 +384,174 @@ def phase_kernels(dev):
                     "n4096_e16384": flag, "minibatch_lg": minibatch}
 
 
+def minibatch_lg_graph(dev, gen):
+    """A graph at the ``minibatch_lg`` shape's size (``repro`` configs/
+    shapes.py:66–69: 232,965 nodes, 114,615,892 edges) drawn on the card:
+    ``indptr`` from a seeded power-law (Pareto, shape 2) degree sequence
+    that sums to E, ``indices`` uniform, both int64 (0.92 GB)."""
+    n, e = MINIBATCH_LG_GRAPH
+    w = (1 - torch.rand(n, generator=gen, device=dev,
+                        dtype=torch.float64)) ** -0.5
+    deg = (w * (e / float(w.sum()))).floor().to(torch.int64)
+    short = e - int(deg.sum())
+    deg[torch.randperm(n, generator=gen, device=dev)[:short]] += 1
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = deg.cumsum(0)
+    indices = torch.randint(0, n, (e,), generator=gen, device=dev,
+                            dtype=torch.int64)
+    check(int(indptr[-1]) == e, "minibatch_lg graph: degrees do not sum "
+                                "to E")
+    return indptr, indices
+
+
+def forest_bound(trees, node_ids, hop_valid, fanouts, n_nodes):
+    """Least bytes of one forest sample, from this run's outputs: each
+    live tree's seed, key term and live flag (24 B) and each padding
+    tree's live flag alone (8 B), each distinct valid parent's ``indptr``
+    pair (16 B) and each distinct ``indices`` slot that a valid child reads
+    (8 B) read once, and ``node_ids`` (8 B) and ``hop_valid`` (1 B) written
+    once.  The slots are not an output, so they are counted as the distinct
+    (parent, child) pairs among valid children: two draws that land on one
+    slot give one pair, and a pair can stand for no fewer slots, so the
+    count is never more than the slots read.  As a reading,
+    ``sector_bytes`` counts each parent's pair and each slot as one
+    32-byte sector, the least a random read moves."""
+    t = trees.shape[1]
+    n_live = int((trees[2] != 0).sum())
+    sizes = [math.prod(fanouts[:h]) for h in range(len(fanouts) + 1)]
+    n_parents = t * sum(sizes[:-1])
+    parents = node_ids[:n_parents]
+    distinct = int(torch.unique(parents[parents >= 0]).numel())
+    pairs, off, voff = [], t, 0
+    for h, f in enumerate(fanouts):
+        level = node_ids[off - t * sizes[h]:off].reshape(t, sizes[h], 1)
+        child = node_ids[off:off + t * sizes[h + 1]].reshape(t, sizes[h], f)
+        valid = hop_valid[voff:voff + t * sizes[h + 1]].reshape(t, sizes[h],
+                                                                f)
+        pairs.append((level.expand(t, sizes[h], f) * n_nodes + child)[valid])
+        off += t * sizes[h + 1]
+        voff += t * sizes[h + 1]
+    slots = int(torch.unique(torch.cat(pairs)).numel())
+    tree_bytes = 24 * n_live + 8 * (t - n_live)
+    n_bytes = (tree_bytes + 16 * distinct + 8 * slots + 8 * node_ids.numel()
+               + hop_valid.numel())
+    sector_bytes = (tree_bytes + 32 * (distinct + slots)
+                    + 8 * node_ids.numel() + hop_valid.numel())
+    return dict(bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_bytes=n_bytes,
+                sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
+                valid_parents=int((parents >= 0).sum()),
+                distinct_parents=distinct,
+                valid_children=int(hop_valid.sum()), distinct_slots=slots)
+
+
+def forest_case(name, indptr, indices, trees, fanouts, key, host=None):
+    """``forest_sample`` against its plain version on the card (exactly
+    equal) and, with ``host`` (the CSR as numpy arrays and the trees' keys),
+    against the host sampler's bucket; timed graph-replayed beside the
+    eager plain path (the per-hop loop of torch operations around one
+    ``hash_draws`` launch a hop), whose device operations are traced."""
+    from repro_torch.kernels.forest_sampler import (forest_sample,
+                                                    forest_sample_plain)
+    from repro_torch.sparse.sampler import _mix64
+    key_c = int(_mix64(np.uint64(key)))
+    args = (indptr, indices, trees, fanouts, key_c)
+    node_ids, hop_valid = forest_sample(*args)
+    plain_ids, plain_valid = forest_sample_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(node_ids, plain_ids)
+          and torch.equal(hop_valid, plain_valid),
+          f"forest_sample {name}: kernel != plain version")
+    again = forest_sample(*args)
+    check(torch.equal(again[0], node_ids) and torch.equal(again[1],
+                                                          hop_valid),
+          f"forest_sample {name}: not equal run to run")
+    if host is not None:
+        from repro_torch.serve.buckets import stack_trees
+        from repro_torch.sparse.sampler import sample_forest
+        host_indptr, host_indices, tree_keys = host
+        live = trees[2].cpu().numpy() != 0
+        seeds = trees[0].cpu().numpy()[live]
+        forest = sample_forest(host_indptr, host_indices, seeds, fanouts,
+                               key=key, tree_keys=tree_keys[live])
+        want_ids, want_valid = stack_trees(forest, trees.shape[1], fanouts)
+        check(np.array_equal(node_ids.cpu().numpy(), want_ids)
+              and np.array_equal(hop_valid.cpu().numpy(), want_valid),
+              f"forest_sample {name}: != the host sampler's bucket")
+    plain_trace = trace_steps(lambda: forest_sample_plain(*args), 5,
+                              "hash_draws")
+    rec = dict(shape=f"{name} T={trees.shape[1]} fanouts={fanouts}",
+               nodes=node_ids.numel(), max_abs_err=0.0,
+               host_sampler_equal=host is not None,
+               ms=graph_ms(lambda: forest_sample(*args)),
+               eager_ms=eager_ms(lambda: forest_sample(*args)),
+               plain_ms=eager_ms(lambda: forest_sample_plain(*args)),
+               plain_device_ms=plain_trace["device_ms_per_step"],
+               plain_device_ops=plain_trace["device_ops_per_step"],
+               library_ms=None,
+               **forest_bound(trees, node_ids, hop_valid, fanouts,
+                              indptr.numel() - 1))
+    rec.update(bound_share=rec["bound_ms"] / rec["ms"],
+               plain_over_kernel=rec["plain_ms"] / rec["ms"])
+    say(f"B3 forest_sample {json.dumps(rec)}")
+    return rec
+
+
+def phase_forest(dev):
+    """``forest_sample`` (B3's fused route) against its plain version at
+    the serving shape and its corners, and at ``minibatch_lg``."""
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.serve.device_sampler import pack_trees, tree_key_mix
+    from repro_torch.sparse.graph import coo_to_csr
+    rng = np.random.default_rng(19)
+    s, r, _, _, _ = cora_like(seed=0)
+    n = 2708
+    indptr, indices, _ = coo_to_csr(s, r, n)
+    # isolated rows: every fifth node and the last (the end-of-CSR corner)
+    iso = (np.arange(n) % 5 == 0) | (np.arange(n) == n - 1)
+    keep = ~iso[r]
+    iso_indptr, iso_indices, _ = coo_to_csr(s[keep], r[keep], n)
+
+    def on_card(ip, ix):
+        return (torch.from_numpy(np.asarray(ip, np.int64)).to(dev),
+                torch.from_numpy(np.asarray(ix, np.int64)).to(dev))
+
+    def batch(n_trees, n_live, seeds=None):
+        keys = rng.integers(0, 2 ** 63, n_trees).astype(np.uint64)
+        if seeds is None:
+            seeds = rng.integers(0, n, n_trees)
+        live = np.arange(n_trees) < n_live
+        trees = pack_trees(np.where(live, seeds, 0), tree_key_mix(keys),
+                           live)
+        return torch.from_numpy(trees).to(dev), keys
+
+    cora = on_card(indptr, indices)
+    iso_graph = on_card(iso_indptr, iso_indices)
+    iso_seeds = np.concatenate([[n - 1, 0, 5], rng.integers(0, n, 13)])
+    cases = [("cora_bucket1", cora, (indptr, indices), batch(1, 1), (5, 3)),
+             ("cora_bucket16", cora, (indptr, indices), batch(16, 16),
+              (5, 3)),
+             ("cora_bucket16_5_live", cora, (indptr, indices), batch(16, 5),
+              (5, 3)),
+             ("isolated_bucket16", iso_graph, (iso_indptr, iso_indices),
+              batch(16, 16, iso_seeds), (5, 3)),
+             ("cora_three_hops", cora, (indptr, indices), batch(16, 16),
+              (2, 2, 2))]
+    recs = [forest_case(name, *graph, trees, fanouts, key=19,
+                        host=(*host_csr, keys))
+            for name, graph, host_csr, (trees, keys), fanouts in cases]
+    n = MINIBATCH_LG_GRAPH[0]
+    big = minibatch_lg_graph(dev, torch.Generator(device=dev).manual_seed(19))
+    trees, keys = batch(1024, 1024, rng.integers(0, n, 1024))
+    host_big = (big[0].cpu().numpy(), big[1].cpu().numpy(), keys)
+    recs.append(forest_case("minibatch_lg", *big, trees, (15, 10), key=19,
+                            host=host_big))
+    del host_big
+    del big
+    torch.cuda.empty_cache()
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5 — model and serving
 # ---------------------------------------------------------------------------
@@ -459,10 +644,41 @@ def step_breakdown(server, seeds, n_steps: int = 20) -> dict:
     return rec
 
 
+def device_step_breakdown(server, reqs, n_steps: int = 20) -> dict:
+    """Where one warm bucket-16 device-sampled step spends its time: the
+    server's fused step (sampling, feature gather and GCN body) on 16
+    served single-seed requests packed as the engine packs them, traced as
+    ``step_breakdown`` traces the host-input body; then the device sampler
+    alone on the same trees, and its share of the step's device time and
+    operations."""
+    batch = reqs[:16]
+    step = server.steps.get((16,))
+    trees = server._device_batch(batch, 16)
+    rec = trace_steps(lambda: step(server.params, trees), n_steps,
+                      "spmm_dedup_chunks")
+    rec["spmm_ms_per_step"] = rec.pop("kernel_ms_per_step")
+    seeds = np.concatenate([r.seeds for r in batch])
+    tkm = np.concatenate([r.tkm for r in batch])
+    plane = server._plane
+    live = np.ones(16, bool)
+    alone = trace_steps(lambda: plane.sample_bucket(seeds, tkm, live),
+                        n_steps, "forest_sample")
+    rec.update(
+        sampler_wall_ms=alone["step_wall_ms"],
+        sampler_device_ms=alone["device_ms_per_step"],
+        sampler_kernel_ms=alone["kernel_ms_per_step"],
+        sampler_device_ops=alone["device_ops_per_step"],
+        sampler_device_share=(alone["device_ms_per_step"]
+                              / rec["device_ms_per_step"]),
+        sampler_ops_share=(alone["device_ops_per_step"]
+                           / rec["device_ops_per_step"]))
+    return rec
+
+
 def phase_serve(dev, mode, params, indptr, indices, store, seeds,
                 backend="cuda"):
     from repro_torch.configs.gcn_cora import FULL
-    from repro_torch.kernels.forest_sampler import hash_draws
+    from repro_torch.kernels.forest_sampler import forest_sample, hash_draws
     from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
                                                     spmm_dedup_chunks_q8)
     from repro_torch.serve import GNNServer, offline_replay
@@ -470,7 +686,8 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds,
     spmm = {"cuda": spmm_dedup_chunks,
             "cuda_q8": spmm_dedup_chunks_q8}[backend]
     tol = Q8_E2E_TOL if backend == "cuda_q8" else SERVE_TOL
-    kernels = (spmm_dedup_chunks, spmm_dedup_chunks_q8, hash_draws)
+    kernels = (spmm_dedup_chunks, spmm_dedup_chunks_q8, forest_sample,
+               hash_draws)
     with GNNServer("gcn", FULL, params, indptr, indices, store,
                    fanouts=(5, 3), backend=backend, sampler=mode,
                    max_batch_seeds=16, device=dev) as server:
@@ -494,14 +711,22 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds,
         check(launches[spmm.__name__] > 0,
               f"{backend}/{mode}: {spmm.__name__} never launched")
         if mode == "device":
-            check(launches["hash_draws"] > 0,
-                  f"{backend}/device: hash_draws never launched")
+            # the sampler is one fused launch a step; the standalone draw
+            # kernel is not on this path
+            check(launches["forest_sample"] == st["n_batches"],
+                  f"{backend}/device: {launches['forest_sample']} "
+                  f"forest_sample launches for {st['n_batches']} steps")
+            check(launches["hash_draws"] == 0,
+                  f"{backend}/device: hash_draws launched "
+                  f"{launches['hash_draws']} times on the serving path")
         ref = np.concatenate([offline_replay(server, r) for r in reqs])
         breakdown = {}
         if mode == "host" or backend == "cuda_q8":
             breakdown = step_breakdown(server, seeds)
         if backend == "cuda_q8":
             breakdown.update(q8_step_vs_cpu(server, seeds))
+        if mode == "device":
+            breakdown["device_step"] = device_step_breakdown(server, reqs)
     got = np.concatenate([r.result for r in reqs])
     check(got.shape == (len(seeds), FULL.n_classes) and np.isfinite(
         got).all(), f"{backend}/{mode}: served results malformed")
@@ -1765,7 +1990,8 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     libraries = [gustavson_spmm.LIBRARY, forest_sampler.LIBRARY,
-                 spgemm_pad.LIBRARY, embedding_bag.LIBRARY, sddmm.LIBRARY,
+                 forest_sampler.FOREST_LIBRARY, spgemm_pad.LIBRARY,
+                 embedding_bag.LIBRARY, sddmm.LIBRARY,
                  flash_attention.LIBRARY]
     secs = build.build(libraries)
     say(f"built {' + '.join(lib.name for lib in libraries)} with nvcc in "
@@ -1773,6 +1999,7 @@ def main() -> int:
 
     # phase 2 — kernels against their plain versions
     b1, b3, agg_plans = phase_kernels(dev)
+    b3_fused = phase_forest(dev)
     cora_plan = agg_plans["cora_full"]
 
     # phase 3 — gcn-cora at full width on the Cora-scale graph
@@ -1824,11 +2051,12 @@ def main() -> int:
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
-                          "hash_draws")}
+                          "forest_sample", "hash_draws")}
     launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
     launches["spmm_dedup_chunks_q8"] += \
         two_hop_q8["launches"]["spmm_dedup_chunks_q8"]
     main_b1 = b1[0]                      # bucket 16, D = 16: the main shape
+    main_b3 = b3_fused[1]                # bucket 16 at (5, 3): serving's
     main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
     main_b4 = b4[0]                      # bucket 16, D = 16: q8 serving
     main_b5 = b5[0]                      # gcn-cora Â²: the q8 two-hop path
@@ -1848,8 +2076,22 @@ def main() -> int:
                     "hash_draws.cu",
              replaces="src/repro/kernels/forest_sampler/forest_sampler.py"
                       ":127",
-             launches=launches["hash_draws"], max_abs_err=b3["max_abs_err"],
+             launches=launches["hash_draws"],
+             launches_note="the standalone counterpart of the Pallas "
+                           "hash_draws, held against numpy in phase 2; "
+                           "the serving path runs forest_sample instead",
+             max_abs_err=b3["max_abs_err"],
              shape=b3["shape"], **{k: b3[k] for k in keys}),
+        dict(name="forest_sample", route="cuda",
+             source="src/repro_torch/kernels/forest_sampler/csrc/"
+                    "forest_sample.cu",
+             replaces="src/repro/kernels/forest_sampler/forest_sampler.py"
+                      ":127",
+             replaces_note="hash_draws fused with the gathers of "
+                           "src/repro/serve/device_sampler.py:84",
+             launches=launches["forest_sample"],
+             max_abs_err=max(c["max_abs_err"] for c in b3_fused),
+             shape=main_b3["shape"], **{k: main_b3[k] for k in keys}),
         dict(name="spgemm_hashpad", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"
                     "spgemm_hashpad.cu",

@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 @dataclasses.dataclass(frozen=True)
 class KernelLibrary:
     """One shared library: its sources and the C functions it exports
-    (name → ctypes argtypes; every function returns a C ``int``)."""
+    (name → ctypes argtypes; every function returns a C ``int``).  The
+    ``.cu`` sources are compiled; headers listed beside them are hashed
+    into the library's name, so an edited header rebuilds it."""
 
     name: str
     sources: Tuple[pathlib.Path, ...]
@@ -78,7 +80,8 @@ def build(libraries: Sequence[KernelLibrary]) -> float:
     for lib in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, lib.sources)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               *(str(src) for src in lib.sources if src.suffix == ".cu")]
         jobs.append((lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failures = []

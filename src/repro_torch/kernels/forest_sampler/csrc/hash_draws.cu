@@ -16,12 +16,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ uint64_t mix64(uint64_t z) {
-  z += 0x9E3779B97F4A7C15ull;
-  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
-  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
-  return z ^ (z >> 31);
-}
+#include "mix64.cuh"
 
 __global__ void hash_draws_kernel(const uint64_t* __restrict__ z,
                                   const int32_t* __restrict__ deg,

@@ -1,33 +1,56 @@
-"""Counter-hash draws ``splitmix64(z) mod deg``: CUDA kernel, plain
-version, wrapper and launch counter.
+"""Counter-hash draws ``splitmix64(z) mod deg`` and the fused forest
+sample built on them: CUDA kernels, plain versions, wrappers and launch
+counters.
 
-Port of ``repro.kernels.forest_sampler.forest_sampler.hash_draws``.  The
-counter ``z`` travels as int64 holding the uint64 bits.  The CUDA kernel
-(``csrc/hash_draws.cu``) hashes native ``uint64``.  The plain version has
-only int64 to work with: the wrapping multiply gives the same bits, right
-shifts are masked to be logical, and ``mod d`` goes through the hi/lo split
-(``t = hi % d; t = t·(2³² mod d) % d``, every step under 2⁶²).  Both must
-equal ``repro.sparse.sampler._mix64(z) % deg`` bit for bit.
+``hash_draws`` ports ``repro.kernels.forest_sampler.forest_sampler.
+hash_draws``.  The counter ``z`` travels as int64 holding the uint64 bits.
+The CUDA kernel (``csrc/hash_draws.cu``) hashes native ``uint64``.  The
+plain version has only int64 to work with: the wrapping multiply gives the
+same bits, right shifts are masked to be logical, and ``mod d`` goes
+through the hi/lo split (``t = hi % d; t = t·(2³² mod d) % d``, every step
+under 2⁶²).  Both must equal ``repro.sparse.sampler._mix64(z) % deg`` bit
+for bit.
 
-``hash_draws`` takes the plain version only for tensors on the CPU.  For
-CUDA tensors it launches the kernel or raises.
+``forest_sample`` is what the device sampler runs: a bucket's whole forest
+(every hop of every tree, the draws fused into their CSR gathers) in one
+launch of ``csrc/forest_sample.cu``, equal to the reference's
+``DeviceSamplerPlane.sample_bucket``.  Its plain version,
+``forest_sample_plain``, is the eager per-hop loop around ``hash_draws``.
+Both kernels hash through one header, ``csrc/mix64.cuh``.
+
+The wrappers take the plain versions only for tensors on the CPU.  For
+CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import pathlib
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
 
+_CSRC = pathlib.Path(__file__).parent / "csrc"
 LIBRARY = build.KernelLibrary(
     name="hash_draws",
-    sources=(pathlib.Path(__file__).parent / "csrc" / "hash_draws.cu",),
+    sources=(_CSRC / "hash_draws.cu", _CSRC / "mix64.cuh"),
     functions=(("hash_draws_launch",
                 (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_void_p)),))
+FOREST_LIBRARY = build.KernelLibrary(
+    name="forest_sample",
+    sources=(_CSRC / "forest_sample.cu", _CSRC / "mix64.cuh"),
+    functions=(("forest_sample_launch",
+                (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+                 ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                 ctypes.c_void_p)),))
+# forest_sample.cu's FOREST_MAX_HOPS
+MAX_HOPS = 6
 
 
 def _i64(c: int) -> int:
@@ -38,7 +61,10 @@ def _i64(c: int) -> int:
 _SM_GAMMA = _i64(0x9E3779B97F4A7C15)
 _SM_M1 = _i64(0xBF58476D1CE4E5B9)
 _SM_M2 = _i64(0x94D049BB133111EB)
+_K_HOP = 0x8CB92BA72F3D8DD7                 # sampler._K_HOP, _K_LANE
+_K_LANE = 0x2545F4914F6CDD1D
 _MASK32 = 0xFFFFFFFF
+_MASK64 = (1 << 64) - 1
 
 
 def _shr(z: torch.Tensor, k: int) -> torch.Tensor:
@@ -111,3 +137,112 @@ def hash_draws(z: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
 
 
 hash_draws.launches = 0
+
+
+def forest_sample_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                        trees: torch.Tensor, fanouts: Sequence[int],
+                        key_c: int):
+    """Plain PyTorch version of ``forest_sample``: one vectorized pass per
+    hop around ``hash_draws``, gathers clamped explicitly (JAX clips where
+    torch faults).  Hop h's counter terms are ``key_c ⊕ (h+1)·C₂ ⊕
+    lane·C₃`` over its ``Πfanouts[:h+1]`` lanes."""
+    fanouts = tuple(int(f) for f in fanouts)
+    dev = trees.device
+    seeds, tkm, live = trees[0], trees[1], trees[2] != 0
+    t = seeds.shape[0]
+    last = indptr.shape[0] - 1
+    n_edges = indices.shape[0]
+    frontier = torch.where(live, seeds, 0).reshape(t, 1)
+    live_l = live.reshape(t, 1)
+    levels = [torch.where(live, seeds, -1)]
+    valid_hops = []
+    lanes = 1
+    for h, f in enumerate(fanouts):
+        start = indptr[frontier.clamp(0, last)]
+        deg = indptr[(frontier + 1).clamp(0, last)] - start
+        has_nbr = deg > 0
+        hop = _i64((key_c ^ ((h + 1) * _K_HOP)) & _MASK64)
+        lane = torch.arange(lanes * f, dtype=torch.int64, device=dev)
+        z = tkm[:, None] ^ ((lane * _K_LANE) ^ hop)[None, :]
+        dmax = deg.clamp_min(1).to(torch.int32).repeat_interleave(f, 1)
+        r = hash_draws(z.contiguous(), dmax.contiguous())
+        r = r.reshape(t, lanes, f).to(torch.int64)
+        if n_edges:
+            gather = (start[:, :, None] + r).clamp(0, n_edges - 1)
+            nbr = indices[gather]
+        else:
+            nbr = torch.zeros((t, lanes, f), dtype=torch.int64, device=dev)
+        valid = (has_nbr & live_l)[:, :, None].expand(t, lanes, f)
+        nbr = torch.where(valid, nbr, -1)
+        levels.append(nbr.reshape(-1))
+        valid_hops.append(valid.reshape(-1))
+        frontier = torch.where(valid, nbr, 0).reshape(t, lanes * f)
+        live_l = valid.reshape(t, lanes * f)
+        lanes *= f
+    return torch.cat(levels), torch.cat(valid_hops)
+
+
+def forest_sample(indptr: torch.Tensor, indices: torch.Tensor,
+                  trees: torch.Tensor, fanouts: Sequence[int], key_c: int):
+    """A bucket's forest sample in its breadth-major layout.
+
+    indptr (N+1,) and indices (E,): the graph's CSR, int64.  trees (3, T)
+    int64: row 0 the seeds, row 1 each tree's ``tree_key · C₁`` bits
+    (``serve.device_sampler.tree_key_mix``), row 2 live (0 ⇒ a padding
+    tree: −1 nodes and no valid edge at any level).  fanouts: 1 to
+    ``MAX_HOPS`` hops.  key_c: the sampler key's term ``mix64(key)`` as
+    an int (``sparse.sampler._mix64``).
+
+    Returns ``(node_ids (T·Σ level sizes,) int64, hop_valid (T·Σ hop
+    budgets,) bool)``: level by level, tree-major inside a level.
+    """
+    fanouts = tuple(int(f) for f in fanouts)
+    for name, x in (("indptr", indptr), ("indices", indices),
+                    ("trees", trees)):
+        if x.dtype != torch.int64:
+            raise TypeError(f"forest_sample takes int64 {name}, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if indptr.dim() != 1 or indices.dim() != 1 or indptr.numel() < 1:
+        raise ValueError("indptr (N+1,) and indices (E,) must be 1-D, "
+                         "indptr non-empty")
+    if trees.dim() != 2 or trees.shape[0] != 3:
+        raise ValueError(f"trees must be (3, T), got {tuple(trees.shape)}")
+    if not (indptr.device == indices.device == trees.device):
+        raise ValueError(f"indptr on {indptr.device}, indices on "
+                         f"{indices.device}, trees on {trees.device}")
+    if not 1 <= len(fanouts) <= MAX_HOPS or min(fanouts) < 1:
+        raise ValueError(f"fanouts {fanouts}: 1 to {MAX_HOPS} hops, each "
+                         "at least 1")
+    if math.prod(fanouts) >= 2 ** 31:
+        raise ValueError(f"fanouts {fanouts}: a tree's last level must "
+                         "hold fewer than 2**31 nodes")
+    if trees.device.type == "cpu":
+        return forest_sample_plain(indptr, indices, trees, fanouts, key_c)
+    if trees.device.type != "cuda":
+        raise ValueError(f"forest_sample runs on cuda or cpu, not "
+                         f"{trees.device}")
+    n_trees = trees.shape[1]
+    per_tree = sum(math.prod(fanouts[:h]) for h in range(len(fanouts) + 1))
+    node_ids = torch.empty(n_trees * per_tree, dtype=torch.int64,
+                           device=trees.device)
+    hop_valid = torch.empty(n_trees * (per_tree - 1), dtype=torch.bool,
+                            device=trees.device)
+    if n_trees == 0:
+        return node_ids, hop_valid
+    lib = build.load(FOREST_LIBRARY)
+    fan = (ctypes.c_int64 * len(fanouts))(*fanouts)
+    with torch.cuda.device(trees.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.forest_sample_launch(
+            indptr.data_ptr(), indices.data_ptr(), trees.data_ptr(),
+            node_ids.data_ptr(), hop_valid.data_ptr(), indptr.numel() - 1,
+            indices.numel(), n_trees, key_c % (1 << 64), fan, len(fanouts),
+            stream)
+    build.check_launch("forest_sample", err)
+    forest_sample.launches += 1
+    return node_ids, hop_valid
+
+
+forest_sample.launches = 0

@@ -18,6 +18,7 @@ from repro_torch.serve.buckets import (BucketStructure, bucket_for,
 from repro_torch.serve.compute import (FeatureStore, StepCache,
                                        build_infer_step)
 from repro_torch.serve.device_sampler import (DeviceSamplerPlane,
+                                              pack_trees,
                                               sample_forest_device,
                                               tree_key_mix)
 from repro_torch.serve.engine import (GNNServer, SamplerPool,
@@ -29,7 +30,8 @@ __all__ = [
     "DynamicBatcher", "ServeRequest",
     "BucketStructure", "bucket_for", "build_bucket_structure", "stack_trees",
     "FeatureStore", "StepCache", "build_infer_step",
-    "DeviceSamplerPlane", "sample_forest_device", "tree_key_mix",
+    "DeviceSamplerPlane", "pack_trees", "sample_forest_device",
+    "tree_key_mix",
     "GNNServer", "SamplerPool", "offline_inference", "offline_replay",
     "ServeError", "SamplerError", "DeadlineExceeded", "DrainTimeout",
     "ServerClosed",

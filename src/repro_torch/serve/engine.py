@@ -9,7 +9,8 @@ model) and serves seed-node requests:
    so offline replay sees identical subgraphs.  Under ``sampler="device"``
    there are no workers: the request carries its seeds and one int64
    counter term per tree, joins the batcher at once, and the sampling runs
-   inside the dispatched bucket step on the device (``hash_draws``);
+   inside the dispatched bucket step on the device (one ``forest_sample``
+   launch);
 2. sampled requests join the ``DynamicBatcher`` (deadline/size triggers);
 3. the engine thread — the only thread that touches CUDA tensors, on the
    current stream — stacks a batch's trees into its power-of-two bucket,
@@ -286,12 +287,12 @@ class GNNServer:
         if self._plane is None:
             return body
         # fused dispatch: sampling + feature gather + GNN forward in one
-        # device step per bucket; the step's inputs shrink from the stacked
-        # node tables to seeds + per-tree counter terms
+        # device step per bucket; the step's input shrinks from the stacked
+        # node tables to the packed (3, bucket) seeds, counter terms, live
         plane = self._plane
 
-        def fused(params, seeds, tkm, live):
-            node_ids, hop_valid = plane.sample_bucket(seeds, tkm, live)
+        def fused(params, trees):
+            node_ids, hop_valid = plane.sample_trees(trees)
             return body(params, node_ids, hop_valid)
 
         return fused
@@ -302,20 +303,21 @@ class GNNServer:
                 bucket, self.fanouts, with_loops=True)
         return self._structs[bucket]
 
-    def _device_batch(self, batch: List[ServeRequest], bucket: int):
-        """Pack a batch's seeds + counter terms into the bucket's lanes
-        (padding lanes: live=False ⇒ the device sampler blanks them)."""
-        seeds = np.zeros(bucket, np.int64)
-        tkm = np.zeros(bucket, np.int64)
-        live = np.zeros(bucket, bool)
+    def _device_batch(self, batch: List[ServeRequest],
+                      bucket: int) -> np.ndarray:
+        """Pack a batch's seeds + counter terms into the bucket's lanes as
+        one (3, bucket) ``pack_trees`` array, written in place: one
+        synchronous host-to-device copy a step (padding lanes: live=0 ⇒
+        the device sampler blanks them)."""
+        trees = np.zeros((3, bucket), np.int64)
         i = 0
         for r in batch:
             k = r.n_seeds
-            seeds[i:i + k] = r.seeds
-            tkm[i:i + k] = r.tkm
-            live[i:i + k] = True
+            trees[0, i:i + k] = r.seeds
+            trees[1, i:i + k] = r.tkm
+            trees[2, i:i + k] = 1
             i += k
-        return seeds, tkm, live
+        return trees
 
     def _dispatch(self, batch: List[ServeRequest]):
         n_trees = sum(r.n_seeds for r in batch)
@@ -326,7 +328,7 @@ class GNNServer:
             node_ids, hop_valid = stack_trees(trees, bucket, self.fanouts)
             out = step(self.params, node_ids, hop_valid)   # async launch
         else:
-            out = step(self.params, *self._device_batch(batch, bucket))
+            out = step(self.params, self._device_batch(batch, bucket))
         with self._stats_lock:
             self.bucket_counts[bucket] += 1
         self._inflight.append((batch, out))
@@ -392,8 +394,7 @@ class GNNServer:
         for b in buckets:
             step = self.steps.get((b,))
             if self._plane is not None:
-                step(self.params, np.zeros(b, np.int64),
-                     np.zeros(b, np.int64), np.zeros(b, bool)).cpu()
+                step(self.params, np.zeros((3, b), np.int64)).cpu()
                 continue
             struct = self._struct(b)
             step(self.params, np.full(struct.n_nodes, -1, np.int64),

@@ -17,7 +17,10 @@ from repro_torch.kernels.embedding_bag import (embedding_bag,
 from repro_torch.kernels.embedding_bag.embedding_bag import lane_layout
 from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                  flash_attention, mha_causal)
-from repro_torch.kernels.forest_sampler import hash_draws, hash_draws_plain
+from repro_torch.data.synthetic import cora_like
+from repro_torch.kernels.forest_sampler import (MAX_HOPS, forest_sample,
+                                                forest_sample_plain,
+                                                hash_draws, hash_draws_plain)
 from repro_torch.kernels.gustavson_spmm import gustavson_spmm as spmm_module
 from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                 spmm_dedup_chunks,
@@ -33,9 +36,10 @@ from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
                                             spgemm_hashpad_q8_plain)
 from repro_torch.kernels.spgemm_pad import spgemm_pad as hashpad_module
 from repro_torch.kernels.spgemm_pad.spgemm_pad import H_TILE
+from repro_torch.serve.device_sampler import pack_trees
 from repro_torch.sparse import quantize as qz
 from repro_torch.sparse import backend as sb
-from repro_torch.sparse.graph import pack_dedup_chunks
+from repro_torch.sparse.graph import coo_to_csr, pack_dedup_chunks
 from repro_torch.sparse.plan import block_ptr_from_first, make_plan
 from repro_torch.sparse.spgemm import make_spgemm_plan
 from repro_torch.sparse.spgemm.numeric import hashed_slab_q8
@@ -239,6 +243,107 @@ def test_hash_draws_kernel_exact(cuda):
     want = (_mix64(z) % deg.astype(np.uint64)).astype(np.int32)
     assert np.array_equal(hash_draws(zt, dt).cpu().numpy(), want)
     assert np.array_equal(hash_draws_plain(zt, dt).cpu().numpy(), want)
+
+
+def _forest_graph(name):
+    """Phase 2's forest_sample graphs (the minibatch_lg one cut to ~10⁶
+    edges): (indptr, indices) as int64 numpy arrays."""
+    if name == "cora":
+        s, r, _, _, _ = cora_like(seed=0)
+        indptr, indices, _ = coo_to_csr(s, r, 2708)
+    elif name == "isolated":
+        # every fifth row empty, and the last (the end-of-CSR corner)
+        s, r, _, _, _ = cora_like(seed=0)
+        keep = (r % 5 != 0) & (r != 2707)
+        indptr, indices, _ = coo_to_csr(s[keep], r[keep], 2708)
+    else:                                     # minibatch_lg, cut
+        rng = np.random.default_rng(19)
+        n, e = 23_296, 1_146_158
+        w = (1 - rng.random(n)) ** -0.5
+        deg = np.floor(w * (e / w.sum())).astype(np.int64)
+        deg[rng.permutation(n)[:e - deg.sum()]] += 1
+        indptr = np.concatenate([[0], np.cumsum(deg)])
+        indices = rng.integers(0, n, e)
+    return np.asarray(indptr, np.int64), np.asarray(indices, np.int64)
+
+
+@pytest.mark.parametrize("graph,n_trees,n_live,fanouts", [
+    ("cora", 1, 1, (5, 3)), ("cora", 16, 16, (5, 3)),
+    ("cora", 16, 5, (5, 3)), ("isolated", 16, 16, (5, 3)),
+    ("cora", 16, 16, (2, 2, 2)), ("minibatch_lg", 1024, 1024, (15, 10)),
+    ("cora", 7, 7, (2, 2, 2, 2, 2, 2)), ("cora", 300, 250, (3,))])
+def test_forest_sample_kernel_equals_plain(cuda, graph, n_trees, n_live,
+                                          fanouts):
+    indptr, indices = _forest_graph(graph)
+    rng = np.random.default_rng(n_trees + n_live)
+    seeds = rng.integers(0, indptr.shape[0] - 1, n_trees)
+    seeds[:2] = [0, indptr.shape[0] - 2][:n_trees]
+    live = np.arange(n_trees) < n_live
+    tkm = rng.integers(-2 ** 63, 2 ** 63, n_trees, dtype=np.int64)
+    args = (torch.from_numpy(indptr).to(cuda),
+            torch.from_numpy(indices).to(cuda),
+            torch.from_numpy(pack_trees(seeds, tkm, live)).to(cuda), fanouts,
+            int(_mix64(rng.integers(0, 2 ** 62, dtype=np.uint64))))
+    before = forest_sample.launches
+    got = forest_sample(*args)
+    assert forest_sample.launches == before + 1
+    want = forest_sample_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][:n_trees][~torch.from_numpy(live).to(cuda)] == -1).all()
+    host = forest_sample_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                 for a in args))
+    assert torch.equal(got[0].cpu(), host[0])
+    assert torch.equal(got[1].cpu(), host[1])
+
+
+def test_forest_sample_edgeless_graph_reads_no_indices(cuda):
+    indptr = torch.zeros(33, dtype=torch.int64, device=cuda)
+    indices = torch.zeros(0, dtype=torch.int64, device=cuda)
+    trees = torch.from_numpy(pack_trees([0, 7, 32], [1, 2, 3],
+                                        [1, 1, 0])).to(cuda)
+    got = forest_sample(indptr, indices, trees, (3, 2), 5)
+    want = forest_sample_plain(indptr, indices, trees, (3, 2), 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[1].any()
+
+
+def test_forest_sample_wrapper_raises_on_the_card(cuda):
+    indptr = torch.tensor([0, 1, 2], dtype=torch.int64, device=cuda)
+    indices = torch.tensor([1, 0], dtype=torch.int64, device=cuda)
+    trees = torch.from_numpy(pack_trees([0, 1], [5, 6], [1, 1])).to(cuda)
+    with pytest.raises(TypeError):
+        forest_sample(indptr, indices.int(), trees, (2,), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        forest_sample(indptr, indices, trees.t().contiguous().t(), (2,), 0)
+    with pytest.raises(ValueError, match="indptr on cpu"):
+        forest_sample(indptr.cpu(), indices, trees, (2,), 0)
+    with pytest.raises(ValueError, match="hops"):
+        forest_sample(indptr, indices, trees, (1,) * (MAX_HOPS + 1), 0)
+
+
+def test_device_sampled_step_launches_forest_sample_once(cuda):
+    from repro_torch.configs.gcn_cora import reduced
+    from repro_torch.models.gnn import gcn
+    from repro_torch.serve import FeatureStore, GNNServer, offline_replay
+    indptr, indices = _forest_graph("cora")
+    cfg = reduced()
+    x = np.random.default_rng(1).normal(size=(2708, cfg.d_in)).astype(
+        np.float32)
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    store = FeatureStore.build(2708, x, device=cuda)
+    with GNNServer("gcn", cfg, params, indptr, indices, store,
+                   fanouts=(5, 3), backend="cuda", sampler="device",
+                   max_batch_seeds=16, device=cuda) as server:
+        server.warmup()
+        forest_sample.launches = hash_draws.launches = 0
+        reqs = [server.submit([int(s)]) for s in range(0, 2708, 97)]
+        server.drain()
+        assert forest_sample.launches == server.stats()["n_batches"] > 0
+        assert hash_draws.launches == 0
+        for req in reqs:
+            assert np.abs(req.result - offline_replay(server, req)).max() \
+                <= 1e-5
 
 
 def test_cuda_executor_matches_dense(cuda):
