@@ -121,11 +121,34 @@ Phases, each of which raises (exit code 1) on any failure:
     and static shared memory (``cuobjdump --dump-resource-usage``), and
     where each dtype's error comes from (``flash_numerics``: bf16 against
     the rounded f32 plain version and P's rounding alone, f32 against an
-    f64 plain version beside emulations of its 3xTF32 sums).
+    f64 plain version beside emulations of its 3xTF32 sums);
+13. GCN training — gcn-cora at full width (seed 0) through
+    ``launch/train``'s setup and ``train.loop.run`` (a checkpoint every 25
+    steps into a temporary directory), counted: 50 steps each with
+    ``dense``, ``chunked``, ``cuda`` and ``cuda_q8``, 20 with ``dense``
+    and ``cuda`` over Â²; ``cuda`` against ``dense`` (each step's loss and
+    the last parameters ≤1e-4, step 1's gradients within rtol 1e-3, atol
+    1e-4) and against the same run on the CPU (≤1e-4 a step), ``cuda_q8``'s
+    first loss within ``Q8_E2E_TOL`` of ``dense``'s, each of its 100
+    aggregations replayed on the CPU from the card's inputs (≤1e-5) and
+    the whole run against the same run on the CPU (within ``Q8_E2E_TOL`` a
+    step: an int8 the CPU's ``h @ W`` rounds the other way moves the
+    trajectory by ~1e-4), every loss falling,
+    Â² ``cuda`` against ``dense`` (≤1e-4 a step); 4 B1 launches a ``cuda``
+    step (2 forward, 2 backward on the transpose layout), 2 B4 and 2 B1 a
+    ``cuda_q8`` step; the ``cuda`` run resumed from its 25-step commit
+    reproduces its last 25 losses and parameters bitwise; each backend's
+    warm step traced (wall, device time and operations, busy share, B1
+    and B4 ms, no ``index_add`` in the ``cuda``/``cuda_q8`` steps); then B1
+    as the backward, dX = Aᵀ·dY on the training plan's transpose at D = 16
+    and 7, timed as in phase 2 beside ``torch.sparse.mm(Aᵀ, dY)``, and B1
+    and B4 as the forward on the training plans at D = 16 and 7 against
+    their plain versions, as in phases 2 and 8.
 
 Launch counters are set to 0 just before each main-path run (the three
-serving runs, phases 7 and 9's paths, each DLRM step and phases 11 and
-12's wrapper calls) and read just after it; launches made to compare or
+serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
+12's wrapper calls and each training run of phase 13) and read just after
+it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Times come from
@@ -137,6 +160,7 @@ captured) and ``sampled_addmm`` run eagerly.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -596,11 +620,15 @@ def host_input_step(server, seeds):
     return step, node_ids, hop_valid
 
 
-def trace_steps(step, n_steps: int, kernel: str, top: int = 0) -> dict:
+def trace_steps(step, n_steps: int, kernel: str, top: int = 0,
+                split=None) -> dict:
     """Wall time per call of ``step`` (host clock around ``n_steps`` calls
     and a sync), and from a ``torch.profiler`` trace of another
     ``n_steps`` the device time of all its kernels, of ``kernel`` alone
-    and, with ``top``, of the ``top`` costliest device operations."""
+    and, with ``top``, of the ``top`` costliest device operations.
+    ``split`` maps names to predicates on a kernel's key: each gives
+    ``<name>_ms_per_step``, and the record then lists every traced key,
+    host operations included, as ``op_keys``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,6 +653,12 @@ def trace_steps(step, n_steps: int, kernel: str, top: int = 0) -> dict:
                kernel_ms_per_step=kernel_us / 1e3 / n_steps,
                device_ops_per_step=sum(e.count for e in kernels) / n_steps,
                device_busy_share=dev_us / 1e3 / n_steps / wall_ms)
+    for name, pred in (split or {}).items():
+        rec[f"{name}_ms_per_step"] = sum(
+            e.self_device_time_total for e in kernels
+            if pred(e.key)) / 1e3 / n_steps
+    if split:
+        rec["op_keys"] = sorted({e.key for e in prof.key_averages()})
     if top:
         costliest = sorted(kernels, key=lambda e: -e.self_device_time_total)
         rec["top_ms_per_step"] = {
@@ -1034,25 +1068,34 @@ def replay_aggregates_on_cpu(run):
     the f32 combination ``h @ W`` sums in another order, and a value that
     moves by one ulp across a rounding boundary changes an int8 by one.
     Replaying each aggregation from the same ``h`` holds the kernels and the
-    quantization to the plain path without that."""
+    quantization to the plain path without that.  Calls made with gradients
+    on (training) are recorded detached and replayed without them."""
     from repro_torch.sparse import backend as sb
     calls = []
     aggregate = sb.aggregate
 
+    def detached(t):
+        return t.detach() if isinstance(t, torch.Tensor) else t
+
     def recorded(plan, vals, x, backend="dense"):
         y = aggregate(plan, vals, x, backend=backend)
-        calls.append((plan, vals, x, backend, y))
+        calls.append((plan, detached(vals), detached(x), backend,
+                      y.detach()))
         return y
     sb.aggregate = recorded
     try:
         out = run()
     finally:
         sb.aggregate = aggregate
-    err = 0.0
-    for plan, vals, x, backend, y in calls:
-        y_cpu = aggregate(on_cpu(plan), None if vals is None else vals.cpu(),
-                          x.cpu(), backend=backend)
-        err = max(err, float((y.cpu() - y_cpu).abs().max()))
+    err, cpu_plans = 0.0, {}
+    with torch.no_grad():
+        for plan, vals, x, backend, y in calls:
+            if id(plan) not in cpu_plans:
+                cpu_plans[id(plan)] = (plan, on_cpu(plan))
+            y_cpu = aggregate(cpu_plans[id(plan)][1],
+                              None if vals is None else vals.cpu(), x.cpu(),
+                              backend=backend)
+            err = max(err, float((y.cpu() - y_cpu).abs().max()))
     return out, len(calls), err
 
 
@@ -1962,6 +2005,252 @@ def phase_flash(dev):
     return recs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13 — GCN training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 50
+TWO_HOP_STEPS = 20
+CKPT_EVERY = 25
+# (run name, backend, steps, two_hop)
+TRAIN_RUNS = (("dense", "dense", TRAIN_STEPS, False),
+              ("chunked", "chunked", TRAIN_STEPS, False),
+              ("cuda", "cuda", TRAIN_STEPS, False),
+              ("cuda_q8", "cuda_q8", TRAIN_STEPS, False),
+              ("dense_two_hop", "dense", TWO_HOP_STEPS, True),
+              ("cuda_two_hop", "cuda", TWO_HOP_STEPS, True))
+
+
+def is_b1(key: str) -> bool:
+    """A profiler key of B1 (``spmm_dedup_chunks_kernel<float, ...>``,
+    demangled or not), not of B4 (its ``int8_t`` instantiation)."""
+    return "spmm_dedup_chunks_kernel" in key and (
+        "<float" in key or "kernelIf" in key)
+
+
+def is_b4(key: str) -> bool:
+    return "spmm_dedup_chunks_kernel" in key and not is_b1(key)
+
+
+def train_setup(device, backend, two_hop=False):
+    """``launch/train``'s gcn-cora setup at full width (seed 0):
+    (params, step, batches)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import _gnn_setup
+    return _gnn_setup("gcn-cora", registry.get_config("gcn-cora"), 0,
+                      backend=backend, two_hop=two_hop, device=device)
+
+
+def train_job(device, backend, n_steps, ckpt_dir, two_hop=False):
+    """The setup run through ``train.loop.run`` with a checkpoint every
+    ``CKPT_EVERY`` steps into ``ckpt_dir``: (state, history)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    params, step, batches = train_setup(device, backend, two_hop)
+    state = loop.TrainState(params=params, opt_state=adamw.init_state(params))
+    cfg = loop.TrainLoopConfig(n_steps=n_steps, ckpt_every=CKPT_EVERY,
+                               ckpt_dir=str(ckpt_dir), log_every=10 ** 9)
+    return loop.run(state, step, batches, cfg, log=lambda *_: None)
+
+
+def first_step_grads(device, backend):
+    """The gradients the first training step hands to AdamW."""
+    from repro_torch.optim import adamw
+    params, step, batches = train_setup(device, backend)
+    seen = []
+    apply = adamw.apply_updates
+
+    def spy(p, grads, state, cfg):
+        seen.append(grads)
+        return apply(p, grads, state, cfg)
+    adamw.apply_updates = spy
+    try:
+        step(params, adamw.init_state(params), next(batches))
+    finally:
+        adamw.apply_updates = apply
+    return seen[0]
+
+
+def max_tree_err(a, b) -> float:
+    from repro_torch import tree
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max())
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def loss_err(h1, h2) -> float:
+    return max(abs(a - b) for a, b in zip(h1["loss"], h2["loss"]))
+
+
+def train_step_breakdown(dev, backend, n_steps: int = 20) -> dict:
+    """One warm training step as the loop runs it (the step and its loss
+    read back), traced: wall, device time and operations, busy share, and
+    B1's and B4's device time per step."""
+    from repro_torch.optim import adamw
+    params, step, batches = train_setup(dev, backend)
+    opt, batch = adamw.init_state(params), next(batches)
+    rec = trace_steps(lambda: float(step(params, opt, batch)[2]["loss"]),
+                      n_steps, "spmm_dedup_chunks",
+                      split={"b1": is_b1, "b4": is_b4})
+    rec.pop("kernel_ms_per_step")
+    keys = rec.pop("op_keys")
+    rec["index_add_ops"] = [k for k in keys
+                            if "index_add" in k or "indexFunc" in k]
+    rec["b1_share"] = rec["b1_ms_per_step"] / rec["device_ms_per_step"]
+    return rec
+
+
+def phase_train(dev):
+    """gcn-cora training at full width through ``launch/train``'s setup and
+    ``train.loop.run``, counted, against ``dense``, the CPU and itself
+    after a resume; the training step's readings; B1 as the backward
+    (dX = Aᵀ·dY on the transpose plan) timed at its two widths."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_q8)
+    from repro_torch.launch.steps import resolve_gnn_plan
+    from repro_torch.sparse.graph import make_graph, sym_norm_weights
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, backend, n_steps, two_hop in TRAIN_RUNS:
+            spmm_dedup_chunks.launches = 0
+            spmm_dedup_chunks_q8.launches = 0
+            job = functools.partial(train_job, dev, backend, n_steps,
+                                    tmp / name, two_hop)
+            if backend == "cuda_q8":
+                # every int8 aggregation of the run, replayed on the CPU
+                # from the card's own inputs
+                runs[name], q8_calls, q8_replay = \
+                    replay_aggregates_on_cpu(job)
+            else:
+                runs[name] = job()
+            torch.cuda.synchronize()
+            launches[name] = {
+                "spmm_dedup_chunks": spmm_dedup_chunks.launches,
+                "spmm_dedup_chunks_q8": spmm_dedup_chunks_q8.launches}
+        # resume the cuda run from its 25-step commit and run to 50
+        resume = tmp / "cuda_resume"
+        resume.mkdir()
+        shutil.copytree(tmp / "cuda" / f"step_{CKPT_EVERY:06d}",
+                        resume / f"step_{CKPT_EVERY:06d}")
+        spmm_dedup_chunks.launches = 0
+        spmm_dedup_chunks_q8.launches = 0
+        resumed = train_job(dev, "cuda", TRAIN_STEPS, resume)
+        torch.cuda.synchronize()
+        launches["cuda_resume"] = {
+            "spmm_dedup_chunks": spmm_dedup_chunks.launches,
+            "spmm_dedup_chunks_q8": spmm_dedup_chunks_q8.launches}
+        on_cpu_run = train_job("cpu", "cuda", TRAIN_STEPS, tmp / "cpu")
+        on_cpu_q8 = train_job("cpu", "cuda_q8", TRAIN_STEPS, tmp / "cpu_q8")
+
+    steps = {name: n for name, _, n, _ in TRAIN_RUNS}
+    for name, (state, hist) in runs.items():
+        n = steps[name]
+        check(state.step == n and len(hist["loss"]) == n
+              and all(math.isfinite(v) for v in hist["loss"]),
+              f"train {name}: {state.step} steps, losses {hist['loss'][:3]}")
+        check(hist["loss"][-1] < hist["loss"][0],
+              f"train {name}: loss did not fall ({hist['loss'][0]:.4f} → "
+              f"{hist['loss'][-1]:.4f})")
+        check(hist["retries"] == 0, f"train {name}: retries")
+    want = {"dense": (0, 0), "chunked": (0, 0), "dense_two_hop": (0, 0),
+            "cuda": (4 * TRAIN_STEPS, 0), "cuda_resume": (4 * 25, 0),
+            "cuda_two_hop": (4 * TWO_HOP_STEPS, 0),
+            "cuda_q8": (2 * TRAIN_STEPS, 2 * TRAIN_STEPS)}
+    for name, (b1, b4) in want.items():
+        got = launches[name]
+        check((got["spmm_dedup_chunks"], got["spmm_dedup_chunks_q8"])
+              == (b1, b4), f"train {name}: launches {got}, expected B1 {b1}"
+                           f" and B4 {b4}")
+    d_state, d_hist = runs["dense"]
+    c_state, c_hist = runs["cuda"]
+    errs = dict(
+        cuda_vs_dense_loss=loss_err(c_hist, d_hist),
+        cuda_vs_dense_params=max_tree_err(c_state.params, d_state.params),
+        chunked_vs_dense_loss=loss_err(runs["chunked"][1], d_hist),
+        cuda_vs_cpu_loss=loss_err(c_hist, on_cpu_run[1]),
+        cuda_vs_cpu_params=max_tree_err(c_state.params,
+                                        on_cpu_run[0].params),
+        two_hop_cuda_vs_dense_loss=loss_err(runs["cuda_two_hop"][1],
+                                            runs["dense_two_hop"][1]),
+        q8_first_loss_vs_dense=abs(runs["cuda_q8"][1]["loss"][0]
+                                   - d_hist["loss"][0]),
+        q8_aggregations_vs_cpu_replay=q8_replay,
+        q8_vs_cpu_loss=loss_err(runs["cuda_q8"][1], on_cpu_q8[1]),
+        q8_vs_cpu_params=max_tree_err(runs["cuda_q8"][0].params,
+                                      on_cpu_q8[0].params))
+    for k in ("cuda_vs_dense_loss", "cuda_vs_dense_params",
+              "chunked_vs_dense_loss", "cuda_vs_cpu_loss",
+              "cuda_vs_cpu_params", "two_hop_cuda_vs_dense_loss"):
+        check(errs[k] <= EXECUTOR_TOL, f"train {k} {errs[k]:.3e}")
+    check(errs["q8_first_loss_vs_dense"] <= Q8_E2E_TOL,
+          f"train cuda_q8 first loss vs dense "
+          f"{errs['q8_first_loss_vs_dense']:.3e} > {Q8_E2E_TOL}")
+    # int8 on the card against the CPU: each aggregation replayed from the
+    # card's inputs (exact up to KERNEL_TOL), and the whole run step by
+    # step within Q8_E2E_TOL (the CPU's own h @ W may round an int8 the
+    # other way, and the runs then drift apart by ~1e-4 in the loss)
+    check(q8_calls == 2 * TRAIN_STEPS and q8_replay <= KERNEL_TOL,
+          f"train cuda_q8: {q8_calls} aggregations, card vs CPU replay "
+          f"{q8_replay:.3e}")
+    check(errs["q8_vs_cpu_loss"] <= Q8_E2E_TOL,
+          f"train cuda_q8 card vs CPU loss {errs['q8_vs_cpu_loss']:.3e}")
+    g_c, g_d = first_step_grads(dev, "cuda"), first_step_grads(dev, "dense")
+    for a, b in zip(tree.leaves(g_c), tree.leaves(g_d)):
+        check(bool(torch.allclose(a, b, rtol=1e-3, atol=1e-4)),
+              "train: step-1 gradients cuda vs dense beyond rtol 1e-3, "
+              f"atol 1e-4 ({float((a - b).abs().max()):.3e})")
+    errs["step1_grads_cuda_vs_dense"] = max_tree_err(g_c, g_d)
+    r_state, r_hist = resumed
+    check(len(r_hist["loss"]) == TRAIN_STEPS - CKPT_EVERY
+          and r_hist["loss"] == c_hist["loss"][CKPT_EVERY:]
+          and max_tree_err(r_state.params, c_state.params) == 0.0,
+          "train: the run resumed at step 25 does not reproduce the cuda "
+          f"run bitwise ({r_hist['loss'][-1]!r} vs {c_hist['loss'][-1]!r})")
+
+    readings = {}
+    for backend in ("dense", "chunked", "cuda", "cuda_q8"):
+        rec = train_step_breakdown(dev, backend)
+        readings[backend] = rec
+        say(f"train step {backend} {json.dumps(rec)}")
+    for backend in ("cuda", "cuda_q8"):
+        check(not readings[backend]["index_add_ops"],
+              f"train {backend}: index_add in the traced step: "
+              f"{readings[backend]['index_add_ops']}")
+
+    # B1 as the backward: dX = Aᵀ·dY on the training plan's transpose
+    s, r, _, _, _ = cora_like(seed=0)
+    s2, r2, w = sym_norm_weights(s, r, 2708)
+    plan = resolve_gnn_plan(make_graph(s2, r2, 2708, w, device=dev), "cuda")
+    t_plan = dataclasses.replace(
+        plan, rows=plan.cols, cols=plan.rows, n_blocks=plan.n_t_blocks,
+        ell_u_cols=plan.ell_t_u_cols, ell_remaining=plan.ell_t_remaining,
+        ell_block_ptr=plan.ell_t_block_ptr, ell_a=plan.ell_t_a)
+    rng = np.random.default_rng(13)
+    backward = [spmm_case("cora_full_T (backward dX)", t_plan, d, rng)
+                for d in (16, 7)]
+    # B1 and B4 forward on the training plans, at both layers' widths
+    q8_plan = resolve_gnn_plan(make_graph(s2, r2, 2708, w, device=dev),
+                               "cuda_q8")
+    forward = [spmm_case("cora_train", plan, d, rng) for d in (16, 7)]
+    forward_q8 = [spmm_q8_case("cora_train", q8_plan, d, rng)
+                  for d in (16, 7)]
+    rec = dict(losses={k: [h["loss"][0], h["loss"][-1]]
+                       for k, (_, h) in runs.items()},
+               resumed_last_loss=r_hist["loss"][-1], launches=launches,
+               errors=errs)
+    say(f"train {json.dumps(rec)}")
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8")}
+    return dict(launches=total, per_run=launches, backward=backward,
+                forward=forward, forward_q8=forward_q8, readings=readings)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -2048,6 +2337,10 @@ def main() -> int:
 
     # phase 12 — B8 through mha_causal at qwen3-0.6b width, S = 4096
     b8, b8_launches = phase_flash(dev)
+    torch.cuda.empty_cache()
+
+    # phase 13 — gcn-cora training on B1 (forward and backward) and B4
+    train = phase_train(dev)
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
@@ -2055,6 +2348,14 @@ def main() -> int:
     launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
     launches["spmm_dedup_chunks_q8"] += \
         two_hop_q8["launches"]["spmm_dedup_chunks_q8"]
+    serving = dict(launches)
+    for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8"):
+        launches[k] += train["launches"][k]
+    runs = train["per_run"]
+    train_note = ", ".join(
+        f"{name} {runs[name]['spmm_dedup_chunks']} + "
+        f"{runs[name]['spmm_dedup_chunks_q8']}" for name in runs
+        if sum(runs[name].values()))
     main_b1 = b1[0]                      # bucket 16, D = 16: the main shape
     main_b3 = b3_fused[1]                # bucket 16 at (5, 3): serving's
     main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
@@ -2069,7 +2370,16 @@ def main() -> int:
              replaces="src/repro/kernels/gustavson_spmm/gustavson_spmm.py"
                       ":139",
              launches=launches["spmm_dedup_chunks"],
-             max_abs_err=max(c["max_abs_err"] for c in b1),
+             launches_note=(
+                 f"serving and GCN over Â² "
+                 f"{serving['spmm_dedup_chunks']}; phase 13's training "
+                 f"runs (B1 + B4 per run: {train_note}): 4 a cuda step, "
+                 "2 forward and 2 backward (dX on the transpose layout), "
+                 "and 2 a cuda_q8 step, its f32 backward"),
+             max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
+                             + train["backward"]),
+             backward=[{k: c[k] for k in ("shape",) + keys}
+                       for c in train["backward"]],
              shape=main_b1["shape"], **{k: main_b1[k] for k in keys}),
         dict(name="hash_draws", route="cuda",
              source="src/repro_torch/kernels/forest_sampler/csrc/"
@@ -2105,7 +2415,13 @@ def main() -> int:
              replaces="src/repro/kernels/gustavson_spmm/gustavson_spmm.py"
                       ":299",
              launches=launches["spmm_dedup_chunks_q8"],
-             max_abs_err=max(c["max_abs_err"] for c in b4),
+             launches_note=(
+                 f"int8 serving and GCN over the int8 Â² "
+                 f"{serving['spmm_dedup_chunks_q8']}; phase 13's cuda_q8 "
+                 f"training run {runs['cuda_q8']['spmm_dedup_chunks_q8']} "
+                 "(2 a step, the forward)"),
+             max_abs_err=max(c["max_abs_err"]
+                             for c in b4 + train["forward_q8"]),
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
         dict(name="spgemm_hashpad_q8", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"

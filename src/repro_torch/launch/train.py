@@ -1,0 +1,135 @@
+"""End-to-end training driver (the GNN family of ``repro.launch.train``).
+
+Trains gcn-cora with allocated parameters, a data stream, checkpoints and
+the fault-tolerant loop, on the card unless ``--device cpu`` is given:
+
+  # paper workload — GCN at full width on a Cora-scale synthetic graph:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+      --full-gnn --backend cuda --steps 50
+
+  # the same on the CPU (the kernels' plain versions):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+      --full-gnn --backend cuda --steps 5 --device cpu
+
+``--backend`` picks the aggregation executor (``dense``, ``chunked``,
+``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the SpGEMM-built Â².
+The LM preset and family (ROADMAP queue A8), the other GNNs (A2) and DLRM
+training (A1) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.data import synthetic as syn
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import steps as steps_mod
+from repro_torch.optim import adamw
+from repro_torch.sparse.plan import ALL_BACKENDS
+from repro_torch.train import loop as train_loop
+
+N_NODES = 2708
+N_LABELLED = 140
+
+
+def _gnn_setup(arch_id, cfg, seed, backend: str = "dense",
+               two_hop: bool = False, device: DeviceLike = None):
+    """(params, step, batches) for ``arch_id`` on the Cora-scale graph:
+    sym-normed edges with self loops, a zero ghost row, the first 140 nodes
+    labelled, AdamW at lr 1e-2."""
+    from repro_torch.sparse.graph import make_graph, sym_norm_weights
+    if not arch_id.startswith("gcn"):
+        registry.entry(arch_id)     # raises for the archs not ported
+        raise NotImplementedError(
+            f"training {arch_id!r} is not ported yet (ROADMAP queue A2)")
+    dev = resolve_device(device)
+    s, r, x, y, c = syn.cora_like(seed)
+    n = N_NODES
+    s2, r2, w = sym_norm_weights(s, r, n)
+    g = make_graph(s2, r2, n, w, device=dev)
+    cfg = dataclasses.replace(cfg, d_in=x.shape[1], n_classes=c)
+    from repro_torch.models.gnn import gcn
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(seed),
+                             device=dev)
+    xp = np.vstack([x, np.zeros((1, x.shape[1]), np.float32)])
+    labels = np.concatenate([y, [0]]).astype(np.int32)
+    mask = np.zeros(n + 1, bool)
+    mask[:N_LABELLED] = True
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    batch = {"x": t(xp), "senders": g.senders, "receivers": g.receivers,
+             "edge_valid": g.edge_valid, "edge_weight": g.edge_weight,
+             "labels": t(labels), "label_mask": t(mask)}
+    # cuda/cuda_q8 need host-precomputed layouts; dense/chunked run off the
+    # inline plan the model builds from the batch arrays.  The graph goes
+    # through the plan cache, so re-building the step re-packs nothing.
+    step = steps_mod.build_gnn_step(arch_id, cfg, adamw.AdamWConfig(lr=1e-2),
+                                    backend=backend, graph=g,
+                                    two_hop=two_hop or None)
+
+    def batches():
+        while True:
+            yield batch
+
+    return params, step, batches()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="assigned arch id (reduced)")
+    ap.add_argument("--preset", default=None, choices=[None, "lm100m"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; a committed step there is "
+                         "resumed (default: a new temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--full-gnn", action="store_true",
+                    help="full (non-reduced) GNN config on Cora-scale data")
+    ap.add_argument("--backend", default="dense", choices=list(ALL_BACKENDS),
+                    help="sparse aggregation executor (GNN archs)")
+    ap.add_argument("--two-hop", action="store_true",
+                    help="aggregate over the SpGEMM-precomputed Â² two-hop "
+                         "graph (gcn)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+
+    if args.preset == "lm100m":
+        raise NotImplementedError(
+            "the lm100m preset trains the LM family, not ported yet "
+            "(ROADMAP queue A8)")
+    arch_id = args.arch or "gcn-cora"
+    fam = registry.entry(arch_id).family
+    if fam == "recsys":
+        raise NotImplementedError(
+            "DLRM training is not ported yet (ROADMAP queue A1, its DLRM "
+            "item)")
+    cfg = registry.get_config(arch_id, reduced=not args.full_gnn)
+    params, step, batches = _gnn_setup(arch_id, cfg, args.seed,
+                                       backend=args.backend,
+                                       two_hop=args.two_hop,
+                                       device=args.device)
+    state = train_loop.TrainState(params=params,
+                                  opt_state=adamw.init_state(params))
+    cfg_loop = train_loop.TrainLoopConfig(
+        n_steps=args.steps, ckpt_every=args.ckpt_every,
+        ckpt_dir=args.ckpt_dir)
+    t0 = time.time()
+    state, hist = train_loop.run(state, step, batches, cfg_loop)
+    dt = time.time() - t0
+    print(f"[train] {state.step} steps in {dt:.1f}s; "
+          f"loss {hist['loss'][0]:.4f} → {hist['loss'][-1]:.4f}; "
+          f"stragglers={hist['stragglers']} retries={hist['retries']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,6 +6,8 @@ Aggregation goes through the backend registry (``repro_torch.sparse
 run off an inline plan built from edge tensors; ``cuda`` needs a host-built
 ``make_plan(..., backends=("cuda",))`` passed as ``plan=``.
 
+``loss_fn`` is the training objective (masked cross-entropy).
+
 Parameters are a dict ``{"layer{i}": {"w": (d_in, d_out), "b": (d_out,)}}``
 in the reference's ``(d_in, d_out)`` weight layout, so ``h @ w`` reads the
 same on both sides.
@@ -79,3 +81,18 @@ def forward(params: Params, cfg: GCNConfig, x: torch.Tensor,
         if i < cfg.n_layers - 1:
             h = torch.relu(h)
     return h
+
+
+def loss_fn(params: Params, cfg: GCNConfig, x: torch.Tensor, senders,
+            receivers, edge_weight, edge_valid, labels: torch.Tensor,
+            label_mask: torch.Tensor, backend: str = "dense",
+            plan: Optional[AggregationPlan] = None) -> torch.Tensor:
+    """Masked node-classification cross-entropy: f32 logits,
+    ``log_softmax``, the label's log-probability, mean over the labelled
+    nodes (``max(mask.sum(), 1)``)."""
+    logits = forward(params, cfg, x, senders, receivers, edge_weight,
+                     edge_valid, backend=backend, plan=plan).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(1, labels.to(torch.int64)[:, None])[:, 0]
+    m = label_mask.to(torch.float32)
+    return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)

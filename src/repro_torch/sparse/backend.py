@@ -11,16 +11,16 @@ dispatched over a registry of interchangeable executors:
 * ``chunked`` — rolling-eviction waves (paper C3);
 * ``cuda``    — the hand-written Gustavson kernel on the dedup-chunk layout
                 (``kernels/gustavson_spmm``), the counterpart of the
-                reference's ``pallas``.  Inference only in this slice: it
-                raises when a gradient is requested rather than return a
-                wrong one;
+                reference's ``pallas``.  It trains: its autograd Function
+                (``kernels/gustavson_spmm/ops.spmm_dedup_grad``) runs the
+                same kernel on the transpose layout for dX;
 * ``cuda_q8`` — the int8 Gustavson kernel (``spmm_dedup_chunks_q8``) on
                 the same layout, the counterpart of ``pallas_q8``: int8
                 coefficient tiles (one scale per chunk) and int8 features
                 (one scale per feature tile).  ``x`` may be f32 (quantized
-                on each call) or ``sparse.quantize.QuantizedFeatures``
-                (quantized once, the resident path).  Inference only, like
-                ``cuda``.
+                on each call; straight-through gradients, the f32 backward
+                of ``cuda``) or ``sparse.quantize.QuantizedFeatures``
+                (quantized once, the resident path, inference only).
 
 ``vals`` may be ``None`` (use the plan's edge weights) or an (E,) tensor;
 either way padding lanes contribute nothing.
@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.core import spgemm as core_spgemm
 from repro_torch.sparse.plan import (ALL_BACKENDS, AggregationPlan,
-                                     BackendPlanError, scatter_tiles)
+                                     BackendPlanError, scatter_tiles,
+                                     transpose_tiles)
 
 __all__ = ["Backend", "BACKENDS", "ALL_BACKENDS", "BackendPlanError",
            "register_backend", "get_backend", "aggregate", "accumulate",
@@ -206,26 +207,39 @@ register_backend(Backend("chunked", _chunked_aggregate, _chunked_accumulate))
 # cuda — the hand-written Gustavson kernel (plain version on CPU tensors)
 # ---------------------------------------------------------------------------
 
-def _refuse_gradients(name, vals, x):
-    if torch.is_grad_enabled() and (
-            getattr(x, "requires_grad", False)
-            or (vals is not None and vals.requires_grad)):
-        raise NotImplementedError(
-            f"the {name} executor is inference-only in this slice: its "
-            "autograd.Function (backward kernel on the transpose layout) "
-            "is not ported yet; use backend='dense' to train, or run under "
-            "torch.no_grad()")
+def _wants_grad(vals, x) -> bool:
+    return torch.is_grad_enabled() and (
+        getattr(x, "requires_grad", False)
+        or (vals is not None and vals.requires_grad))
+
+
+def _forward_tiles(plan, vals):
+    """The forward coefficient tiles: the plan's, or ``vals`` scattered
+    through the slot map (its ``index_add_`` carries dA back to ``vals``)."""
+    if vals is None:
+        return plan.ell_a
+    return scatter_tiles(plan.ell_a, plan.ell_slots,
+                         _edge_vals(plan, vals, torch.float32))
+
+
+def _transpose_operands(plan, vals, x):
+    """The backward's layout (``None`` tiles when no gradient is asked for:
+    inference never builds or reads them)."""
+    a_t = None
+    if _wants_grad(vals, x):
+        a_t = transpose_tiles(plan, None if vals is None else _edge_vals(
+            plan, vals, torch.float32))
+    return plan.ell_t_u_cols, plan.ell_t_remaining, plan.ell_t_block_ptr, a_t
 
 
 def _cuda_aggregate(plan, vals, x):
-    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    from repro_torch.kernels.gustavson_spmm.ops import spmm_dedup_grad
     plan.require("ell", "cuda")
-    _refuse_gradients("cuda", vals, x)
-    a = plan.ell_a if vals is None else scatter_tiles(
-        plan.ell_a, plan.ell_slots, _edge_vals(plan, vals, torch.float32))
-    y = spmm_dedup_chunks(plan.ell_u_cols, plan.ell_remaining,
-                          plan.ell_block_ptr, a, x.contiguous(),
-                          block_rows=plan.block_rows)
+    y = spmm_dedup_grad(plan.ell_u_cols, plan.ell_remaining,
+                        plan.ell_block_ptr, plan.ell_out_block,
+                        _forward_tiles(plan, vals),
+                        *_transpose_operands(plan, vals, x), x.contiguous(),
+                        block_rows=plan.block_rows)
     return y[: plan.n_rows]
 
 
@@ -245,37 +259,46 @@ register_backend(Backend("cuda", _cuda_aggregate, _cuda_accumulate))
 def _cuda_q8_aggregate(plan, vals, x):
     from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
                                                     spmm_dedup_chunks_q8)
+    from repro_torch.kernels.gustavson_spmm.ops import spmm_dedup_grad_q8
     from repro_torch.sparse.quantize import (QuantizedFeatures,
-                                             quantize_chunk_tiles,
-                                             quantize_feature_tiles)
+                                             quantize_chunk_tiles)
     plan.require("ell", "cuda_q8")
-    _refuse_gradients("cuda_q8", vals, x)
+    a = _forward_tiles(plan, vals)
     if vals is None and plan.ell_a_q8 is not None:
         a_q8, a_scale = plan.ell_a_q8, plan.ell_a_scale
     else:
         # given values, or a plan built for `cuda` only: quantize the f32
-        # tiles here, on the device
-        a = plan.ell_a if vals is None else scatter_tiles(
-            plan.ell_a, plan.ell_slots, _edge_vals(plan, vals,
-                                                   torch.float32))
-        a_q8, a_scale = quantize_chunk_tiles(a, plan.ell_u_cols.shape[0])
+        # tiles here, on the device (no gradient: straight-through)
+        a_q8, a_scale = quantize_chunk_tiles(a.detach(),
+                                             plan.ell_u_cols.shape[0])
+    dt = plan.ell_d_tile
     if isinstance(x, QuantizedFeatures):
-        x_q8, x_scale = x.q8, x.scale
-        dt = plan.ell_d_tile or auto_d_tile(x_q8.shape[1])
-        d_tiles = -(-x_q8.shape[1] // dt)
-        if x_scale.shape[0] != d_tiles:
+        # the resident path: features quantized once, no f32 x to
+        # differentiate, so it is inference-only (as the reference's)
+        if _wants_grad(vals, None):
+            raise NotImplementedError(
+                "the resident QuantizedFeatures path of cuda_q8 is "
+                "inference-only: it has no f32 features to differentiate; "
+                "pass f32 x to train through cuda_q8 (straight-through), or "
+                "run under torch.no_grad()")
+        dt = dt or auto_d_tile(x.q8.shape[1])
+        d_tiles = -(-x.q8.shape[1] // dt)
+        if x.scale.shape[0] != d_tiles:
             raise ValueError(
-                f"QuantizedFeatures carries {x_scale.shape[0]} feature-tile "
+                f"QuantizedFeatures carries {x.scale.shape[0]} feature-tile "
                 f"scales but the plan's kernel uses d_tile={dt} "
                 f"({d_tiles} tiles) — re-quantize with the plan's d_tile")
-    else:
-        # X quantizes per feature tile on each call, with the kernel's tile
-        dt = plan.ell_d_tile or auto_d_tile(x.shape[1])
-        x_q8, x_scale = quantize_feature_tiles(x, dt)
-    y = spmm_dedup_chunks_q8(plan.ell_u_cols, plan.ell_remaining,
-                             plan.ell_block_ptr, a_q8, a_scale,
-                             x_q8.contiguous(), x_scale,
-                             block_rows=plan.block_rows, q_tile=dt)
+        y = spmm_dedup_chunks_q8(plan.ell_u_cols, plan.ell_remaining,
+                                 plan.ell_block_ptr, a_q8, a_scale,
+                                 x.q8.contiguous(), x.scale,
+                                 block_rows=plan.block_rows, q_tile=dt)
+        return y[: plan.n_rows]
+    # X quantizes per feature tile inside the op, with the kernel's tile
+    y = spmm_dedup_grad_q8(plan.ell_u_cols, plan.ell_remaining,
+                           plan.ell_block_ptr, plan.ell_out_block, a,
+                           *_transpose_operands(plan, vals, x),
+                           x.contiguous(), a_q8=a_q8, a_scale=a_scale,
+                           block_rows=plan.block_rows, q_tile=dt)
     return y[: plan.n_rows]
 
 

@@ -9,10 +9,10 @@ dispatches to, as tensors on one device:
 * the operand-deduplicated chunk layout (``ell_*``, via
   ``pack_dedup_chunks``) — the ``cuda`` Gustavson kernel — and its
   transpose (``ell_t_*``), packed exactly as the reference packs them, for
-  the training slice's backward.  ``ell_block_ptr`` holds each output
-  block's chunk range, which the CUDA kernel walks.  Per-edge
-  ``ell_slots``/``ell_t_slots`` let edge values be scatter-added into the
-  coefficient tiles on device;
+  the backward of training (dX = Aᵀ·dY).  ``ell_block_ptr`` and
+  ``ell_t_block_ptr`` hold each output block's chunk range, which the
+  CUDA kernel walks.  Per-edge ``ell_slots``/``ell_t_slots`` let edge
+  values be scatter-added into the coefficient tiles on device;
 * the forward tiles quantized to int8 with one scale per chunk
   (``ell_a_q8``/``ell_a_scale``, ``sparse.quantize``) — the ``cuda_q8``
   kernel's operands, baked when ``backends`` names ``cuda_q8``.
@@ -67,13 +67,14 @@ class AggregationPlan:
     ell_a: Optional[torch.Tensor] = None          # (n_chunks·BR, width) f32
     ell_slots: Optional[torch.Tensor] = None      # (E,) int64; OOB ⇒ dropped
     ell_block_ptr: Optional[torch.Tensor] = None  # (n_blocks+1,) int32
-    # transpose mirror — the training slice's backward layout
+    # transpose mirror — the backward's layout (dX = Aᵀ·dY through B1)
     ell_t_u_cols: Optional[torch.Tensor] = None
     ell_t_remaining: Optional[torch.Tensor] = None
     ell_t_out_block: Optional[torch.Tensor] = None
     ell_t_first: Optional[torch.Tensor] = None
     ell_t_a: Optional[torch.Tensor] = None
     ell_t_slots: Optional[torch.Tensor] = None
+    ell_t_block_ptr: Optional[torch.Tensor] = None  # (n_t_blocks+1,) int32
     # int8 forward tiles (`cuda_q8`): per-chunk symmetric scales, baked at
     # plan time from the f32 tiles and re-quantized by plan_with_values
     ell_a_q8: Optional[torch.Tensor] = None       # (n_chunks·BR, width) int8
@@ -185,7 +186,9 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
         kw.update(block_rows=block_rows, n_blocks=fwd.n_blocks,
                   n_t_blocks=tr.n_blocks, ell_d_tile=d_tile,
                   ell_block_ptr=t(block_ptr_from_first(fwd.first,
-                                                       fwd.n_blocks)))
+                                                       fwd.n_blocks)),
+                  ell_t_block_ptr=t(block_ptr_from_first(tr.first,
+                                                         tr.n_blocks)))
         for pre, ch in (("ell_", fwd), ("ell_t_", tr)):
             slots = np.full(e, ch.a.size, np.int64)
             slots[vidx] = ch.slots
@@ -207,17 +210,41 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     return AggregationPlan(**kw)
 
 
+def _scatter(shape, dtype, slots: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    n = shape[0] * shape[1]
+    flat = vals.new_zeros(n + 1, dtype=dtype)
+    flat.index_add_(0, slots.clamp(0, n), vals.to(dtype))
+    return flat[:n].reshape(shape)
+
+
 def scatter_tiles(a_base: torch.Tensor, slots: torch.Tensor,
                   vals: torch.Tensor) -> torch.Tensor:
-    """Coefficient tiles holding ``vals`` scatter-added at ``slots``.
+    """Coefficient tiles of ``a_base``'s shape holding ``vals``
+    scatter-added at ``slots``.
 
     Duplicate edges share a cell, so the values add.  Out-of-bounds slots
     (padding edges) land in one trash cell past the end, which is cut off:
     JAX's ``mode="drop"`` without a scatter that faults."""
-    n = a_base.numel()
-    flat = a_base.new_zeros(n + 1)
-    flat.index_add_(0, slots.clamp(0, n), vals.to(flat.dtype))
-    return flat[:n].reshape(a_base.shape)
+    return _scatter(a_base.shape, a_base.dtype, slots, vals)
+
+
+def transpose_tiles(plan: "AggregationPlan",
+                    vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The transpose coefficient tiles for per-edge ``vals`` (default: the
+    plan's ``base_vals``), the operand of the backward's dX = Aᵀ·dY.
+
+    The plan's own ``ell_t_a`` serves the default values; otherwise (given
+    values, or a plan whose ``ell_t_a`` ``plan_with_values`` dropped) the
+    tiles are scattered from ``ell_t_slots``, so a backward never reads
+    missing or stale tiles.  They carry no gradient: edge values reach the
+    gradient through the forward tiles alone."""
+    if vals is None and plan.ell_t_a is not None:
+        return plan.ell_t_a
+    v = plan.base_vals if vals is None else vals
+    shape = (plan.ell_t_u_cols.shape[0] * plan.block_rows,
+             plan.ell_t_u_cols.shape[1])
+    return _scatter(shape, torch.float32, plan.ell_t_slots, v.detach())
 
 
 def plan_with_values(plan: AggregationPlan, edge_weight=None,
@@ -233,10 +260,10 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
 
     Inference reads only the forward tiles, so the transpose tiles are not
     re-valued: ``ell_t_a`` is dropped (``None``) rather than left holding
-    the old values.  A backward pass re-values them with
-    ``scatter_tiles(plan.ell_t_a, plan.ell_t_slots, new.base_vals)``.  A
-    plan that carries int8 tiles gets them re-quantized from the new forward
-    tiles, on the device, with no read back to the host.
+    the old values.  A backward pass re-values them from ``ell_t_slots``
+    (``transpose_tiles``).  A plan that carries int8 tiles gets them
+    re-quantized from the new forward tiles, on the device, with no read
+    back to the host.
     """
     valid = plan.valid if edge_valid is None else edge_valid
     base = _values(valid, edge_weight)

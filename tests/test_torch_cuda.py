@@ -1060,3 +1060,155 @@ def test_new_wrappers_raise_on_unsupported_dtypes(cuda):
     with pytest.raises(ValueError):                 # no d = 48 kernel
         flash_attention(*(torch.zeros((2, 64, 48), device=cuda),) * 3)
     assert counts() == before          # nothing launched, nothing fell back
+
+
+# ---------------------------------------------------------------------------
+# the training Functions: B1 again on the transpose layout for dX
+# ---------------------------------------------------------------------------
+
+def _grad_plans(name, dev):
+    """(card plan, CPU plan, x rows) at Cora scale (sym-normed, self loops)
+    or at a plan whose hub row is split across many chunks."""
+    from repro_torch.sparse.graph import sym_norm_weights
+    if name == "cora":
+        s, r, _, _, _ = cora_like(seed=0)
+        s, r, w = sym_norm_weights(s, r, 2708)
+        n, cap = 2709, 128
+    else:
+        rng = np.random.default_rng(11)
+        n, e, cap = 300, 3000, 16
+        s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+        r[:1000] = 3
+        s[1000:1400] = 5                    # and a hub column
+        w = rng.uniform(0.1, 1.0, e).astype(np.float32)
+    kw = dict(edge_weight=w, backends=("cuda", "cuda_q8"), width_cap=cap)
+    return (make_plan(s, r, n, device=dev, **kw),
+            make_plan(s, r, n, device="cpu", **kw), n)
+
+
+def _function_grads(plan, x, dy, q8):
+    """(y, dA, dX) of the Function on the plan's own tiles."""
+    from repro_torch.kernels.gustavson_spmm.ops import (spmm_dedup_grad,
+                                                        spmm_dedup_grad_q8)
+    a = plan.ell_a.clone().requires_grad_()
+    xx = x.clone().requires_grad_()
+    args = (plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr,
+            plan.ell_out_block, a, plan.ell_t_u_cols, plan.ell_t_remaining,
+            plan.ell_t_block_ptr, plan.ell_t_a, xx)
+    if q8:
+        y = spmm_dedup_grad_q8(*args, a_q8=plan.ell_a_q8,
+                               a_scale=plan.ell_a_scale, block_rows=8)
+    else:
+        y = spmm_dedup_grad(*args, block_rows=8)
+    da, dx = torch.autograd.grad(y, (a, xx), dy)
+    return y.detach(), da, dx
+
+
+@pytest.mark.parametrize("graph", ["cora", "hub"])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("d", [7, 16])
+def test_function_backward_matches_plain(cuda, graph, q8, d):
+    """y, dX (B1 on the transpose layout) and dA of each Function on the
+    card equal the same Function on the CPU, the plain versions (≤1e-5);
+    dX and dA are bitwise equal run to run; the backward launches B1 once
+    and nothing falls back."""
+    plan, cpu_plan, n = _grad_plans(graph, cuda)
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(plan.n_blocks * 8, d)).astype(
+        np.float32))
+    b1, b4 = spmm_dedup_chunks.launches, spmm_dedup_chunks_q8.launches
+    y, da, dx = _function_grads(plan, x.to(cuda), dy.to(cuda), q8)
+    torch.cuda.synchronize()
+    assert spmm_dedup_chunks.launches - b1 == (1 if q8 else 2)
+    assert spmm_dedup_chunks_q8.launches - b4 == (1 if q8 else 0)
+    y_c, da_c, dx_c = _function_grads(cpu_plan, x, dy, q8)
+    assert float((y.cpu() - y_c).abs().max()) <= 1e-5
+    assert float((dx.cpu() - dx_c).abs().max()) <= 1e-5
+    assert float((da.cpu() - da_c).abs().max()) <= 1e-5
+    _, da2, dx2 = _function_grads(plan, x.to(cuda), dy.to(cuda), q8)
+    assert torch.equal(dx, dx2) and torch.equal(da, da2)
+
+
+@pytest.mark.parametrize("graph", ["cora", "hub"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_q8"])
+def test_executor_value_gradients_match_cpu(cuda, graph, backend):
+    """Traced edge values through the executors: dX and d(vals) on the
+    card equal the CPU's (≤1e-5).  (The tiles come from ``scatter_tiles``,
+    whose ``index_add_`` adds a repeated edge's values by atomics on the
+    card, in no fixed order: the bits may move run to run there.)"""
+    plan, cpu_plan, n = _grad_plans(graph, cuda)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    vals = cpu_plan.base_vals.clone()
+    out = []
+    for p, dev in ((plan, cuda), (cpu_plan, torch.device("cpu"))):
+        xx = x.to(dev).requires_grad_()
+        vv = vals.to(dev).requires_grad_()
+        y = sb.aggregate(p, vv, xx, backend=backend)
+        out.append([t.cpu() for t in torch.autograd.grad(y, (xx, vv),
+                                                          dy.to(dev))])
+    for got, want in zip(*out):
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_function_backward_takes_any_grad_output(cuda):
+    """A non-contiguous, an unaligned and a sliced ``grad_output`` give the
+    same dX as a fresh contiguous one: the backward makes it contiguous
+    and B1's load width follows the pointer's alignment."""
+    plan, _, n = _grad_plans("cora", cuda)
+    rng = np.random.default_rng(5)
+    d = 16
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                         ).to(cuda).requires_grad_()
+    dy = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                          ).to(cuda)
+    y = sb.aggregate(plan, None, x, backend="cuda")
+    want = torch.autograd.grad(y, x, dy, retain_graph=True)[0]
+    transposed = dy.t().contiguous().t()                 # stride (1, n)
+    unaligned = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    unaligned.copy_(dy)
+    for g in (transposed, unaligned):
+        assert torch.equal(torch.autograd.grad(y, x, g,
+                                               retain_graph=True)[0], want)
+    # the loss read through a view of y[:n_rows]: slice_backward's zeros
+    w = torch.from_numpy(rng.normal(size=(n - 9, d)).astype(np.float32)
+                         ).to(cuda)
+    got = torch.autograd.grad((y[: n - 9] * w).sum(), x)[0]
+    dy_cut = torch.zeros_like(dy)
+    dy_cut[: n - 9] = w
+    y = sb.aggregate(plan, None, x, backend="cuda")
+    assert torch.equal(got, torch.autograd.grad(y, x, dy_cut)[0])
+
+
+def test_cuda_training_step_matches_dense(cuda, monkeypatch):
+    """gcn-cora at full width: one training step through ``cuda`` and
+    ``dense`` on the card, the loss (≤1e-4) and every gradient (rtol 1e-3,
+    atol 1e-4), with 4 B1 launches (2 forward, 2 backward)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import _gnn_setup
+    from repro_torch.optim import adamw
+    cfg = registry.get_config("gcn-cora")
+    grads = {}
+    apply = adamw.apply_updates
+
+    def spy(params, g, state, opt_cfg):
+        grads[len(grads)] = g
+        return apply(params, g, state, opt_cfg)
+    monkeypatch.setattr(adamw, "apply_updates", spy)
+    out = {}
+    for backend in ("dense", "cuda"):
+        params, step, batches = _gnn_setup("gcn-cora", cfg, 0,
+                                           backend=backend, device=cuda)
+        before = spmm_dedup_chunks.launches
+        _, _, m = step(params, adamw.init_state(params), next(batches))
+        torch.cuda.synchronize()
+        out[backend] = (float(m["loss"]), grads[len(grads) - 1],
+                        spmm_dedup_chunks.launches - before)
+    assert out["cuda"][2] == 4 and out["dense"][2] == 0
+    assert abs(out["cuda"][0] - out["dense"][0]) <= 1e-4
+    for layer, p in out["cuda"][1].items():
+        for k, g in p.items():
+            want = out["dense"][1][layer][k]
+            torch.testing.assert_close(g, want, rtol=1e-3, atol=1e-4)

@@ -153,25 +153,6 @@ def test_guards():
         tsb.aggregate(coo_only, None, torch.zeros(46, 4), backend="cuda")
 
 
-def test_cuda_executor_refuses_gradients():
-    s, r, w, valid, rng = _graph()
-    tp, _ = _plans(s, r, 46, edge_weight=w, edge_valid=valid)
-    x = torch.from_numpy(rng.normal(size=(46, 4)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        tsb.aggregate(tp, None, x.clone().requires_grad_(), backend="cuda")
-    vals = torch.ones(s.shape[0], requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tsb.aggregate(tp, vals, x, backend="cuda")
-    with torch.no_grad():
-        y = tsb.aggregate(tp, None, x.clone().requires_grad_(),
-                          backend="cuda")
-    assert not y.requires_grad
-    # dense still trains
-    xg = x.clone().requires_grad_()
-    tsb.aggregate(tp, None, xg, backend="dense").sum().backward()
-    assert xg.grad is not None
-
-
 def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     s, r, _, _, _ = _graph()

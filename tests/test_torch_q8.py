@@ -233,11 +233,14 @@ def test_cuda_q8_guards():
                                  scale=torch.ones(1))
     with pytest.raises(ValueError, match="n_rows=151"):
         tsb.aggregate(tp, None, short, backend="cuda_q8")
+    # f32 features train (straight-through); the resident int8 path,
+    # which has no f32 x, refuses a gradient
+    xg = x.clone().requires_grad_()
+    tsb.aggregate(tp, None, xg, backend="cuda_q8").sum().backward()
+    assert xg.grad is not None and xg.grad.shape == x.shape
+    qf = tq.quantize_features(x, 32)
     with pytest.raises(NotImplementedError, match="inference-only"):
-        tsb.aggregate(tp, None, x.clone().requires_grad_(),
-                      backend="cuda_q8")
-    with pytest.raises(NotImplementedError):
-        tsb.aggregate(tp, torch.ones(s.size, requires_grad=True), x,
+        tsb.aggregate(tp, torch.ones(s.size, requires_grad=True), qf,
                       backend="cuda_q8")
     with torch.no_grad():
         y = tsb.aggregate(tp, None, x.clone().requires_grad_(),
