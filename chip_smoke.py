@@ -143,12 +143,49 @@ Phases, each of which raises (exit code 1) on any failure:
     as the backward, dX = Aᵀ·dY on the training plan's transpose at D = 16
     and 7, timed as in phase 2 beside ``torch.sparse.mm(Aᵀ, dY)``, and B1
     and B4 as the forward on the training plans at D = 16 and 7 against
-    their plain versions, as in phases 2 and 8.
+    their plain versions, as in phases 2 and 8;
+14. GAT, GIN and SAGE — first the traced-value tile scatter at gat-cora's
+    plan (the Cora-scale edges as they are, pairs repeated up to 3 times):
+    the plan's layered scatter equal to the CPU's bit for bit, timed
+    (eagerly) beside one ``index_put_(accumulate=True)`` and one
+    ``index_add_``;
+    then serving as phases 4, 5 and 8 do (host sampler, device sampler,
+    int8; 256 requests each, replay ≤1e-5 or ``Q8_E2E_TOL`` (for GIN
+    relative to its largest output past 1), B1/B4 counted
+    at one launch an aggregation — 9 a gat step, 3 gin, 2 sage — and B3 at
+    one a device-sampled step, each warm bucket-16 step traced): gat-cora
+    at full width and GIN at ``GINConfig()`` (on seeded N(0, 1) features)
+    on the Cora-scale graph, SAGE at ``SAGEConfig()`` (602 → 64 →
+    41) on a graph of minibatch_lg's size drawn as phase 2 draws it, at
+    fanouts (15, 10); then training, 50 steps each on ``dense``, ``cuda``
+    and ``cuda_q8``: gat-cora through ``launch/train``'s setup, GIN on one
+    batch of the ``molecule`` shape (128 × 30 nodes, 64 edges, one-hot
+    species, the quartile of the mean species as the label) through
+    ``build_gnn_step``, also over Â² (built in f32 on B2 under ``cuda``
+    and ``cuda_q8``), each counted (B1 18 a gat ``cuda`` step, 9 + 9 B4 a
+    ``cuda_q8`` step; gin 5, and 2 + 3 B4), each bitwise equal to a
+    second run and to a run resumed from its 25-step commit, each step's
+    loss and gradient norm (relative, past the first step's norm) within
+    1e-4 of the same
+    parameters' on ``dense`` and on the CPU (int8: ``Q8_E2E_TOL``, against
+    ``dense`` the loss alone, relative past 1 over Â²), the int8 runs' aggregations replayed on
+    the CPU (≤1e-5); gat's whole runs against ``dense`` and the CPU ≤1e-4
+    a step (GIN's recorded: its trajectory amplifies one rounding
+    difference past 1e-4 within 50 steps, on the CPU alone); one warm
+    step of each traced;
+15. DLRM training — dlrm-rm2's widths with each vocabulary capped at
+    1,000,000 rows (6 of 26 fields; 6.85 M rows, 1.75 GB of table) at
+    ``RECSYS_SHAPES["train_batch"]`` (65,536), 20 steps through
+    ``build_recsys_step("train")`` and ``train.loop.run``, counted (one B6
+    a step), bitwise equal to a second run and to a run resumed from its
+    10-step commit, with peak device memory and one warm step traced; the
+    first 5 steps at batch 4,096 against the same steps on the CPU
+    (≤1e-4).
 
-Launch counters are set to 0 just before each main-path run (the three
+Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
-12's wrapper calls and each training run of phase 13) and read just after
-it; launches made to compare or
+12's wrapper calls and each training run of phases 13–15) and read just
+after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Times come from
@@ -607,6 +644,13 @@ def phase_forward(dev, cora_plan, params, x_table):
         f"{err:.3e}, GPU dense vs CPU dense {err_cpu:.3e}")
 
 
+def tree_to(params, device):
+    """A copy of a parameter tree on ``device``."""
+    from repro_torch import tree
+    leaves, structure = tree.flatten(params)
+    return tree.unflatten(structure, [t.to(device) for t in leaves])
+
+
 def host_input_step(server, seeds):
     """The server's bucket-16 step body on host-sampled node tables (the
     step a host-sampler server runs; a device-sampler server fuses sampling
@@ -709,21 +753,45 @@ def device_step_breakdown(server, reqs, n_steps: int = 20) -> dict:
     return rec
 
 
+def q8_tol(ref, relative: bool) -> float:
+    """The int8 end-to-end bar: ``Q8_E2E_TOL``, or with ``relative`` that
+    bar relative to the largest output of ``ref`` past 1 (an int8 step
+    rounds each layer's values to its scale, so its error grows with them:
+    GIN's sum aggregations reach outputs near 15)."""
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    if not relative:
+        return Q8_E2E_TOL
+    return Q8_E2E_TOL * max(1.0, float(np.abs(np.asarray(ref)).max()))
+
+
+def aggregations_per_step(arch: str, cfg) -> int:
+    """``sparse.backend.aggregate`` calls in one forward: one per layer,
+    and one per head on GAT's hidden layers."""
+    if arch.startswith("gat"):
+        return cfg.n_heads * (cfg.n_layers - 1) + 1
+    return cfg.n_layers
+
+
 def phase_serve(dev, mode, params, indptr, indices, store, seeds,
-                backend="cuda"):
+                backend="cuda", arch="gcn", cfg=None, fanouts=(5, 3),
+                q8_relative=False):
+    """One server (``arch`` at ``cfg``, gcn-cora's FULL by default) serving
+    ``seeds`` as single-seed requests, counted and held to offline replay
+    (``q8_tol`` under ``cuda_q8``), with its warm bucket-16 step
+    traced."""
     from repro_torch.configs.gcn_cora import FULL
     from repro_torch.kernels.forest_sampler import forest_sample, hash_draws
     from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
                                                     spmm_dedup_chunks_q8)
     from repro_torch.serve import GNNServer, offline_replay
-    from repro_torch.sparse.quantize import Q8_E2E_TOL
     spmm = {"cuda": spmm_dedup_chunks,
             "cuda_q8": spmm_dedup_chunks_q8}[backend]
-    tol = Q8_E2E_TOL if backend == "cuda_q8" else SERVE_TOL
     kernels = (spmm_dedup_chunks, spmm_dedup_chunks_q8, forest_sample,
                hash_draws)
-    with GNNServer("gcn", FULL, params, indptr, indices, store,
-                   fanouts=(5, 3), backend=backend, sampler=mode,
+    cfg = FULL if cfg is None else cfg
+    per_step = aggregations_per_step(arch, cfg)
+    with GNNServer(arch, cfg, params, indptr, indices, store,
+                   fanouts=fanouts, backend=backend, sampler=mode,
                    max_batch_seeds=16, device=dev) as server:
         server.warmup()
         builds = server.steps.builds
@@ -742,8 +810,10 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds,
         check(server.steps.builds == builds,
               f"{backend}/{mode}: {server.steps.builds - builds} step "
               "rebuild(s) after warm-up")
-        check(launches[spmm.__name__] > 0,
-              f"{backend}/{mode}: {spmm.__name__} never launched")
+        check(launches[spmm.__name__] == per_step * st["n_batches"],
+              f"{arch} {backend}/{mode}: {launches[spmm.__name__]} "
+              f"{spmm.__name__} launches for {st['n_batches']} steps of "
+              f"{per_step} aggregations")
         if mode == "device":
             # the sampler is one fused launch a step; the standalone draw
             # kernel is not on this path
@@ -758,20 +828,23 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds,
         if mode == "host" or backend == "cuda_q8":
             breakdown = step_breakdown(server, seeds)
         if backend == "cuda_q8":
-            breakdown.update(q8_step_vs_cpu(server, seeds))
+            breakdown.update(q8_step_vs_cpu(server, seeds, q8_relative))
         if mode == "device":
             breakdown["device_step"] = device_step_breakdown(server, reqs)
     got = np.concatenate([r.result for r in reqs])
-    check(got.shape == (len(seeds), FULL.n_classes) and np.isfinite(
-        got).all(), f"{backend}/{mode}: served results malformed")
+    check(got.shape == (len(seeds), cfg.n_classes) and np.isfinite(
+        got).all(), f"{arch} {backend}/{mode}: served results malformed")
     err = float(np.abs(got - ref).max())
-    check(err <= tol, f"{backend}/{mode}: served vs offline replay "
+    tol = q8_tol(ref, q8_relative) if backend == "cuda_q8" else SERVE_TOL
+    check(err <= tol, f"{arch} {backend}/{mode}: served vs offline replay "
                       f"{err:.3e} > {tol}")
-    rec = dict(backend=backend, sampler=mode, requests=len(seeds),
+    rec = dict(arch=arch, backend=backend, sampler=mode,
+               requests=len(seeds), launches_per_step=per_step,
                req_per_s=len(seeds) / dt, p50_ms=st["p50_ms"],
                p99_ms=st["p99_ms"], batches=st["n_batches"],
                buckets=st["bucket_counts"], launches=launches,
-               parity_max_abs=err, **breakdown)
+               parity_max_abs=err, parity_tol=tol,
+               max_abs_output=float(np.abs(ref).max()), **breakdown)
     say(f"serve {json.dumps(rec)}")
     return rec
 
@@ -1241,29 +1314,27 @@ def phase_q8_forward(dev, cora_plan, params, x_table):
     return rec
 
 
-def q8_step_vs_cpu(server, seeds) -> dict:
+def q8_step_vs_cpu(server, seeds, relative=False) -> dict:
     """One warm bucket-16 ``cuda_q8`` step on the card against the same
     step on the CPU: each int8 aggregation replayed on the CPU from the
     card's inputs (≤1e-5), and the whole step's output (within
-    ``Q8_E2E_TOL``: the CPU's own ``h @ W`` may round an int8 the other
+    ``q8_tol``: the CPU's own ``h @ W`` may round an int8 the other
     way)."""
     from repro_torch.serve.compute import FeatureStore, build_infer_step
-    from repro_torch.sparse.quantize import Q8_E2E_TOL
     step, node_ids, hop_valid = host_input_step(server, seeds)
     y, n_calls, replay_err = replay_aggregates_on_cpu(
         lambda: step(server.params, node_ids, hop_valid))
-    check(n_calls == server.cfg.n_layers and replay_err <= KERNEL_TOL,
+    check(n_calls == aggregations_per_step(server.arch_id, server.cfg)
+          and replay_err <= KERNEL_TOL,
           f"q8 step: {n_calls} aggregations, card vs CPU replay "
           f"{replay_err:.3e}")
     store = FeatureStore(n_nodes=server.store.n_nodes,
                          x=server.store.x.cpu())
     cpu_step = build_infer_step(server.arch_id, server.cfg, store,
                                 server._struct(16), backend="cuda_q8")
-    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
-                  for k, p in server.params.items()}
-    y_cpu = cpu_step(cpu_params, node_ids, hop_valid)
+    y_cpu = cpu_step(tree_to(server.params, "cpu"), node_ids, hop_valid)
     err = float((y.cpu() - y_cpu).abs().max())
-    check(err <= Q8_E2E_TOL, f"q8 step GPU vs CPU {err:.3e}")
+    check(err <= q8_tol(y_cpu, relative), f"q8 step GPU vs CPU {err:.3e}")
     return dict(step_aggregations_vs_cpu_replay=replay_err,
                 step_gpu_vs_cpu=err)
 
@@ -2251,6 +2322,561 @@ def phase_train(dev):
                 forward=forward, forward_q8=forward_q8, readings=readings)
 
 
+# ---------------------------------------------------------------------------
+# phase 14 — GAT, GIN and SAGE: serving and training
+# ---------------------------------------------------------------------------
+
+CONV_STEPS = 50
+# (arch, backend, two_hop): GAT through launch/train's setup, GIN through
+# build_gnn_step, also over Â²
+CONV_RUNS = tuple((arch, backend, two_hop)
+                  for arch, two_hop in (("gat", False), ("gin", False),
+                                        ("gin", True))
+                  for backend in ("dense", "cuda", "cuda_q8"))
+# repro configs/shapes.py "molecule": 128 molecules of 30 nodes and 64
+# edges, d_feat 64, 4 classes — GINConfig()'s own widths
+GIN_MOLECULES = (128, 30, 64)
+SAGE_FANOUTS = (15, 10)           # minibatch_lg's, repro configs/shapes.py
+CONV_KERNELS = ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
+                "spgemm_hashpad", "spgemm_hashpad_q8")
+
+
+def conv_kernels():
+    from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_q8)
+    from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                                spgemm_hashpad_q8)
+    return (spmm_dedup_chunks, spmm_dedup_chunks_q8, spgemm_hashpad,
+            spgemm_hashpad_q8)
+
+
+def zero_counts(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in kernels}
+
+
+def gin_setup(device, backend, two_hop=False):
+    """GIN at ``GINConfig()`` (3 layers, 64 wide, 4 classes) on one batch
+    of the ``molecule`` shape (``molecule_batch``'s edges, seeded N(0, 1)
+    features, seeded graph labels) through ``build_gnn_step`` with AdamW
+    at lr 1e-3: (params, step, batches)."""
+    import itertools
+    from repro_torch.data.synthetic import molecule_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import build_gnn_step
+    from repro_torch.models.gnn import gin
+    from repro_torch.optim import adamw
+    from repro_torch.sparse.graph import make_graph
+    dev = resolve_device(device)
+    b, n_nodes, n_edges = GIN_MOLECULES
+    species, _, snd, rcv, _, _ = molecule_batch(b, n_nodes, n_edges,
+                                                seed=0)
+    offs = (np.arange(b) * n_nodes)[:, None]
+    n = b * n_nodes
+    x = np.zeros((n + 1, 64), np.float32)
+    x[np.arange(n), species.ravel()] = 1.0
+    gid = np.append(np.repeat(np.arange(b), n_nodes), b).astype(np.int32)
+    # a graph property GIN's sum readout can count: the quartile of the
+    # molecule's mean species
+    mean = species.mean(axis=1)
+    labels = np.searchsorted(np.quantile(mean, [0.25, 0.5, 0.75]),
+                             mean).astype(np.int32)
+    g = make_graph((snd + offs).ravel(), (rcv + offs).ravel(), n, device=dev)
+    cfg = gin.GINConfig()
+    params = gin.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    step = build_gnn_step("gin", cfg, adamw.AdamWConfig(lr=1e-3),
+                          backend=backend, graph=g, two_hop=two_hop,
+                          n_graphs=b)
+    batch = {"x": torch.from_numpy(x).to(dev), "senders": g.senders,
+             "receivers": g.receivers, "edge_valid": g.edge_valid,
+             "graph_ids": torch.from_numpy(gid).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    return params, step, itertools.repeat(batch)
+
+
+def conv_setup(arch, device, backend, two_hop=False):
+    if arch == "gin":
+        return gin_setup(device, backend, two_hop)
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import _gnn_setup
+    return _gnn_setup("gat-cora", registry.get_config("gat-cora"), 0,
+                      backend=backend, device=device)
+
+
+def conv_job(arch, device, backend, two_hop, n_steps, ckpt_dir, seen=None):
+    """``conv_setup`` run through ``train.loop.run`` with a commit every
+    ``CKPT_EVERY`` steps into ``ckpt_dir``: (state, history).  ``seen``,
+    a list, receives (parameters, gradient norm) of each step: the
+    parameters it starts from and the norm of its gradient there."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    params, step, batches = conv_setup(arch, device, backend, two_hop)
+    if seen is not None:
+        inner = step
+
+        def step(p, opt, batch):
+            out = inner(p, opt, batch)
+            seen.append((p, float(out[2]["grad_norm"])))
+            return out
+    state = loop.TrainState(params=params, opt_state=adamw.init_state(params))
+    cfg = loop.TrainLoopConfig(n_steps=n_steps, ckpt_every=CKPT_EVERY,
+                               ckpt_dir=str(ckpt_dir), log_every=10 ** 9)
+    return loop.run(state, step, batches, cfg, log=lambda *_: None)
+
+
+def conv_losses_at(arch, device, backend, two_hop, seen) -> list:
+    """(loss, gradient norm) of each step of ``seen`` (a run's parameters
+    step by step, ``conv_job``) recomputed on ``backend`` on ``device``:
+    the run held to another executor or device at the very same points of
+    its trajectory, in its forward and in its gradient."""
+    from repro_torch.optim import adamw
+    _, step, batches = conv_setup(arch, device, backend, two_hop)
+    batch = next(batches)
+    out = []
+    for p, _ in seen:
+        p = tree_to(p, device)
+        m = step(p, adamw.init_state(p), batch)[2]
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def same_run(a, b) -> bool:
+    """Two (state, history) pairs bitwise equal: every loss, every
+    parameter leaf and the optimizer's moments."""
+    from repro_torch import tree
+    (sa, ha), (sb_, hb) = a, b
+    return ha["loss"] == hb["loss"][-len(ha["loss"]):] and all(
+        torch.equal(x, y) for x, y in zip(
+            tree.leaves((sa.params, sa.opt_state)),
+            tree.leaves((sb_.params, sb_.opt_state))))
+
+
+def conv_launches_per_step(arch, backend):
+    """(B1, B4) launches a training step: every aggregation forward, and
+    B1 on the transpose layout for each aggregation whose input needs a
+    gradient (GIN's first layer aggregates the raw features: none)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.gnn import gin
+    cfg = (registry.get_config("gat-cora") if arch == "gat"
+           else gin.GINConfig())
+    fwd = aggregations_per_step(arch, cfg)
+    bwd = fwd if arch == "gat" else fwd - 1
+    if backend == "cuda":
+        return fwd + bwd, 0
+    if backend == "cuda_q8":
+        return bwd, fwd
+    return 0, 0
+
+
+def phase_conv_train(dev):
+    """GAT (gat-cora, launch/train's setup) and GIN (the molecule batch,
+    build_gnn_step, also over Â²) on dense, cuda and cuda_q8: each run
+    counted; bitwise against a second run and a run resumed from its
+    25-step commit; each step's loss against the same parameters' loss on
+    ``dense`` and on the CPU, in the loss and the gradient's norm; the
+    whole run against the same run on
+    ``dense`` and on the CPU (held for GAT, a reading for GIN, whose
+    trajectory amplifies a rounding difference past 1e-4 within 50 steps
+    on the CPU alone)."""
+    import shutil
+    import tempfile
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    kernels = conv_kernels()
+    runs, launches, errs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for arch, backend, two_hop in CONV_RUNS:
+            name = f"{arch}{'_two_hop' if two_hop else ''}_{backend}"
+            job = functools.partial(conv_job, arch, dev, backend, two_hop,
+                                    CONV_STEPS)
+            seen = []
+            zero_counts(kernels)
+            if backend == "cuda_q8":
+                # every int8 aggregation replayed on the CPU from the
+                # card's own inputs
+                run, n_calls, replay = replay_aggregates_on_cpu(
+                    functools.partial(job, tmp / name, seen))
+                errs[f"{name}_aggregations_vs_cpu_replay"] = replay
+                want_calls = CONV_STEPS * (9 if arch == "gat" else 3)
+                check(n_calls == want_calls and replay <= KERNEL_TOL,
+                      f"train {name}: {n_calls} aggregations (want "
+                      f"{want_calls}), card vs CPU replay {replay:.3e}")
+            else:
+                run = job(tmp / name, seen)
+            launches[name] = read_counts(kernels)
+            runs[name] = run
+            state, hist = run
+            check(state.step == CONV_STEPS
+                  and all(math.isfinite(v) for v in hist["loss"])
+                  and hist["loss"][-1] < hist["loss"][0]
+                  and hist["retries"] == 0,
+                  f"train {name}: {state.step} steps, losses "
+                  f"{hist['loss'][0]} → {hist['loss'][-1]}")
+            b1, b4 = conv_launches_per_step(arch, backend)
+            want = {"spmm_dedup_chunks": b1 * CONV_STEPS,
+                    "spmm_dedup_chunks_q8": b4 * CONV_STEPS,
+                    # Â² is built once, in f32 by B2, under both kernel
+                    # executors
+                    "spgemm_hashpad": int(two_hop and backend != "dense"),
+                    "spgemm_hashpad_q8": 0}
+            check(launches[name] == want,
+                  f"train {name}: launches {launches[name]}, expected {want}")
+            check(same_run(run, job(tmp / f"{name}_again")),
+                  f"train {name}: two runs on the card differ")
+            resume = tmp / f"{name}_resume"
+            resume.mkdir()
+            shutil.copytree(tmp / name / f"step_{CKPT_EVERY:06d}",
+                            resume / f"step_{CKPT_EVERY:06d}")
+            resumed = job(resume)
+            check(len(resumed[1]["loss"]) == CONV_STEPS - CKPT_EVERY
+                  and same_run(resumed, run),
+                  f"train {name}: the run resumed at step {CKPT_EVERY} "
+                  "does not reproduce the unbroken run bitwise")
+            # the same points of the trajectory on dense and on the CPU
+            tol = Q8_E2E_TOL if backend == "cuda_q8" else EXECUTOR_TOL
+            for other, device in (("dense", dev), (backend, "cpu")):
+                key = f"{name}_vs_{'cpu' if device == 'cpu' else other}"
+                if key.endswith("_vs_dense") and backend == "dense":
+                    continue
+                at = conv_losses_at(arch, device, other, two_hop, seen)
+                q8_vs_dense = backend == "cuda_q8" and other == "dense"
+                # int8 over Â² against dense: relative to the loss past 1,
+                # as int8 serving is held (Â²'s two-path counts take GIN's
+                # loss to 16)
+                scaled = q8_vs_dense and two_hop
+                errs[key + "_same_params"] = max(
+                    abs(a[0] - b) / (max(1.0, abs(b)) if scaled else 1.0)
+                    for a, b in zip(at, hist["loss"]))
+                # the gradient's norm relative to the run's own, or to its
+                # first step's where the run has converged below it (GAT's
+                # falls 100-fold: f32 sums differ by 2e-4 of such a norm
+                # between the card and the CPU); held where both sides run
+                # the same forward, a reading for int8 against dense (int8
+                # moves ReLU boundaries: GIN over Â² reads ~36% on the CPU
+                # alone)
+                g0 = abs(seen[0][1])
+                errs[key + "_same_params_grad_norm"] = max(
+                    abs(a[1] - g) / max(abs(g), g0, 1e-30)
+                    for a, (_, g) in zip(at, seen))
+                check(errs[key + "_same_params"] <= tol and (
+                    q8_vs_dense
+                    or errs[key + "_same_params_grad_norm"] <= tol),
+                      f"train {key}: a step from the same parameters: loss "
+                      f"{errs[key + '_same_params']:.3e}, gradient norm "
+                      f"(relative) "
+                      f"{errs[key + '_same_params_grad_norm']:.3e}; bar "
+                      f"{tol}")
+            cpu = conv_job(arch, "cpu", backend, two_hop, CONV_STEPS,
+                           tmp / f"{name}_cpu")
+            errs[f"{name}_vs_cpu_loss"] = loss_err(hist, cpu[1])
+            errs[f"{name}_vs_cpu_params"] = max_tree_err(state.params,
+                                                         cpu[0].params)
+            if arch == "gat":
+                check(errs[f"{name}_vs_cpu_loss"] <= tol,
+                      f"train {name} card vs CPU loss "
+                      f"{errs[f'{name}_vs_cpu_loss']:.3e} > {tol}")
+            shutil.rmtree(resume)
+    for arch, two_hop in (("gat", False), ("gin", False), ("gin", True)):
+        pre = f"{arch}{'_two_hop' if two_hop else ''}_"
+        dense = runs[pre + "dense"][1]
+        errs[pre + "cuda_vs_dense_loss"] = loss_err(runs[pre + "cuda"][1],
+                                                    dense)
+        errs[pre + "cuda_vs_dense_params"] = max_tree_err(
+            runs[pre + "cuda"][0].params, runs[pre + "dense"][0].params)
+        errs[pre + "q8_first_loss_vs_dense"] = abs(
+            runs[pre + "cuda_q8"][1]["loss"][0] - dense["loss"][0])
+        if arch == "gat":
+            check(errs[pre + "cuda_vs_dense_loss"] <= EXECUTOR_TOL,
+                  f"train {pre}cuda vs dense "
+                  f"{errs[pre + 'cuda_vs_dense_loss']:.3e}")
+            check(errs[pre + "q8_first_loss_vs_dense"] <= Q8_E2E_TOL,
+                  f"train {pre}cuda_q8 first loss vs dense "
+                  f"{errs[pre + 'q8_first_loss_vs_dense']:.3e}")
+    readings = {}
+    for arch in ("gat", "gin"):
+        for backend in ("dense", "cuda", "cuda_q8"):
+            readings[f"{arch}_{backend}"] = conv_step_breakdown(
+                dev, arch, backend)
+    rec = dict(losses={k: [h["loss"][0], h["loss"][-1]]
+                       for k, (_, h) in runs.items()},
+               launches=launches, errors=errs)
+    say(f"conv train {json.dumps(rec)}")
+    for k, r in readings.items():
+        say(f"conv train step {k} {json.dumps(r)}")
+    total = {k: sum(v[k] for v in launches.values()) for k in CONV_KERNELS}
+    return dict(launches=total, per_run=launches, readings=readings,
+                errors=errs)
+
+
+def conv_step_breakdown(dev, arch, backend, n_steps: int = 20) -> dict:
+    """One warm training step of ``arch`` as the loop runs it, traced as
+    ``train_step_breakdown`` traces gcn's."""
+    from repro_torch.optim import adamw
+    params, step, batches = conv_setup(arch, dev, backend)
+    opt, batch = adamw.init_state(params), next(batches)
+    rec = trace_steps(lambda: float(step(params, opt, batch)[2]["loss"]),
+                      n_steps, "spmm_dedup_chunks",
+                      split={"b1": is_b1, "b4": is_b4})
+    rec.pop("kernel_ms_per_step")
+    rec.pop("op_keys")
+    return rec
+
+
+def sage_world(dev):
+    """SAGE at ``SAGEConfig()`` (602 → 64 → 41) on a graph of
+    ``minibatch_lg``'s size drawn as phase 2 draws it: (params, indptr,
+    indices, store), the CSR copied once to the host for the host sampler
+    and the offline replay."""
+    from repro_torch.models.gnn import sage
+    from repro_torch.serve import FeatureStore
+    gen = torch.Generator(device=dev).manual_seed(14)
+    indptr, indices = minibatch_lg_graph(dev, gen)
+    indptr, indices = indptr.cpu().numpy(), indices.cpu().numpy()
+    n = indptr.shape[0] - 1
+    x = np.random.default_rng(15).standard_normal(
+        (n, 602), dtype=np.float32)
+    params = sage.init_params(sage.SAGEConfig(),
+                              torch.Generator().manual_seed(0), dev)
+    return params, indptr, indices, FeatureStore.build(n, x, device=dev)
+
+
+def phase_conv_serve(dev, indptr, indices, cora_store, seeds):
+    """GAT (gat-cora) and GIN (``GINConfig()`` on seeded N(0, 1) features)
+    on the Cora-scale graph, and SAGE on minibatch_lg's graph at fanouts
+    (15, 10): each served with the host sampler, the device sampler and
+    int8, counted and held to offline replay, as phases 4, 5 and 8."""
+    from repro_torch.configs.gat_cora import FULL as GAT
+    from repro_torch.models.gnn import gat, gin
+    from repro_torch.serve import FeatureStore
+    # GIN's 64 dense input features
+    x64 = np.random.default_rng(16).standard_normal((2708, 64),
+                                                    dtype=np.float32)
+    # GIN's sum aggregations take its outputs near 15: its int8 bar is
+    # relative to them past 1 (``q8_tol``)
+    worlds = [
+        ("gat", GAT, gat.init_params(GAT, torch.Generator().manual_seed(0),
+                                     dev), indptr, indices, cora_store,
+         False),
+        ("gin", gin.GINConfig(), gin.init_params(
+            gin.GINConfig(), torch.Generator().manual_seed(0), dev), indptr,
+         indices, FeatureStore.build(2708, x64, device=dev), True)]
+    serves = []
+    for arch, cfg, params, ip, ix, store, relative in worlds:
+        serves += [phase_serve(dev, mode, params, ip, ix, store, seeds,
+                               backend=backend, arch=arch, cfg=cfg,
+                               q8_relative=relative)
+                   for mode, backend in (("host", "cuda"),
+                                         ("device", "cuda"),
+                                         ("device", "cuda_q8"))]
+    del worlds
+    from repro_torch.models.gnn import sage
+    params, ip, ix, store = sage_world(dev)
+    n = ip.shape[0] - 1
+    sage_seeds = np.random.default_rng(17).integers(0, n, len(seeds))
+    serves += [phase_serve(dev, mode, params, ip, ix, store, sage_seeds,
+                           backend=backend, arch="sage",
+                           cfg=sage.SAGEConfig(), fanouts=SAGE_FANOUTS)
+               for mode, backend in (("host", "cuda"), ("device", "cuda"),
+                                     ("device", "cuda_q8"))]
+    return serves
+
+
+def tile_scatter_costs(dev) -> dict:
+    """The traced-value tile scatter at gat-cora's plan (the Cora-scale
+    graph as it is: 10,556 edges, 99 repeated pairs): the plan's layered
+    scatter (``forward_tiles``) against one ``index_put_(accumulate=True)``
+    of the same values and one ``index_add_`` (atomics), ms a call issued
+    eagerly, the layered one equal to the CPU's sequential scatter."""
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.sparse.plan import forward_tiles, make_plan
+    s, r, _, _, _ = cora_like(seed=0)
+    plan = make_plan(s, r, 2709, backends=("cuda",), device=dev)
+    cpu = make_plan(s, r, 2709, backends=("cuda",), device="cpu")
+    v = torch.from_numpy(np.random.default_rng(18).normal(
+        size=s.shape[0]).astype(np.float32))
+    vd = v.to(dev)
+    n = plan.ell_a.numel()
+    slots = plan.ell_slots.clamp(0, n)
+
+    def put():
+        flat = vd.new_zeros(n + 1)
+        flat.index_put_((slots,), vd, accumulate=True)
+        return flat[:n].reshape(plan.ell_a.shape)
+    want = forward_tiles(cpu, v)
+    layered = forward_tiles(plan, vd)
+    check(torch.equal(layered.cpu(), want),
+          "tile scatter: the layered scatter differs from the CPU's")
+    rec = dict(layers=len(plan.ell_dup_bounds) + 1,
+               layered_ms=eager_ms(lambda: forward_tiles(plan, vd)),
+               index_put_ms=eager_ms(put),
+               index_put_vs_cpu=float((put().cpu() - want).abs().max()),
+               index_add_ms=eager_ms(lambda: vd.new_zeros(n + 1).index_add_(
+                   0, slots, vd)))
+    say(f"tile scatter {json.dumps(rec)}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15 — DLRM training
+# ---------------------------------------------------------------------------
+
+DLRM_TRAIN_STEPS = 20
+DLRM_CKPT_EVERY = 10
+# each field's vocabulary capped: the whole 12.58 GB table with its
+# gradient, AdamW's moments and the functional update's temporaries passes
+# the card's 80 GB
+DLRM_VOCAB_CAP = 1_000_000
+DLRM_CPU_STEPS, DLRM_CPU_BATCH = 5, 4096
+
+
+def dlrm_train_cfg():
+    import dataclasses
+    from repro_torch.configs.dlrm_rm2 import FULL
+    return dataclasses.replace(FULL, vocab_sizes=tuple(
+        min(v, DLRM_VOCAB_CAP) for v in FULL.vocab_sizes))
+
+
+def dlrm_train_job(params, device, batch, n_steps, ckpt_dir, ckpt_every):
+    """dlrm-rm2 (capped vocabularies) through ``build_recsys_step("train")``
+    and ``train.loop.run``, AdamW at lr 1e-3, step i on ``dlrm_batch(batch,
+    seed=i)`` (a run resumed from a commit at step k starts at seed k):
+    (state, history)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg = dlrm_train_cfg()
+    step = build_recsys_step(cfg, RECSYS_SHAPES["train_batch"],
+                             adamw.AdamWConfig(lr=1e-3))
+    state = loop.TrainState(params=params, opt_state=adamw.init_state(params))
+
+    def batches():
+        i = store.latest_step(ckpt_dir) or 0
+        while True:
+            d, ids, y = dlrm_batch(batch, cfg.n_dense, cfg.vocab_sizes,
+                                   seed=i)
+            yield {"dense": torch.from_numpy(d).to(device),
+                   "sparse_ids": torch.from_numpy(ids).to(device),
+                   "labels": torch.from_numpy(y).to(device)}
+            i += 1
+    return loop.run(state, step, batches(), loop.TrainLoopConfig(
+        n_steps=n_steps, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
+        log_every=10 ** 9, keep_ckpts=2), log=lambda *_: None)
+
+
+def phase_dlrm_train(dev):
+    """dlrm-rm2's widths, each vocabulary capped at ``DLRM_VOCAB_CAP``, at
+    ``RECSYS_SHAPES["train_batch"]``: 20 steps counted (one B6 a step), a
+    second run and a run resumed from the 10-step commit bitwise equal,
+    peak memory, one warm step traced; the first 5 steps at batch 4,096
+    against the same steps on the CPU."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.recsys import dlrm
+    cfg = dlrm_train_cfg()
+    batch = RECSYS_SHAPES["train_batch"].batch
+
+    def fresh():
+        return dlrm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+    from repro_torch.configs.dlrm_rm2 import FULL
+    capped = sum(v > DLRM_VOCAB_CAP for v in FULL.vocab_sizes)
+    rec = dict(batch=batch, vocab_rows=cfg.total_vocab,
+               table_bytes=cfg.padded_vocab * cfg.embed_dim * 4,
+               reduced=f"each field's vocabulary capped at "
+                       f"{DLRM_VOCAB_CAP:,} rows ({capped} of "
+                       f"{len(FULL.vocab_sizes)} fields): the whole table "
+                       "with its gradient, AdamW's moments and the "
+                       "functional update's temporaries passes 80 GB")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        embedding_bag.launches = 0
+        t0 = time.perf_counter()
+        run = dlrm_train_job(fresh(), dev, batch, DLRM_TRAIN_STEPS,
+                             tmp / "run", DLRM_CKPT_EVERY)
+        torch.cuda.synchronize()
+        rec["run_s"] = time.perf_counter() - t0
+        rec["launches"] = embedding_bag.launches
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        state, hist = run
+        check(rec["launches"] == DLRM_TRAIN_STEPS,
+              f"dlrm train: {rec['launches']} embedding_bag launches for "
+              f"{DLRM_TRAIN_STEPS} steps")
+        check(all(math.isfinite(v) for v in hist["loss"])
+              and hist["retries"] == 0,
+              f"dlrm train: losses {hist['loss']}")
+        rec["losses"] = [hist["loss"][0], hist["loss"][-1]]
+        rec["step_wall_ms_loop"] = statistics.median(hist["step_s"]) * 1e3
+        again = dlrm_train_job(fresh(), dev, batch, DLRM_TRAIN_STEPS,
+                               tmp / "again", DLRM_TRAIN_STEPS)
+        check(same_run(run, again), "dlrm train: two runs on the card "
+                                    "differ")
+        del again
+        shutil.rmtree(tmp / "again")
+        resume = tmp / "resume"
+        resume.mkdir()
+        shutil.copytree(tmp / "run" / f"step_{DLRM_CKPT_EVERY:06d}",
+                        resume / f"step_{DLRM_CKPT_EVERY:06d}")
+        shutil.rmtree(tmp / "run")
+        resumed = dlrm_train_job(fresh(), dev, batch, DLRM_TRAIN_STEPS,
+                                 resume, DLRM_TRAIN_STEPS)
+        check(len(resumed[1]["loss"]) == DLRM_TRAIN_STEPS - DLRM_CKPT_EVERY
+              and same_run(resumed, run),
+              f"dlrm train: the run resumed at step {DLRM_CKPT_EVERY} does "
+              "not reproduce the unbroken run bitwise")
+        del resumed, run, state
+    torch.cuda.empty_cache()
+    rec.update(dlrm_step_breakdown(dev, fresh(), batch))
+    # the first steps at a batch the CPU takes in seconds, card vs CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        params = fresh()
+        cpu_params = tree_to(params, "cpu")
+        card = dlrm_train_job(params, dev, DLRM_CPU_BATCH, DLRM_CPU_STEPS,
+                              tmp / "card", 10 ** 9)[1]
+        del params
+        on_cpu = dlrm_train_job(cpu_params, torch.device("cpu"),
+                                DLRM_CPU_BATCH, DLRM_CPU_STEPS, tmp / "cpu",
+                                10 ** 9)[1]
+    rec["card_vs_cpu_loss"] = loss_err(card, on_cpu)
+    check(rec["card_vs_cpu_loss"] <= EXECUTOR_TOL,
+          f"dlrm train: card vs CPU loss {rec['card_vs_cpu_loss']:.3e}")
+    say(f"dlrm train {json.dumps(rec)}")
+    return rec
+
+
+def dlrm_step_breakdown(dev, params, batch, n_steps: int = 5) -> dict:
+    """One warm training step at ``batch`` (the step and its loss read
+    back), traced: wall, device time and operations, B6's time."""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.optim import adamw
+    cfg = dlrm_train_cfg()
+    step = build_recsys_step(cfg, RECSYS_SHAPES["train_batch"],
+                             adamw.AdamWConfig(lr=1e-3))
+    opt = adamw.init_state(params)
+    d, ids, y = dlrm_batch(batch, cfg.n_dense, cfg.vocab_sizes, seed=0)
+    b = {"dense": torch.from_numpy(d).to(dev),
+         "sparse_ids": torch.from_numpy(ids).to(dev),
+         "labels": torch.from_numpy(y).to(dev)}
+    rec = trace_steps(lambda: float(step(params, opt, b)[2]["loss"]),
+                      n_steps, "embedding_bag", top=5)
+    rec["b6_ms_per_step"] = rec.pop("kernel_ms_per_step")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -2341,16 +2967,31 @@ def main() -> int:
 
     # phase 13 — gcn-cora training on B1 (forward and backward) and B4
     train = phase_train(dev)
+    torch.cuda.empty_cache()
+
+    # phase 14 — GAT, GIN and SAGE: the order-fixed tile scatter, serving
+    # (B1, B3, B4), training (B1, B4; B2 and B5 on GIN's Â²)
+    tile_scatter_costs(dev)
+    conv_serves = phase_conv_serve(dev, indptr, indices, store, seeds)
+    conv = phase_conv_train(dev)
+    torch.cuda.empty_cache()
+
+    # phase 15 — dlrm-rm2 training: B6 forward, order-fixed table gradient
+    dlrm_train = phase_dlrm_train(dev)
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
                           "forest_sample", "hash_draws")}
+    conv_serving = {k: sum(sv["launches"][k] for sv in conv_serves)
+                    for k in launches}
     launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
     launches["spmm_dedup_chunks_q8"] += \
         two_hop_q8["launches"]["spmm_dedup_chunks_q8"]
     serving = dict(launches)
     for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8"):
-        launches[k] += train["launches"][k]
+        launches[k] += train["launches"][k] + conv["launches"][k]
+    for k in conv_serving:
+        launches[k] += conv_serving[k]
     runs = train["per_run"]
     train_note = ", ".join(
         f"{name} {runs[name]['spmm_dedup_chunks']} + "
@@ -2375,7 +3016,12 @@ def main() -> int:
                  f"{serving['spmm_dedup_chunks']}; phase 13's training "
                  f"runs (B1 + B4 per run: {train_note}): 4 a cuda step, "
                  "2 forward and 2 backward (dX on the transpose layout), "
-                 "and 2 a cuda_q8 step, its f32 backward"),
+                 "and 2 a cuda_q8 step, its f32 backward; phase 14's "
+                 f"serving of gat, gin and sage "
+                 f"{conv_serving['spmm_dedup_chunks']} (one an "
+                 "aggregation: 9 a gat step, 3 gin, 2 sage) and training "
+                 f"{conv['launches']['spmm_dedup_chunks']} (gat 18 a cuda "
+                 "step, 9 a cuda_q8 step; gin 5 and 2)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
              backward=[{k: c[k] for k in ("shape",) + keys}
@@ -2400,13 +3046,19 @@ def main() -> int:
              replaces_note="hash_draws fused with the gathers of "
                            "src/repro/serve/device_sampler.py:84",
              launches=launches["forest_sample"],
+             launches_note=f"one a device-sampled step: gcn "
+                           f"{serving['forest_sample']}, phase 14's gat, "
+                           f"gin and sage {conv_serving['forest_sample']}",
              max_abs_err=max(c["max_abs_err"] for c in b3_fused),
              shape=main_b3["shape"], **{k: main_b3[k] for k in keys}),
         dict(name="spgemm_hashpad", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"
                     "spgemm_hashpad.cu",
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:83",
-             launches=two_hop["launches"]["spgemm_hashpad"],
+             launches=(two_hop["launches"]["spgemm_hashpad"]
+                       + conv["launches"]["spgemm_hashpad"]),
+             launches_note="two_hop_graph and coarsen_graph (phase 7); "
+                           "GIN's Â² under cuda and cuda_q8 (phase 14)",
              max_abs_err=max(c["max_abs_err"] for c in b2),
              shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
         dict(name="spmm_dedup_chunks_q8", route="cuda",
@@ -2419,7 +3071,10 @@ def main() -> int:
                  f"int8 serving and GCN over the int8 Â² "
                  f"{serving['spmm_dedup_chunks_q8']}; phase 13's cuda_q8 "
                  f"training run {runs['cuda_q8']['spmm_dedup_chunks_q8']} "
-                 "(2 a step, the forward)"),
+                 "(2 a step, the forward); phase 14's int8 serving "
+                 f"{conv_serving['spmm_dedup_chunks_q8']} and training "
+                 f"{conv['launches']['spmm_dedup_chunks_q8']} (gat 9 a "
+                 "step, gin 3)"),
              max_abs_err=max(c["max_abs_err"]
                              for c in b4 + train["forward_q8"]),
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
@@ -2427,14 +3082,19 @@ def main() -> int:
              source="src/repro_torch/kernels/spgemm_pad/csrc/"
                     "spgemm_hashpad.cu",
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:168",
-             launches=two_hop_q8["launches"]["spgemm_hashpad_q8"],
+             launches=(two_hop_q8["launches"]["spgemm_hashpad_q8"]
+                       + conv["launches"]["spgemm_hashpad_q8"]),
+             launches_note="the int8 two-hop path (phase 9); phase 14 "
+                           "builds GIN's Â² in f32 (B2) and counts B5 at 0",
              max_abs_err=max(c["max_abs_err"] for c in b5),
              shape=main_b5["shape"], **{k: main_b5[k] for k in keys}),
         dict(name="embedding_bag", route="cuda",
              source="src/repro_torch/kernels/embedding_bag/csrc/"
                     "embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/embedding_bag.py:76",
-             launches=b6_launches,
+             launches=b6_launches + dlrm_train["launches"],
+             launches_note=f"one a DLRM forward: serving {b6_launches}, "
+                           f"phase 15's training {dlrm_train['launches']}",
              max_abs_err=max(c["max_abs_err"] for c in b6),
              shape=b6[1]["shape"], **{k: b6[1][k] for k in keys}),
         dict(name="sddmm", route="cuda",

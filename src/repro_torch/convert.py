@@ -3,9 +3,13 @@
 The two packages draw different random numbers from the same seed, so
 parity is checked by carrying the reference's parameters across.  The
 reference's GCN parameters are ``{"layer{i}": {"w": (d_in, d_out),
-"b": (d_out,)}}`` and its DLRM parameters ``{"table": (V, D), "bot":
-{"w{i}", "b{i}"}, "top": {"w{i}", "b{i}"}}``; the port keeps both
-layouts, so conversion is a checked copy of each array onto the device.
+"b": (d_out,)}}``, GAT's ``{"layer{i}": {"w": (d_in, heads, d_out),
+"a_src", "a_dst": (heads, d_out), "b": (heads·d_out,)}}``, GIN's
+``{"layer{i}": {"mlp": {"w{j}", "b{j}"}, "eps": ()}}``, SAGE's
+``{"layer{i}": {"w_self", "w_nbr": (d_in, d_out), "b": (d_out,)}}`` and
+DLRM's ``{"table": (V, D), "bot": {"w{i}", "b{i}"}, "top": {"w{i}",
+"b{i}"}}``; the port keeps every layout, so conversion is a checked copy of
+each array onto the device.
 Input arrays are numpy (``np.asarray`` of the JAX leaves): this module
 never imports JAX.
 """
@@ -35,6 +39,82 @@ def gcn_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
                              "form a (d_in, d_out) layer")
         out[layer] = {"w": torch.from_numpy(w.copy()).to(dev),
                       "b": torch.from_numpy(b.copy()).to(dev)}
+    return out
+
+
+def _layers(tree: Mapping[str, Mapping], keys: set):
+    """The tree's ``layer{i}`` entries in order, each with exactly
+    ``keys``."""
+    want = {f"layer{i}" for i in range(len(tree))}
+    if set(tree) != want:
+        raise ValueError(f"layers {sorted(tree)}, expected {sorted(want)}")
+    for i in range(len(tree)):
+        p = tree[f"layer{i}"]
+        if set(p) != keys:
+            raise ValueError(f"layer{i} has keys {sorted(p)}, expected "
+                             f"{sorted(keys)}")
+        yield i, p
+
+
+def _t(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def gat_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
+                        device: DeviceLike = None) -> Dict:
+    """Reference GAT parameter tree (numpy leaves) → port parameters."""
+    dev = resolve_device(device)
+    out, d_prev = {}, None
+    for i, p in _layers(tree, {"w", "a_src", "a_dst", "b"}):
+        w = np.asarray(p["w"])
+        if w.ndim != 3:
+            raise ValueError(f"layer{i}.w has shape {w.shape}, expected "
+                             "(d_in, heads, d_out)")
+        _, heads, d_out = w.shape
+        for k in ("a_src", "a_dst"):
+            if np.shape(p[k]) != (heads, d_out):
+                raise ValueError(f"layer{i}.{k} has shape {np.shape(p[k])}"
+                                 f", expected {(heads, d_out)}")
+        if np.shape(p["b"]) != (heads * d_out,):
+            raise ValueError(f"layer{i}.b has shape {np.shape(p['b'])}, "
+                             f"expected {(heads * d_out,)}")
+        if d_prev is not None and w.shape[0] != d_prev:
+            raise ValueError(f"layer{i}.w takes {w.shape[0]} inputs, the "
+                             f"layer before gives {d_prev}")
+        d_prev = heads * d_out
+        out[f"layer{i}"] = {k: _t(p[k], dev) for k in p}
+    return out
+
+
+def gin_params_from_jax(tree: Mapping[str, Mapping[str, object]],
+                        device: DeviceLike = None) -> Dict:
+    """Reference GIN parameter tree (numpy leaves) → port parameters."""
+    dev = resolve_device(device)
+    out = {}
+    for i, p in _layers(tree, {"mlp", "eps"}):
+        if np.shape(p["eps"]) != ():
+            raise ValueError(f"layer{i}.eps has shape "
+                             f"{np.shape(p['eps'])}, expected ()")
+        out[f"layer{i}"] = {"mlp": _mlp_from_jax(f"layer{i}.mlp", p["mlp"],
+                                                 dev),
+                            "eps": _t(p["eps"], dev)}
+    return out
+
+
+def sage_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
+                         device: DeviceLike = None) -> Dict:
+    """Reference GraphSAGE parameter tree (numpy leaves) → port
+    parameters."""
+    dev = resolve_device(device)
+    out = {}
+    for i, p in _layers(tree, {"w_self", "w_nbr", "b"}):
+        ws, wn = np.asarray(p["w_self"]), np.asarray(p["w_nbr"])
+        if ws.ndim != 2 or ws.shape != wn.shape or np.shape(p["b"]) != (
+                ws.shape[1],):
+            raise ValueError(f"layer{i}: w_self {ws.shape}, w_nbr "
+                             f"{wn.shape} and b {np.shape(p['b'])} do not "
+                             "form a (d_in, d_out) layer")
+        out[f"layer{i}"] = {k: _t(p[k], dev) for k in p}
     return out
 
 

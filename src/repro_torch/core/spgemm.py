@@ -4,34 +4,46 @@
     accumulate     :  Y[r]   = segment_sum(pp, A_row, n_rows)   (scatter-bound)
 
 These are the bodies of the ``dense`` and ``chunked`` executors;
-``spgemm_via_dense`` is the sparse×sparse tiny-size oracle.  JAX's
-``segment_sum`` drops segment ids ≥ ``n_rows``; ``index_add_`` would fault
-on them, so the sums go into one extra trash row that is cut off at the end
-(the padding-edge convention: padding lanes point at row ``n_rows``).
+``spgemm_via_dense`` is the sparse×sparse tiny-size oracle.  As JAX's
+``segment_sum``, the merge drops row ids outside ``[0, n_rows)`` (the
+padding-edge convention: padding lanes point at row ``n_rows``).
+
+Both stages are order-fixed on the card as on the CPU, forward and
+backward: they gather and merge through ``sparse.segment_ops``' ordered
+``gather`` and ``segment_sum`` (on CUDA, ``index_select``'s backward and
+``index_add_`` would add a repeated row by atomics, in no fixed order).
+``order``/``order_of`` hand them the orders an ``AggregationPlan`` keeps;
+without them each call sorts its ids.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.sparse.segment_ops import SegmentOrder, gather, segment_sum
+
+# ``AggregationPlan.order``: (axis, lo, hi) → the SegmentOrder of
+# rows/cols[lo:hi]
+OrderOf = Optional[Callable[[str, int, int], SegmentOrder]]
+
 
 def multiply_stage(cols: torch.Tensor, vals: Optional[torch.Tensor],
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor,
+                   order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """Partial products for every nnz: pp[e] = vals[e] * x[cols[e]]."""
-    pp = x.index_select(0, cols)
+    pp = gather(x, cols, order)
     if vals is not None:
         pp = pp * vals.to(pp.dtype).reshape((-1,) + (1,) * (pp.ndim - 1))
     return pp
 
 
-def accumulate_stage(pp: torch.Tensor, rows: torch.Tensor,
-                     n_rows: int) -> torch.Tensor:
-    """Merge partial products by destination row; rows ≥ n_rows drop."""
-    out = pp.new_zeros((n_rows + 1,) + pp.shape[1:])
-    out.index_add_(0, rows.clamp(0, n_rows), pp)
-    return out[:n_rows]
+def accumulate_stage(pp: torch.Tensor, rows: torch.Tensor, n_rows: int,
+                     order: Optional[SegmentOrder] = None) -> torch.Tensor:
+    """Merge partial products by destination row; rows outside
+    ``[0, n_rows)`` drop."""
+    return segment_sum(pp, rows, n_rows, order)
 
 
 def _chunk_bounds(e: int, chunk: int):
@@ -39,30 +51,43 @@ def _chunk_bounds(e: int, chunk: int):
     return range(0, e, chunk), chunk
 
 
+def _wave_orders(order_of: OrderOf, lo: int, hi: int):
+    if order_of is None:
+        return None, None
+    return order_of("rows", lo, hi), order_of("cols", lo, hi)
+
+
 def spmm_chunked(rows: torch.Tensor, cols: torch.Tensor,
                  vals: Optional[torch.Tensor], x: torch.Tensor, n_rows: int,
-                 chunk: int = 8192) -> torch.Tensor:
+                 chunk: int = 8192, order_of: OrderOf = None) -> torch.Tensor:
     """Rolling-eviction SpMM (paper C3): edges are processed in
     ``chunk``-sized waves, and each wave's partial products are folded into
     the output at once, so peak interim memory is O(chunk · D)."""
     acc = x.new_zeros((n_rows,) + x.shape[1:])
-    starts, chunk = _chunk_bounds(rows.shape[0], chunk)
+    e = rows.shape[0]
+    starts, chunk = _chunk_bounds(e, chunk)
     for lo in starts:
-        v = None if vals is None else vals[lo:lo + chunk]
-        pp = multiply_stage(cols[lo:lo + chunk], v, x)
-        acc = acc + accumulate_stage(pp, rows[lo:lo + chunk], n_rows)
+        hi = min(lo + chunk, e)
+        r_order, c_order = _wave_orders(order_of, lo, hi)
+        v = None if vals is None else vals[lo:hi]
+        pp = multiply_stage(cols[lo:hi], v, x, c_order)
+        acc = acc + accumulate_stage(pp, rows[lo:hi], n_rows, r_order)
     return acc
 
 
 def segment_sum_chunked(rows: torch.Tensor, messages: torch.Tensor,
-                        n_rows: int, chunk: int = 8192) -> torch.Tensor:
+                        n_rows: int, chunk: int = 8192,
+                        order_of: OrderOf = None) -> torch.Tensor:
     """Accumulate-only rolling eviction: fold precomputed per-edge messages
     into their destination rows in ``chunk``-sized waves."""
     acc = messages.new_zeros((n_rows,) + messages.shape[1:])
-    starts, chunk = _chunk_bounds(rows.shape[0], chunk)
+    e = rows.shape[0]
+    starts, chunk = _chunk_bounds(e, chunk)
     for lo in starts:
-        acc = acc + accumulate_stage(messages[lo:lo + chunk],
-                                     rows[lo:lo + chunk], n_rows)
+        hi = min(lo + chunk, e)
+        r_order, _ = _wave_orders(order_of, lo, hi)
+        acc = acc + accumulate_stage(messages[lo:hi], rows[lo:hi], n_rows,
+                                     r_order)
     return acc
 
 

@@ -36,6 +36,26 @@ def cora_like(seed: int = 0):
     return s, r, x, y, c
 
 
+def molecule_batch(batch: int, n_nodes: int = 30, n_edges: int = 64,
+                   n_species: int = 9, seed: int = 0):
+    """Batched small molecules: positions in a box, radius-graph-ish edges.
+
+    Returns (species (B,N) int, pos (B,N,3) f32, senders (B,E), receivers
+    (B,E), edge_valid (B,E), targets (B,) f32); within a molecule no edge
+    is a self loop."""
+    rng = np.random.default_rng(seed)
+    species = rng.integers(1, n_species, size=(batch, n_nodes)).astype(
+        np.int32)
+    pos = rng.normal(scale=2.0, size=(batch, n_nodes, 3)).astype(np.float32)
+    senders = rng.integers(0, n_nodes, size=(batch, n_edges)).astype(
+        np.int32)
+    offs = rng.integers(1, n_nodes, size=(batch, n_edges)).astype(np.int32)
+    receivers = ((senders + offs) % n_nodes).astype(np.int32)
+    valid = np.ones((batch, n_edges), dtype=bool)
+    targets = rng.normal(size=(batch,)).astype(np.float32)
+    return species, pos, senders, receivers, valid, targets
+
+
 def dlrm_batch(batch: int, n_dense: int, vocab_sizes: Sequence[int],
                multi_hot: int = 1, seed: int = 0):
     """(dense (B,13) f32, sparse ids (B, F, multi_hot) int32, labels (B,)

@@ -3,8 +3,10 @@ of ``repro.launch.gnn_serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --backend cuda \\
       --sampler device --requests 100 --max-batch 16 --fanouts 5,3
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --arch sage ...
 
-Stands up a ``GNNServer`` over a synthetic power-law resident graph, fires
+Serves one arch of the conv family (``--arch gcn|gat|sage|gin``).  Stands
+up a ``GNNServer`` over a synthetic power-law resident graph, fires
 a seeded request trace at it, drains, and reports throughput, latency
 percentiles and the rebuild counter — then replays every request offline
 (one at a time, trees re-sampled on the host) and checks parity: ≤1e-5,
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn import gcn
+from repro_torch.models.gnn import gat, gcn, gin, sage
 from repro_torch.serve import FeatureStore, GNNServer, offline_replay
 from repro_torch.sparse.graph import coo_to_csr
 from repro_torch.sparse.plan import ALL_BACKENDS
@@ -37,15 +39,22 @@ def parity_tol(backend: str) -> float:
     return Q8_E2E_TOL if backend == "cuda_q8" else PARITY_TOL
 
 
+# --arch → (model module, its config class)
+MODELS = {"gcn": (gcn, gcn.GCNConfig), "gat": (gat, gat.GATConfig),
+          "sage": (sage, sage.SAGEConfig), "gin": (gin, gin.GINConfig)}
+
+
 def build_world(n_nodes: int, n_edges: int, d_in: int, seed: int = 0,
-                device=None):
-    """(cfg, params, indptr, indices, store) on a synthetic resident graph."""
+                device=None, arch: str = "gcn"):
+    """(cfg, params, indptr, indices, store) on a synthetic resident graph:
+    the arch's default config at ``d_in`` features and 8 classes."""
     s, r = syn.powerlaw_graph(n_nodes, n_edges, seed=seed)
     indptr, indices, _ = coo_to_csr(s, r, n_nodes)
     rng = np.random.default_rng(seed + 1)
     x = rng.normal(size=(n_nodes, d_in)).astype(np.float32)
-    cfg = gcn.GCNConfig(d_in=d_in, n_classes=8)
-    params = gcn.init_params(cfg, torch.Generator().manual_seed(seed),
+    mod, config = MODELS[arch]
+    cfg = config(d_in=d_in, n_classes=8)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(seed),
                              device=device)
     return cfg, params, indptr, indices, FeatureStore.build(n_nodes, x,
                                                             device=device)
@@ -53,7 +62,7 @@ def build_world(n_nodes: int, n_edges: int, d_in: int, seed: int = 0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gcn", choices=["gcn"])
+    ap.add_argument("--arch", default="gcn", choices=list(MODELS))
     ap.add_argument("--backend", default="cuda", choices=list(ALL_BACKENDS))
     ap.add_argument("--sampler", default="host", choices=["host", "device"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -69,7 +78,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     fanouts = tuple(int(f) for f in args.fanouts.split(","))
     cfg, params, indptr, indices, store = build_world(
-        args.nodes, args.edges, args.d_in, args.seed, device)
+        args.nodes, args.edges, args.d_in, args.seed, device, args.arch)
     seeds = np.random.default_rng(args.seed + 2).integers(0, args.nodes,
                                                           args.requests)
     server = GNNServer(args.arch, cfg, params, indptr, indices, store,

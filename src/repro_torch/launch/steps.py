@@ -4,13 +4,14 @@ Train steps take (params, opt_state, batch) and return (params,
 opt_state, metrics); serve steps take (params, batch) and return outputs.
 Batches are dicts of tensors on the parameters' device.
 
-* GNN: ``build_gnn_step`` builds gcn's training step on any aggregation
-  executor (``dense``, ``chunked``, ``cuda``, ``cuda_q8``), optionally over
-  the SpGEMM-precomputed Â² (``two_hop``).  The other GNNs are ROADMAP
-  queue A2.
-* RecSys: ``build_recsys_step`` — ``serve`` → logits, ``retrieval`` →
-  candidate scores (``dense`` (B, 13) f32, ``sparse_ids`` (B, 26, M) int32,
-  ``candidates`` (C, D)).  DLRM training is ROADMAP queue A1.
+* GNN: ``build_gnn_step`` builds the training step of gcn, gat and gin on
+  any aggregation executor (``dense``, ``chunked``, ``cuda``, ``cuda_q8``),
+  gcn and gin optionally over the SpGEMM-precomputed Â² (``two_hop``).
+  schnet and dimenet are ROADMAP queue A2's second half.
+* RecSys: ``build_recsys_step`` — ``train`` → (params, opt_state,
+  metrics), ``serve`` → logits, ``retrieval`` → candidate scores
+  (``dense`` (B, 13) f32, ``sparse_ids`` (B, 26, M) int32, ``labels`` (B,)
+  f32, ``candidates`` (C, D)).
 """
 from __future__ import annotations
 
@@ -26,13 +27,14 @@ from repro_torch.optim import adamw
 
 def _train_wrap(loss_fn: Callable, opt_cfg: adamw.AdamWConfig):
     """(params, opt_state, batch) → (params, opt_state, {loss,
-    grad_norm}): the loss, its gradients over every parameter leaf, one
-    AdamW update."""
+    grad_norm}): the loss, its gradients over every parameter leaf (zero
+    for a leaf the loss does not read, as ``jax.grad`` gives: GAT's last
+    bias), one AdamW update."""
     def step(params, opt_state, batch):
         leaves, structure = tree.flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         loss = loss_fn(tree.unflatten(structure, live), batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, materialize_grads=True)
         new_p, new_s, gnorm = adamw.apply_updates(
             params, tree.unflatten(structure, list(grads)), opt_state,
             opt_cfg)
@@ -45,41 +47,58 @@ def _train_wrap(loss_fn: Callable, opt_cfg: adamw.AdamWConfig):
 # ---------------------------------------------------------------------------
 
 def resolve_gnn_plan(graph, backend: str, two_hop: bool = False):
-    """Host plan for ``graph`` through the plan cache — repeated step
-    builds against a static graph re-pack no layouts.  ``dense``/``chunked``
-    run off the inline COO plan the models build, so they need none —
-    except under ``two_hop``, where the aggregation graph is the
+    """Host plan for ``graph`` through the plan cache, on every executor:
+    repeated step builds against a static graph re-pack no layouts, and
+    the plan keeps the orders of its ordered sums (``AggregationPlan
+    .order``) from step to step, so ``dense``/``chunked`` sort nothing per
+    step.  Under ``two_hop`` the aggregation graph is the
     SpGEMM-precomputed Â² (one sparse×sparse product per static graph,
-    through its own cache, on its default executor), whose edges differ
-    from the batch arrays, so every backend needs the host plan."""
+    through its own cache): f32 on B2 under the kernel executors (``cuda``
+    and ``cuda_q8`` alike, as the reference builds one f32 Â² for every
+    executor), on the ``reference`` executor otherwise."""
     if graph is None:
         return None
+    host = backend in ("cuda", "cuda_q8")
     if two_hop:
         from repro_torch.sparse.spgemm import cached_two_hop_graph
-        graph = cached_two_hop_graph(graph)
-    host = backend in ("cuda", "cuda_q8")
-    if not (host or two_hop):
-        return None
+        graph = cached_two_hop_graph(
+            graph, backend="cuda" if host else "reference")
     from repro_torch.sparse.plan import cached_plan_from_graph
     return cached_plan_from_graph(
         graph, backends=(backend,) if host else ("dense", "chunked"))
 
 
+# archs whose aggregation plan can be swapped for the Â² two-hop plan
+# wholesale (sum aggregators over plan-carried weights); gat computes its
+# edge values from the batch edge arrays
+_TWO_HOP_MAIN = ("gin", "gcn")
+
+
 def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
-                   plan=None, graph=None, two_hop=None):
-    """gcn's training step on the executor ``backend``; ``plan`` is a
-    host-built ``make_plan`` — required for ``cuda``/``cuda_q8`` (or pass
-    ``graph`` and the layouts come from the plan cache), optional (inline
-    COO plan) for ``dense``/``chunked``.  ``two_hop`` (default: the
-    config's ``two_hop`` field, if any) precomputes Â² once through the
-    SpGEMM engine and aggregates over it."""
-    if not arch_id.startswith("gcn"):
+                   plan=None, graph=None, two_hop=None, n_graphs: int = 1):
+    """The training step of gcn, gat or gin on the executor ``backend``;
+    ``plan`` is a host-built ``make_plan`` — required for
+    ``cuda``/``cuda_q8`` — or pass ``graph`` and the plan comes from the
+    plan cache (``resolve_gnn_plan``); with neither, ``dense``/``chunked``
+    build an inline COO plan from each batch's edge arrays.
+    ``two_hop`` (default: the config's ``two_hop`` field, if any)
+    precomputes Â² once through the SpGEMM engine and aggregates over it
+    (gcn and gin).  ``n_graphs`` is gin's number of graphs in a batch
+    (``graph_ids`` ≥ it are dropped from the readout)."""
+    if arch_id in ("schnet", "dimenet"):
         raise NotImplementedError(
-            f"training {arch_id!r} is not ported yet: the GNNs other than "
-            "gcn are ROADMAP queue A2")
+            f"training {arch_id!r} is not ported yet: the geometric GNNs "
+            "are the second half of ROADMAP queue A2")
+    gcn_like = arch_id.startswith("gcn")
+    if not (gcn_like or arch_id == "gin" or arch_id.startswith("gat")):
+        raise KeyError(f"unknown GNN arch {arch_id!r}")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     if two_hop is None:
         two_hop = getattr(cfg, "two_hop", False)
+    if two_hop and not any(arch_id.startswith(p) for p in _TWO_HOP_MAIN):
+        raise ValueError(
+            f"two_hop aggregation is not defined for {arch_id!r}: the "
+            "model derives per-edge values from the batch edge arrays")
     # two_hop must never silently degrade to one-hop aggregation
     if two_hop and graph is None:
         raise ValueError(
@@ -92,12 +111,29 @@ def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
             "one-hop)")
     if plan is None:
         plan = resolve_gnn_plan(graph, backend, two_hop=two_hop)
-    from repro_torch.models.gnn import gcn
+    bk = {"backend": backend, "plan": plan}
 
-    def loss(p, b):
-        return gcn.loss_fn(p, cfg, b["x"], b["senders"], b["receivers"],
-                           b["edge_weight"], b["edge_valid"], b["labels"],
-                           b["label_mask"], backend=backend, plan=plan)
+    if arch_id == "gin":
+        from repro_torch.models.gnn import gin
+
+        def loss(p, b):
+            return gin.loss_fn(p, cfg, b["x"], b["senders"], b["receivers"],
+                               b["edge_valid"], b["graph_ids"], n_graphs,
+                               b["labels"], **bk)
+    elif gcn_like:
+        from repro_torch.models.gnn import gcn
+
+        def loss(p, b):
+            return gcn.loss_fn(p, cfg, b["x"], b["senders"], b["receivers"],
+                               b["edge_weight"], b["edge_valid"], b["labels"],
+                               b["label_mask"], **bk)
+    else:
+        from repro_torch.models.gnn import gat
+
+        def loss(p, b):
+            return gat.loss_fn(p, cfg, b["x"], b["senders"], b["receivers"],
+                               b["edge_valid"], b["labels"], b["label_mask"],
+                               **bk)
     return _train_wrap(loss, opt_cfg)
 
 
@@ -105,12 +141,16 @@ def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
 # RecSys
 # ---------------------------------------------------------------------------
 
-def build_recsys_step(cfg: dlrm.DLRMConfig, shape: RecSysShape):
+def build_recsys_step(cfg: dlrm.DLRMConfig, shape: RecSysShape,
+                      opt_cfg=None):
+    """The step of ``shape.kind``.  ``train`` differentiates the lookup
+    through ``kernels/embedding_bag/ops.lookup``'s Function: B6 forward,
+    an order-fixed scatter-add of the bags' cotangents backward."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            "DLRM training is not ported yet (ROADMAP queue A1, its DLRM "
-            "item: whether the lookup trains through B6, which then needs "
-            "a backward kernel)")
+        return _train_wrap(
+            lambda p, b: dlrm.loss_fn(p, cfg, b["dense"], b["sparse_ids"],
+                                      b["labels"]),
+            opt_cfg or adamw.AdamWConfig())
     if shape.kind == "retrieval":
         def retrieval(params, batch):
             return dlrm.retrieval_step(params, cfg, batch["dense"],

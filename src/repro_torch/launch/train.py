@@ -1,20 +1,29 @@
 """End-to-end training driver (the GNN family of ``repro.launch.train``).
 
-Trains gcn-cora with allocated parameters, a data stream, checkpoints and
-the fault-tolerant loop, on the card unless ``--device cpu`` is given:
+Trains gcn-cora, gat-cora and dlrm-rm2 with allocated parameters, a data
+stream, checkpoints and the fault-tolerant loop, on the card unless
+``--device cpu`` is given:
 
   # paper workload — GCN at full width on a Cora-scale synthetic graph:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --full-gnn --backend cuda --steps 50
+
+  # GAT (8 heads, each head's aggregation on B1) and DLRM (B6 forward):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
+      --full-gnn --backend cuda --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
+      --batch 8 --steps 50
 
   # the same on the CPU (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --full-gnn --backend cuda --steps 5 --device cpu
 
 ``--backend`` picks the aggregation executor (``dense``, ``chunked``,
-``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the SpGEMM-built Â².
-The LM preset and family (ROADMAP queue A8), the other GNNs (A2) and DLRM
-training (A1) raise ``NotImplementedError``.
+``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the SpGEMM-built Â²
+(gcn).  dlrm-rm2 trains its *reduced* config, as the reference does, on
+``--batch``-sample ``dlrm_batch(seed=i)`` batches.  The LM preset and
+family (ROADMAP queue A8) and the geometric GNNs (A2's second half) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,23 +48,25 @@ N_LABELLED = 140
 
 def _gnn_setup(arch_id, cfg, seed, backend: str = "dense",
                two_hop: bool = False, device: DeviceLike = None):
-    """(params, step, batches) for ``arch_id`` on the Cora-scale graph:
-    sym-normed edges with self loops, a zero ghost row, the first 140 nodes
-    labelled, AdamW at lr 1e-2."""
+    """(params, step, batches) for ``arch_id`` on the Cora-scale graph: for
+    gcn sym-normed edges with self loops, for gat the edges as they are
+    (no weights); a zero ghost row, the first 140 nodes labelled, AdamW at
+    lr 1e-2."""
     from repro_torch.sparse.graph import make_graph, sym_norm_weights
-    if not arch_id.startswith("gcn"):
-        registry.entry(arch_id)     # raises for the archs not ported
-        raise NotImplementedError(
-            f"training {arch_id!r} is not ported yet (ROADMAP queue A2)")
     dev = resolve_device(device)
     s, r, x, y, c = syn.cora_like(seed)
     n = N_NODES
-    s2, r2, w = sym_norm_weights(s, r, n)
-    g = make_graph(s2, r2, n, w, device=dev)
+    gcn_like = arch_id.startswith("gcn")
+    if gcn_like:
+        s2, r2, w = sym_norm_weights(s, r, n)
+        g = make_graph(s2, r2, n, w, device=dev)
+        from repro_torch.models.gnn import gcn as m
+    else:
+        g = make_graph(s, r, n, device=dev)
+        from repro_torch.models.gnn import gat as m
     cfg = dataclasses.replace(cfg, d_in=x.shape[1], n_classes=c)
-    from repro_torch.models.gnn import gcn
-    params = gcn.init_params(cfg, torch.Generator().manual_seed(seed),
-                             device=dev)
+    params = m.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device=dev)
     xp = np.vstack([x, np.zeros((1, x.shape[1]), np.float32)])
     labels = np.concatenate([y, [0]]).astype(np.int32)
     mask = np.zeros(n + 1, bool)
@@ -64,11 +75,12 @@ def _gnn_setup(arch_id, cfg, seed, backend: str = "dense",
     def t(a):
         return torch.from_numpy(a).to(dev)
     batch = {"x": t(xp), "senders": g.senders, "receivers": g.receivers,
-             "edge_valid": g.edge_valid, "edge_weight": g.edge_weight,
-             "labels": t(labels), "label_mask": t(mask)}
-    # cuda/cuda_q8 need host-precomputed layouts; dense/chunked run off the
-    # inline plan the model builds from the batch arrays.  The graph goes
-    # through the plan cache, so re-building the step re-packs nothing.
+             "edge_valid": g.edge_valid, "labels": t(labels),
+             "label_mask": t(mask)}
+    if gcn_like:
+        batch["edge_weight"] = g.edge_weight
+    # the graph goes through the plan cache: re-building the step re-packs
+    # nothing, and the plan keeps its sums' orders from step to step
     step = steps_mod.build_gnn_step(arch_id, cfg, adamw.AdamWConfig(lr=1e-2),
                                     backend=backend, graph=g,
                                     two_hop=two_hop or None)
@@ -80,11 +92,39 @@ def _gnn_setup(arch_id, cfg, seed, backend: str = "dense",
     return params, step, batches()
 
 
+def _recsys_setup(arch_id, seed, batch: int, device: DeviceLike = None):
+    """(params, step, batches) for the RecSys arch at its *reduced*
+    config, as the reference trains it: AdamW at lr 1e-3 on
+    ``dlrm_batch(batch, seed=i)`` for i = 0, 1, …"""
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.models.recsys import dlrm
+    dev = resolve_device(device)
+    cfg = registry.get_config(arch_id, reduced=True)
+    params = dlrm.init_params(cfg, torch.Generator().manual_seed(seed),
+                              device=dev)
+    step = steps_mod.build_recsys_step(cfg, RECSYS_SHAPES["train_batch"],
+                                       adamw.AdamWConfig(lr=1e-3))
+
+    def batches():
+        i = 0
+        while True:
+            d, ids, y = syn.dlrm_batch(batch, cfg.n_dense, cfg.vocab_sizes,
+                                       seed=i)
+            yield {"dense": torch.from_numpy(d).to(dev),
+                   "sparse_ids": torch.from_numpy(ids).to(dev),
+                   "labels": torch.from_numpy(y).to(dev)}
+            i += 1
+
+    return params, step, batches()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="assigned arch id (reduced)")
     ap.add_argument("--preset", default=None, choices=[None, "lm100m"])
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="samples a step (recsys)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory; a committed step there is "
@@ -96,7 +136,7 @@ def main(argv=None):
                     help="sparse aggregation executor (GNN archs)")
     ap.add_argument("--two-hop", action="store_true",
                     help="aggregate over the SpGEMM-precomputed Â² two-hop "
-                         "graph (gcn)")
+                         "graph (gcn; gat raises)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -107,16 +147,15 @@ def main(argv=None):
             "the lm100m preset trains the LM family, not ported yet "
             "(ROADMAP queue A8)")
     arch_id = args.arch or "gcn-cora"
-    fam = registry.entry(arch_id).family
-    if fam == "recsys":
-        raise NotImplementedError(
-            "DLRM training is not ported yet (ROADMAP queue A1, its DLRM "
-            "item)")
-    cfg = registry.get_config(arch_id, reduced=not args.full_gnn)
-    params, step, batches = _gnn_setup(arch_id, cfg, args.seed,
-                                       backend=args.backend,
-                                       two_hop=args.two_hop,
-                                       device=args.device)
+    if registry.entry(arch_id).family == "recsys":
+        params, step, batches = _recsys_setup(arch_id, args.seed,
+                                              args.batch, args.device)
+    else:
+        cfg = registry.get_config(arch_id, reduced=not args.full_gnn)
+        params, step, batches = _gnn_setup(arch_id, cfg, args.seed,
+                                           backend=args.backend,
+                                           two_hop=args.two_hop,
+                                           device=args.device)
     state = train_loop.TrainState(params=params,
                                   opt_state=adamw.init_state(params))
     cfg_loop = train_loop.TrainLoopConfig(

@@ -91,8 +91,15 @@ def loss_fn(params: Params, cfg: GCNConfig, x: torch.Tensor, senders,
     ``log_softmax``, the label's log-probability, mean over the labelled
     nodes (``max(mask.sum(), 1)``)."""
     logits = forward(params, cfg, x, senders, receivers, edge_weight,
-                     edge_valid, backend=backend, plan=plan).float()
-    logp = torch.log_softmax(logits, dim=-1)
+                     edge_valid, backend=backend, plan=plan)
+    return masked_xent(logits, labels, label_mask)
+
+
+def masked_xent(logits: torch.Tensor, labels: torch.Tensor,
+                label_mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of f32 ``logits`` against ``labels``, averaged over the
+    nodes ``label_mask`` selects (at least one)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(1, labels.to(torch.int64)[:, None])[:, 0]
     m = label_mask.to(torch.float32)
     return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)

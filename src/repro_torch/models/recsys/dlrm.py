@@ -4,7 +4,9 @@
 All 26 tables are fused into one ``(padded_vocab, D)`` table with per-field
 offsets.  The lookup goes through the EmbeddingBag kernel
 (``kernels/embedding_bag``, B6): on the card it is the hand-written CUDA
-kernel, on CPU tensors its plain version.  The dot interaction is a batched
+kernel, on CPU tensors its plain version; in training its backward is an
+order-fixed scatter of the bags' cotangents into the table's gradient
+(``kernels/embedding_bag/ops.lookup``).  The dot interaction is a batched
 Gram matrix (``torch.bmm``) and its upper triangle; the MLPs are plain
 ``x @ w + b`` products.  Parameters are ``{"table", "bot": {w_i, b_i},
 "top": {w_i, b_i}}`` as in the reference.
@@ -132,8 +134,8 @@ def forward(params: Params, cfg: DLRMConfig, dense: torch.Tensor,
 
 def loss_fn(params: Params, cfg: DLRMConfig, dense: torch.Tensor,
             sparse_ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy on the logits, in its stable form
-    (forward only: training is not ported yet)."""
+    """Mean binary cross-entropy on the logits, in its stable form; its
+    gradient reaches the table through the lookup's Function."""
     logits = forward(params, cfg, dense, sparse_ids).float()
     return torch.mean(torch.clamp(logits, min=0) - logits * labels
                       + torch.log1p(torch.exp(-logits.abs())))

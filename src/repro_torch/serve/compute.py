@@ -11,8 +11,9 @@ PyTorch runs eagerly, so a "build" is the host plan packing plus the
 closure; ``StepCache.builds`` still counts cache misses, and steady-state
 serving must hold it constant after warm-up.
 
-Only ``gcn`` is ported; the reference's other servable archs raise
-``KeyError``.
+The conv family is ported: ``gcn`` (sym-normed, self loops) and the
+unweighted ``sage``, ``gin`` and ``gat``, whose edge validity flows in
+through ``plan_with_values``; the geometric archs raise ``KeyError``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.buckets import BucketStructure
 from repro_torch.sparse.plan import make_plan, plan_with_values
 
-PORTED_ARCHS = ("gcn",)
+PORTED_ARCHS = ("gcn", "gat", "sage", "gin")
 REFERENCE_ARCHS = ("gcn", "gat", "sage", "gin", "schnet", "dimenet")
 
 
@@ -141,31 +142,50 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
     bucket on the store's device.  ``node_ids``/``hop_valid`` may be numpy
     arrays or tensors; everything else (structure, plan, store) is closed
     over."""
-    _arch_key(arch_id)                 # raises for archs not ported yet
-    if not struct.with_loops:
+    arch = _arch_key(arch_id)          # raises for archs not ported yet
+    if arch == "gcn" and not struct.with_loops:
         raise ValueError("gcn serving needs with_loops=True structure "
                          "(A + I normalization)")
-    from repro_torch.models.gnn import gcn as m
     dev = store.device
     n = struct.n_nodes
     k = struct.n_seeds
-    senders = torch.from_numpy(struct.senders.astype(np.int64)).to(dev)
-    receivers = torch.from_numpy(struct.receivers.astype(np.int64)).to(dev)
     plan0 = bucket_plan(struct, backend, dev)
+
+    def edge_validity(node_ids, hop_valid):
+        if struct.with_loops:
+            return torch.cat([hop_valid, node_ids >= 0])
+        return hop_valid
+
+    if arch == "gcn":
+        from repro_torch.models.gnn import gcn as m
+        senders = torch.from_numpy(struct.senders.astype(np.int64)).to(dev)
+        receivers = torch.from_numpy(
+            struct.receivers.astype(np.int64)).to(dev)
+
+        def weighted(ev):
+            # symmetric normalization on the sampled subgraph: in-degree
+            # over valid edges, self loops included
+            deg = torch.zeros(n, device=dev).index_add_(
+                0, receivers, ev.to(torch.float32))
+            dinv = torch.rsqrt(deg.clamp_min(1.0))
+            return plan_with_values(plan0,
+                                    edge_weight=dinv[senders]
+                                    * dinv[receivers], edge_valid=ev)
+    else:
+        # the unweighted conv family: one shared closure, the model module
+        # is the only thing that differs (validity flows in as plan values)
+        import importlib
+        m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+
+        def weighted(ev):
+            return plan_with_values(plan0, edge_valid=ev)
 
     def step(params, node_ids, hop_valid):
         node_ids = torch.as_tensor(node_ids, device=dev)
         hop_valid = torch.as_tensor(hop_valid, device=dev)
         with torch.no_grad():
             x = store.x.index_select(0, store.row_index(node_ids))
-            ev = torch.cat([hop_valid, node_ids >= 0])
-            # symmetric normalization on the sampled subgraph: in-degree
-            # over valid edges, self loops included
-            deg = torch.zeros(n, device=dev).index_add_(
-                0, receivers, ev.to(torch.float32))
-            dinv = torch.rsqrt(deg.clamp_min(1.0))
-            w = dinv[senders] * dinv[receivers]
-            pl = plan_with_values(plan0, edge_weight=w, edge_valid=ev)
+            pl = weighted(edge_validity(node_ids, hop_valid))
             return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
 
     return step

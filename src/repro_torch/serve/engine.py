@@ -46,6 +46,12 @@ from repro_torch.serve.telemetry import percentiles_ms
 from repro_torch.sparse import sampler
 
 
+def _needs_loops(arch_id: str) -> bool:
+    """gcn's A + I normalization needs self loops; sage, gin and gat
+    aggregate over the sampled edges alone."""
+    return _arch_key(arch_id) == "gcn"
+
+
 def default_tree_keys(rid: int, n: int) -> np.ndarray:
     """One counter-hash stream per (request, seed index): deterministic and
     independent of how requests group into sampling calls, so offline
@@ -300,7 +306,7 @@ class GNNServer:
     def _struct(self, bucket: int):
         if bucket not in self._structs:
             self._structs[bucket] = build_bucket_structure(
-                bucket, self.fanouts, with_loops=True)
+                bucket, self.fanouts, with_loops=_needs_loops(self.arch_id))
         return self._structs[bucket]
 
     def _device_batch(self, batch: List[ServeRequest],

@@ -7,7 +7,7 @@ Port of ``repro.sparse.backend``.  Every sparse aggregation goes through
 
 dispatched over a registry of interchangeable executors:
 
-* ``dense``   — one-shot gather + ``index_add_`` (baseline);
+* ``dense``   — one-shot gather + ordered segment sum (baseline);
 * ``chunked`` — rolling-eviction waves (paper C3);
 * ``cuda``    — the hand-written Gustavson kernel on the dedup-chunk layout
                 (``kernels/gustavson_spmm``), the counterpart of the
@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core import spgemm as core_spgemm
 from repro_torch.sparse.plan import (ALL_BACKENDS, AggregationPlan,
-                                     BackendPlanError, scatter_tiles,
+                                     BackendPlanError, forward_tiles,
                                      transpose_tiles)
 
 __all__ = ["Backend", "BACKENDS", "ALL_BACKENDS", "BackendPlanError",
@@ -172,13 +172,16 @@ def _mask_messages(plan: AggregationPlan,
 
 def _dense_aggregate(plan, vals, x):
     pp = core_spgemm.multiply_stage(plan.cols, _edge_vals(plan, vals,
-                                                          x.dtype), x)
-    return core_spgemm.accumulate_stage(pp, plan.rows, plan.n_rows)
+                                                          x.dtype), x,
+                                    plan.order("cols"))
+    return core_spgemm.accumulate_stage(pp, plan.rows, plan.n_rows,
+                                        plan.order("rows"))
 
 
 def _dense_accumulate(plan, messages):
     return core_spgemm.accumulate_stage(_mask_messages(plan, messages),
-                                        plan.rows, plan.n_rows)
+                                        plan.rows, plan.n_rows,
+                                        plan.order("rows"))
 
 
 register_backend(Backend("dense", _dense_aggregate, _dense_accumulate))
@@ -191,13 +194,14 @@ register_backend(Backend("dense", _dense_aggregate, _dense_accumulate))
 def _chunked_aggregate(plan, vals, x):
     v = _edge_vals(plan, vals, x.dtype)
     return core_spgemm.spmm_chunked(plan.rows, plan.cols, v, x, plan.n_rows,
-                                    chunk=plan.chunk)
+                                    chunk=plan.chunk, order_of=plan.order)
 
 
 def _chunked_accumulate(plan, messages):
     return core_spgemm.segment_sum_chunked(plan.rows,
                                            _mask_messages(plan, messages),
-                                           plan.n_rows, chunk=plan.chunk)
+                                           plan.n_rows, chunk=plan.chunk,
+                                           order_of=plan.order)
 
 
 register_backend(Backend("chunked", _chunked_aggregate, _chunked_accumulate))
@@ -215,11 +219,11 @@ def _wants_grad(vals, x) -> bool:
 
 def _forward_tiles(plan, vals):
     """The forward coefficient tiles: the plan's, or ``vals`` scattered
-    through the slot map (its ``index_add_`` carries dA back to ``vals``)."""
+    through the slot map in the plan's fixed order (the scatter carries dA
+    back to ``vals``)."""
     if vals is None:
         return plan.ell_a
-    return scatter_tiles(plan.ell_a, plan.ell_slots,
-                         _edge_vals(plan, vals, torch.float32))
+    return forward_tiles(plan, _edge_vals(plan, vals, torch.float32))
 
 
 def _transpose_operands(plan, vals, x):

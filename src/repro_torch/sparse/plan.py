@@ -12,7 +12,8 @@ dispatches to, as tensors on one device:
   the backward of training (dX = Aᵀ·dY).  ``ell_block_ptr`` and
   ``ell_t_block_ptr`` hold each output block's chunk range, which the
   CUDA kernel walks.  Per-edge ``ell_slots``/``ell_t_slots`` let edge
-  values be scatter-added into the coefficient tiles on device;
+  values be scatter-added into the coefficient tiles on device, in a fixed
+  order where two edges share a cell (``scatter_order``);
 * the forward tiles quantized to int8 with one scale per chunk
   (``ell_a_q8``/``ell_a_scale``, ``sparse.quantize``) — the ``cuda_q8``
   kernel's operands, baked when ``backends`` names ``cuda_q8``.
@@ -75,10 +76,25 @@ class AggregationPlan:
     ell_t_a: Optional[torch.Tensor] = None
     ell_t_slots: Optional[torch.Tensor] = None
     ell_t_block_ptr: Optional[torch.Tensor] = None  # (n_t_blocks+1,) int32
+    # the order of the tile scatters where valid edges share a cell
+    # (``scatter_order``; all None where every valid edge has its own)
+    ell_first_slots: Optional[torch.Tensor] = None  # (E,) int64
+    ell_dup_edges: Optional[torch.Tensor] = None    # (M,) int64
+    ell_dup_slots: Optional[torch.Tensor] = None    # (M,) int64
+    ell_dup_bounds: tuple = ()                      # layer ends in dup_*
+    ell_t_first_slots: Optional[torch.Tensor] = None
+    ell_t_dup_edges: Optional[torch.Tensor] = None
+    ell_t_dup_slots: Optional[torch.Tensor] = None
+    ell_t_dup_bounds: tuple = ()
     # int8 forward tiles (`cuda_q8`): per-chunk symmetric scales, baked at
     # plan time from the f32 tiles and re-quantized by plan_with_values
     ell_a_q8: Optional[torch.Tensor] = None       # (n_chunks·BR, width) int8
     ell_a_scale: Optional[torch.Tensor] = None    # (n_chunks,) f32
+    # the SegmentOrders of ``rows``/``cols`` (``order``), built on first
+    # use and keyed by the id tensor: plans re-valued by
+    # ``plan_with_values`` (same rows and cols) share them
+    orders: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def has(self, section: str) -> bool:
         if section == "ell":
@@ -96,6 +112,21 @@ class AggregationPlan:
     def device(self) -> torch.device:
         return self.rows.device
 
+    def order(self, axis: str, lo: int = 0, hi: Optional[int] = None):
+        """The ``segment_ops.SegmentOrder`` of ``rows`` or ``cols`` (edges
+        ``lo:hi``) over the plan's ``n_rows`` rows: built with one sort on
+        the plan's device the first time it is asked for, then kept, so
+        the ``dense``/``chunked`` executors and GAT's score stage add in a
+        fixed order without a sort per call."""
+        ids = getattr(self, axis)
+        key = (axis, lo, hi, self.n_rows, id(ids))
+        got = self.orders.get(key)
+        if got is None or got[0] is not ids:
+            from repro_torch.sparse.segment_ops import segment_order
+            got = self.orders[key] = (ids, segment_order(ids[lo:hi],
+                                                         self.n_rows))
+        return got[1]
+
 
 def block_ptr_from_first(first: np.ndarray, n_blocks: int) -> np.ndarray:
     """Per-output-block chunk offsets ``(n_blocks+1,)`` from the ``first``
@@ -105,6 +136,37 @@ def block_ptr_from_first(first: np.ndarray, n_blocks: int) -> np.ndarray:
         raise ValueError(f"{starts.size} first-chunk flags for {n_blocks} "
                          "output blocks")
     return np.append(starts, first.shape[0]).astype(np.int32)
+
+
+def scatter_order(slots: np.ndarray, n_cells: int):
+    """The fixed order in which edge values that share a tile cell add up.
+
+    ``slots`` maps each edge to its cell (``n_cells``: dropped).  Returns
+    ``None`` when no two live slots share a cell: one ``index_add_`` then
+    adds each value once onto zero, exact in any order.  Otherwise the
+    edges split into layers by their occurrence rank among their cell's
+    edges, in edge order: ``first`` (every edge's slot, later occurrences
+    sent to the dropped cell) holds layer 0, and layers 1, 2, … are the
+    slices ``edges[bounds[k-1]:bounds[k]]`` with their slots ``cells``.
+    No two slots of a layer share a cell, so the layers added one after
+    another give every cell ``((0 + v₁) + v₂) + …`` in edge order — the
+    sequential scatter's bits, on any device."""
+    slots = np.asarray(slots, np.int64)
+    live = np.flatnonzero(slots < n_cells)
+    order = live[np.argsort(slots[live], kind="stable")]
+    cell = slots[order]
+    new = np.r_[True, cell[1:] != cell[:-1]]
+    pos = np.arange(cell.size)
+    rank = pos - np.maximum.accumulate(np.where(new, pos, 0))
+    if not rank.any():
+        return None
+    later = rank > 0
+    first = slots.copy()
+    first[order[later]] = n_cells
+    o = np.lexsort((order[later], rank[later]))
+    edges = order[later][o]
+    bounds = np.cumsum(np.bincount(rank[later][o] - 1))
+    return first, edges, slots[edges], tuple(int(b) for b in bounds)
 
 
 def _values(valid: torch.Tensor, edge_weight) -> torch.Tensor:
@@ -198,6 +260,12 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
                        pre + "first": t(ch.first),
                        pre + "a": t(ch.a),
                        pre + "slots": t(slots)})
+            dup = scatter_order(slots, ch.a.size)
+            if dup is not None:
+                kw.update({pre + "first_slots": t(dup[0]),
+                           pre + "dup_edges": t(dup[1]),
+                           pre + "dup_slots": t(dup[2]),
+                           pre + "dup_bounds": dup[3]})
         if "cuda_q8" in backends:
             # bake the int8 tiles for the default-values path; given edge
             # values re-quantize (plan_with_values / the executor)
@@ -210,12 +278,31 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     return AggregationPlan(**kw)
 
 
-def _scatter(shape, dtype, slots: torch.Tensor,
-             vals: torch.Tensor) -> torch.Tensor:
+def _scatter(shape, dtype, slots: torch.Tensor, vals: torch.Tensor,
+             order=None) -> torch.Tensor:
     n = shape[0] * shape[1]
     flat = vals.new_zeros(n + 1, dtype=dtype)
-    flat.index_add_(0, slots.clamp(0, n), vals.to(dtype))
+    v = vals.to(dtype)
+    if order is None:
+        flat.index_add_(0, slots.clamp(0, n), v)
+        return flat[:n].reshape(shape)
+    # cells shared by several edges: layer by layer (see scatter_order),
+    # so no index_add_ ever adds twice into one kept cell
+    first, edges, cells, bounds = order
+    flat.index_add_(0, first, v)
+    lo = 0
+    for hi in bounds:
+        flat.index_add_(0, cells[lo:hi], v.index_select(0, edges[lo:hi]))
+        lo = hi
     return flat[:n].reshape(shape)
+
+
+def _order(plan: "AggregationPlan", pre: str):
+    first = getattr(plan, pre + "first_slots")
+    if first is None:
+        return None
+    return (first, getattr(plan, pre + "dup_edges"),
+            getattr(plan, pre + "dup_slots"), getattr(plan, pre + "dup_bounds"))
 
 
 def scatter_tiles(a_base: torch.Tensor, slots: torch.Tensor,
@@ -223,10 +310,22 @@ def scatter_tiles(a_base: torch.Tensor, slots: torch.Tensor,
     """Coefficient tiles of ``a_base``'s shape holding ``vals``
     scatter-added at ``slots``.
 
-    Duplicate edges share a cell, so the values add.  Out-of-bounds slots
-    (padding edges) land in one trash cell past the end, which is cut off:
-    JAX's ``mode="drop"`` without a scatter that faults."""
+    Duplicate edges share a cell, so the values add — by atomics on CUDA,
+    in no fixed order (``forward_tiles`` adds them in edge order).
+    Out-of-bounds slots (padding edges) land in one trash cell past the
+    end, which is cut off: JAX's ``mode="drop"`` without a scatter that
+    faults."""
     return _scatter(a_base.shape, a_base.dtype, slots, vals)
+
+
+def forward_tiles(plan: "AggregationPlan",
+                  vals: torch.Tensor) -> torch.Tensor:
+    """The forward coefficient tiles for per-edge ``vals``, scattered
+    through ``ell_slots`` in the plan's fixed order (``scatter_order``):
+    bitwise the CPU's sequential scatter on any device.  Gradients reach
+    ``vals`` through the scatter."""
+    return _scatter(plan.ell_a.shape, plan.ell_a.dtype, plan.ell_slots, vals,
+                    _order(plan, "ell_"))
 
 
 def transpose_tiles(plan: "AggregationPlan",
@@ -236,15 +335,17 @@ def transpose_tiles(plan: "AggregationPlan",
 
     The plan's own ``ell_t_a`` serves the default values; otherwise (given
     values, or a plan whose ``ell_t_a`` ``plan_with_values`` dropped) the
-    tiles are scattered from ``ell_t_slots``, so a backward never reads
-    missing or stale tiles.  They carry no gradient: edge values reach the
-    gradient through the forward tiles alone."""
+    tiles are scattered from ``ell_t_slots`` in the plan's fixed order, so
+    a backward never reads missing or stale tiles.  They carry no
+    gradient: edge values reach the gradient through the forward tiles
+    alone."""
     if vals is None and plan.ell_t_a is not None:
         return plan.ell_t_a
     v = plan.base_vals if vals is None else vals
     shape = (plan.ell_t_u_cols.shape[0] * plan.block_rows,
              plan.ell_t_u_cols.shape[1])
-    return _scatter(shape, torch.float32, plan.ell_t_slots, v.detach())
+    return _scatter(shape, torch.float32, plan.ell_t_slots, v.detach(),
+                    _order(plan, "ell_t_"))
 
 
 def plan_with_values(plan: AggregationPlan, edge_weight=None,
@@ -263,14 +364,15 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
     the old values.  A backward pass re-values them from ``ell_t_slots``
     (``transpose_tiles``).  A plan that carries int8 tiles gets them
     re-quantized from the new forward tiles, on the device, with no read
-    back to the host.
+    back to the host.  Edges that share a cell add in edge order
+    (``scatter_order``); a plan whose valid edges each own a cell, as a
+    serving bucket's tree layout does, scatters in one ``index_add_``.
     """
     valid = plan.valid if edge_valid is None else edge_valid
     base = _values(valid, edge_weight)
     kw = dict(valid=valid, base_vals=base)
     if plan.ell_u_cols is not None:
-        kw.update(ell_a=scatter_tiles(plan.ell_a, plan.ell_slots, base),
-                  ell_t_a=None)
+        kw.update(ell_a=forward_tiles(plan, base), ell_t_a=None)
         if plan.ell_a_q8 is not None:
             from repro_torch.sparse.quantize import quantize_chunk_tiles
             kw["ell_a_q8"], kw["ell_a_scale"] = quantize_chunk_tiles(

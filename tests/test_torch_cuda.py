@@ -1134,22 +1134,53 @@ def test_function_backward_matches_plain(cuda, graph, q8, d):
 @pytest.mark.parametrize("backend", ["cuda", "cuda_q8"])
 def test_executor_value_gradients_match_cpu(cuda, graph, backend):
     """Traced edge values through the executors: dX and d(vals) on the
-    card equal the CPU's (≤1e-5).  (The tiles come from ``scatter_tiles``,
-    whose ``index_add_`` adds a repeated edge's values by atomics on the
-    card, in no fixed order: the bits may move run to run there.)"""
+    card equal the CPU's (≤1e-5), and two runs on the card are bitwise
+    equal: the tiles come from the plan's order-fixed scatter (repeated
+    edges share cells in both graphs' plans)."""
     plan, cpu_plan, n = _grad_plans(graph, cuda)
+    assert plan.ell_first_slots is not None
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
     dy = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
     vals = cpu_plan.base_vals.clone()
     out = []
-    for p, dev in ((plan, cuda), (cpu_plan, torch.device("cpu"))):
+    for p, dev in ((plan, cuda), (plan, cuda),
+                   (cpu_plan, torch.device("cpu"))):
         xx = x.to(dev).requires_grad_()
         vv = vals.to(dev).requires_grad_()
         y = sb.aggregate(p, vv, xx, backend=backend)
-        out.append([t.cpu() for t in torch.autograd.grad(y, (xx, vv),
-                                                          dy.to(dev))])
-    for got, want in zip(*out):
+        out.append([y.detach().cpu()] + [
+            t.cpu() for t in torch.autograd.grad(y, (xx, vv), dy.to(dev))])
+    for a, b in zip(out[0], out[1]):
+        assert torch.equal(a, b)
+    for got, want in zip(out[0], out[2]):
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("graph", ["cora", "hub"])
+@pytest.mark.parametrize("backend", ["dense", "chunked"])
+def test_ordered_executors_bitwise_run_to_run(cuda, graph, backend):
+    """``dense`` and ``chunked`` on the orders the plan keeps: y, dX and
+    d(vals) bitwise equal run to run and within 1e-5 of the CPU's; the
+    second run builds no order."""
+    plan, cpu_plan, n = _grad_plans(graph, cuda)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
+    vals = cpu_plan.base_vals.clone()
+    out, n_orders = [], []
+    for p, dev in ((plan, cuda), (plan, cuda),
+                   (cpu_plan, torch.device("cpu"))):
+        xx = x.to(dev).requires_grad_()
+        vv = vals.to(dev).requires_grad_()
+        y = sb.aggregate(p, vv, xx, backend=backend)
+        out.append([y.detach().cpu()] + [
+            t.cpu() for t in torch.autograd.grad(y, (xx, vv), dy.to(dev))])
+        n_orders.append(len(p.orders))
+    assert n_orders[0] == n_orders[1] > 0
+    for a, b in zip(out[0], out[1]):
+        assert torch.equal(a, b)
+    for got, want in zip(out[0], out[2]):
         assert float((got - want).abs().max()) <= 1e-5
 
 
@@ -1212,3 +1243,189 @@ def test_cuda_training_step_matches_dense(cuda, monkeypatch):
         for k, g in p.items():
             want = out["dense"][1][layer][k]
             torch.testing.assert_close(g, want, rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# order-fixed sums: segment ops, tile scatter, GAT/GIN, the DLRM lookup
+# ---------------------------------------------------------------------------
+
+def _twice_and_cpu(fn, dev):
+    """fn(device) → list of tensors, run twice on the card and once on the
+    CPU: (first card run, second card run, CPU run), all on the CPU."""
+    runs = [[t.detach().cpu() for t in fn(d)]
+            for d in (dev, dev, torch.device("cpu"))]
+    torch.cuda.synchronize()
+    return runs
+
+
+@pytest.mark.parametrize("op", ["segment_sum", "segment_max",
+                                "segment_mean", "segment_softmax"])
+def test_segment_ops_bitwise_run_to_run(cuda, op):
+    """Each op and its gradient on the card: bitwise run to run, and equal
+    to the CPU's within 1e-6 (sums of 4,000 entries into 50 segments)."""
+    from repro_torch.sparse import segment_ops as so
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 51, 4000)                    # 50: dropped
+    x = rng.normal(size=(4000, 8)).astype(np.float32)
+    c = rng.normal(size=(4000, 8)).astype(np.float32)
+
+    def run(dev):
+        xx = torch.from_numpy(x).to(dev).requires_grad_()
+        y = getattr(so, op)(xx, torch.from_numpy(ids).to(dev), 50)
+        cc = torch.from_numpy(c).to(dev)[: y.shape[0]]
+        (g,) = torch.autograd.grad((y * cc).sum(), xx)
+        return y, g
+    a, b, cpu = _twice_and_cpu(run, cuda)
+    for u, v, w in zip(a, b, cpu):
+        assert torch.equal(u, v)
+        torch.testing.assert_close(u, w, rtol=1e-5, atol=1e-6)
+
+
+def test_tile_scatter_equals_cpu_bitwise(cuda):
+    """The layered scatter adds a shared cell's values in edge order on the
+    card too: the forward and transpose tiles equal the CPU's bit for bit
+    at the Cora-scale plan (99 repeated pairs, up to 3 edges a cell)."""
+    from repro_torch.sparse.plan import forward_tiles, transpose_tiles
+    s, r, _, _, _ = cora_like(seed=0)
+    plans = [make_plan(s, r, 2709, backends=("cuda",), device=d)
+             for d in (cuda, "cpu")]
+    assert len(plans[0].ell_dup_bounds) == 2
+    v = torch.from_numpy(np.random.default_rng(1).normal(
+        size=s.shape[0]).astype(np.float32))
+    for build in (forward_tiles, transpose_tiles):
+        got = build(plans[0], v.to(cuda)).cpu()
+        assert torch.equal(got, build(plans[1], v))
+
+
+def _gnn_batch(arch, dev):
+    """(model, cfg, params, loss closure) at small widths on the Cora-scale
+    graph (GAT; repeated edges) or a molecule batch (GIN)."""
+    from repro_torch.data.synthetic import molecule_batch
+    from repro_torch.models.gnn import gat, gin
+    gen = torch.Generator().manual_seed(0)
+    if arch == "gat":
+        s, r, x, y, _ = cora_like(seed=0)
+        cfg = gat.GATConfig(d_in=1433, d_hidden=8, n_heads=4, n_classes=7)
+        x = np.vstack([x, np.zeros((1, 1433), np.float32)])
+        params = gat.init_params(cfg, gen, dev)
+        n = 2708
+        extra = dict(labels=torch.from_numpy(np.append(y, 0)).to(dev),
+                     mask=(torch.arange(n + 1) < 140).to(dev))
+    else:
+        _, _, snd, rcv, _, _ = molecule_batch(32, seed=0)
+        offs = (np.arange(32) * 30)[:, None]
+        s, r = (snd + offs).ravel(), (rcv + offs).ravel()
+        n = 32 * 30
+        rng = np.random.default_rng(3)
+        x = np.vstack([rng.normal(size=(n, 64)),
+                       np.zeros((1, 64))]).astype(np.float32)
+        cfg = gin.GINConfig()
+        params = gin.init_params(cfg, gen, dev)
+        gid = np.append(np.repeat(np.arange(32), 30), 32)
+        extra = dict(gid=torch.from_numpy(gid).to(dev),
+                     labels=torch.from_numpy(rng.integers(0, 4, 32)).to(dev))
+    return s, r, n, torch.from_numpy(x).to(dev), cfg, params, extra
+
+
+@pytest.mark.parametrize("arch", ["gat", "gin"])
+@pytest.mark.parametrize("backend", ["dense", "cuda", "cuda_q8"])
+def test_gnn_loss_gradients_bitwise_run_to_run(cuda, arch, backend):
+    """GAT's traced-value aggregations (one per head) and GIN's sum
+    aggregations with its readout: the loss and every gradient bitwise
+    equal run to run on the card; against the CPU the loss within 1e-5
+    (f32; the int8 path within ``Q8_E2E_TOL``), relative past 1, and the
+    f32 gradients within rtol 1e-4, atol 1e-5."""
+    from repro_torch import tree
+    from repro_torch.models.gnn import gat, gin
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+
+    def run(dev):
+        s, r, n, x, cfg, params, extra = _gnn_batch(arch, dev)
+        plan = make_plan(s, r, n + 1, backends=("dense", "chunked", "cuda",
+                                                "cuda_q8"), device=dev)
+        leaves, structure = tree.flatten(params)
+        live = [t.requires_grad_() for t in leaves]
+        p = tree.unflatten(structure, live)
+        if arch == "gat":
+            loss = gat.loss_fn(p, cfg, x, None, None, None, extra["labels"],
+                               extra["mask"], backend=backend, plan=plan)
+        else:
+            loss = gin.loss_fn(p, cfg, x, None, None, None, extra["gid"], 32,
+                               extra["labels"], backend=backend, plan=plan)
+        return [loss] + list(torch.autograd.grad(loss, live,
+                                                 materialize_grads=True))
+    a, b, cpu = _twice_and_cpu(run, cuda)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    tol = Q8_E2E_TOL if backend == "cuda_q8" else 1e-5
+    assert abs(float(a[0]) - float(cpu[0])) <= tol * max(1.0, abs(float(
+        cpu[0])))
+    if backend != "cuda_q8":
+        for u, w in zip(a[1:], cpu[1:]):
+            torch.testing.assert_close(u, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_trainable_lookup_bitwise_run_to_run(cuda, m):
+    """The lookup's Function: forward equal to B6's plain version, the
+    table gradient (power-law ids: repeats) bitwise run to run and equal
+    to the CPU's within 1e-6, one B6 launch a forward."""
+    from repro_torch.kernels.embedding_bag.ops import lookup
+    rng = np.random.default_rng(4)
+    v, d, b, f = 5000, 64, 4096, 8
+    ids = np.minimum((v * rng.random((b, f, m)) ** 3).astype(np.int32),
+                     v - 1)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    c = rng.normal(size=(b, f, d)).astype(np.float32)
+
+    def run(dev):
+        t = torch.from_numpy(table).to(dev).requires_grad_()
+        before = embedding_bag.launches
+        out = lookup(torch.from_numpy(ids).to(dev), t)
+        assert embedding_bag.launches == before + (dev.type == "cuda")
+        (g,) = torch.autograd.grad(
+            (out * torch.from_numpy(c).to(dev)).sum(), t)
+        return out, g
+    a, b2, cpu = _twice_and_cpu(run, cuda)
+    for u, w in zip(a, b2):
+        assert torch.equal(u, w)
+    assert torch.equal(a[0], embedding_bag_plain(
+        torch.from_numpy(ids), torch.from_numpy(table)).reshape(b, f, d))
+    torch.testing.assert_close(a[1], cpu[1], rtol=1e-5, atol=1e-6)
+
+
+def test_dlrm_training_step_bitwise_run_to_run(cuda):
+    """Two steps of ``build_recsys_step("train")`` at dlrm-rm2's widths
+    (vocabularies cut to ≤ 20,000 rows), batch 4,096: bitwise run to run on
+    the card, one B6 launch a step, the loss within 1e-4 of the CPU's."""
+    import dataclasses as dc
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.launch.steps import build_recsys_step
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.optim import adamw
+    cfg = dc.replace(dlrm_rm2.FULL, vocab_sizes=tuple(
+        min(v, 20_000) for v in dlrm_rm2.FULL.vocab_sizes))
+
+    def run(dev):
+        params = dlrm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        step = build_recsys_step(cfg, RECSYS_SHAPES["train_batch"],
+                                 adamw.AdamWConfig(lr=1e-3))
+        opt, losses = adamw.init_state(params), []
+        for i in range(2):
+            dn, ids, y = dlrm_batch(4096, cfg.n_dense, cfg.vocab_sizes,
+                                    seed=i)
+            before = embedding_bag.launches
+            params, opt, met = step(params, opt, {
+                "dense": torch.from_numpy(dn).to(dev),
+                "sparse_ids": torch.from_numpy(ids).to(dev),
+                "labels": torch.from_numpy(y).to(dev)})
+            assert embedding_bag.launches == before + (dev.type == "cuda")
+            losses.append(met["loss"])
+        return losses + [params["table"], params["top"]["w0"]]
+    a, b, cpu = _twice_and_cpu(run, cuda)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    for u, w in zip(a[:2], cpu[:2]):
+        assert abs(float(u) - float(w)) <= 1e-4

@@ -154,8 +154,19 @@ def test_recsys_steps_match_reference_steps(model, shape):
 
 
 def test_train_step_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A1"):
-        build_recsys_step(dlrm_rm2.reduced(), RECSYS_SHAPES["train_batch"])
+    """DLRM training is ported now (``tests/test_torch_dlrm_train.py``
+    holds it against the reference): the train kind builds a step that
+    updates every parameter, where it used to raise."""
+    cfg = dlrm_rm2.reduced()
+    params = dlrm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    from repro_torch.optim import adamw
+    d, ids, y = _batch(cfg, 8)
+    new, _, m = build_recsys_step(cfg, RECSYS_SHAPES["train_batch"])(
+        params, adamw.init_state(params),
+        {"dense": torch.from_numpy(d), "sparse_ids": torch.from_numpy(ids),
+         "labels": torch.from_numpy(y)})
+    assert np.isfinite(float(m["loss"]))
+    assert not torch.equal(new["table"], params["table"])
 
 
 def test_init_params_shapes_and_scale():

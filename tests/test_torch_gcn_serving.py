@@ -123,7 +123,7 @@ def test_unported_archs_raise(world):
     tstore = tcompute.FeatureStore.build(N, world["x"], device="cpu")
     struct = build_bucket_structure(1, FANOUTS, with_loops=True)
     with pytest.raises(KeyError, match="not ported yet"):
-        tcompute.build_infer_step("gat", world["tcfg"], tstore, struct)
+        tcompute.build_infer_step("schnet", world["tcfg"], tstore, struct)
 
 
 @pytest.fixture(scope="module")

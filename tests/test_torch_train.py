@@ -637,8 +637,7 @@ def test_train_cli(tmp_path, capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--full-gnn", "--steps", "1"])
     for bad, item in ((["--preset", "lm100m"], "A8"),
-                      (["--arch", "dlrm-rm2"], "A1"),
-                      (["--arch", "gat-cora"], "A2"),
+                      (["--arch", "schnet"], "A2"),
                       (["--arch", "qwen3-0.6b"], "A8")):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.main(bad + ["--device", "cpu"])
@@ -656,7 +655,8 @@ def test_build_gnn_step_guards():
         build_gnn_step("gcn-cora", FULL, graph=g,
                        plan=_tplan(s, r, 41), two_hop=True)
     with pytest.raises(NotImplementedError, match="A2"):
-        build_gnn_step("gat-cora", FULL, graph=g)
-    assert resolve_gnn_plan(g, "dense") is None
+        build_gnn_step("schnet", FULL, graph=g)
+    assert not resolve_gnn_plan(g, "dense").has("ell")
+    assert resolve_gnn_plan(g, "dense") is resolve_gnn_plan(g, "chunked")
     assert resolve_gnn_plan(g, "cuda").has("ell")
     assert resolve_gnn_plan(g, "cuda") is resolve_gnn_plan(g, "cuda")
