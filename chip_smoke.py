@@ -157,7 +157,7 @@ Phases, each of which raises (exit code 1) on any failure:
     at full width and GIN at ``GINConfig()`` (on seeded N(0, 1) features)
     on the Cora-scale graph, SAGE at ``SAGEConfig()`` (602 → 64 →
     41) on a graph of minibatch_lg's size drawn as phase 2 draws it, at
-    fanouts (15, 10); then training, 50 steps each on ``dense``, ``cuda``
+    fanouts (15, 10); then training, 30 steps each on ``dense``, ``cuda``
     and ``cuda_q8``: gat-cora through ``launch/train``'s setup, GIN on one
     batch of the ``molecule`` shape (128 × 30 nodes, 64 edges, one-hot
     species, the quartile of the mean species as the label) through
@@ -171,7 +171,8 @@ Phases, each of which raises (exit code 1) on any failure:
     ``dense`` the loss alone, relative past 1 over Â²), the int8 runs' aggregations replayed on
     the CPU (≤1e-5); gat's whole runs against ``dense`` and the CPU ≤1e-4
     a step (GIN's recorded: its trajectory amplifies one rounding
-    difference past 1e-4 within 50 steps, on the CPU alone); one warm
+    difference past 1e-4 within a few tens of steps, on the CPU alone);
+    one warm
     step of each traced;
 15. DLRM training — dlrm-rm2's widths with each vocabulary capped at
     1,000,000 rows (6 of 26 fields; 6.85 M rows, 1.75 GB of table) at
@@ -180,11 +181,33 @@ Phases, each of which raises (exit code 1) on any failure:
     a step), bitwise equal to a second run and to a run resumed from its
     10-step commit, with peak device memory and one warm step traced; the
     first 5 steps at batch 4,096 against the same steps on the CPU
-    (≤1e-4).
+    (≤1e-4);
+16. SchNet and DimeNet — both at FULL (``schnet.FULL``: 3 interactions,
+    64 wide, 300 RBF; ``dimenet.FULL``: 6 blocks, 128 wide), served on the
+    Cora-scale graph with species and positions drawn as
+    ``gnn_serve.build_world`` draws them, at fanouts (5, 3), max batch 16,
+    256 single-seed requests, on ``cuda`` and ``cuda_q8`` (both accumulate
+    in f32 on the chunked schedule: no B1 or B4 launch) with the host and
+    the device sampler (one ``forest_sample`` a step), held to offline
+    replay within 1e-5 relative to the outputs past 1 (DimeNet's energies
+    reach ~700) with no rebuild, each warm bucket-16 step traced; then
+    trained on one batch of the ``molecule`` shape (3,840 atoms, 8,192
+    edges, 65,536 triplet slots), AdamW (lr 1e-3, DimeNet 1e-4), 8 steps
+    each: SchNet and DimeNet on ``dense``, ``cuda`` and ``cuda_q8``,
+    DimeNet also with its Â² output stage on ``cuda`` and ``cuda_q8`` (Â²
+    built once in f32 by B2, then 2 B1 a ``cuda`` step, B4 + B1 a
+    ``cuda_q8`` step; the one-hop runs launch no kernel), each counted,
+    bitwise equal to a second run and to a run resumed from its 4-step
+    commit, each step's loss
+    (relative past 1) and gradient norm (relative past the first step's)
+    within 1e-4 of the same parameters' on ``dense`` and, at the last step,
+    on the CPU (int8 over Â²: ``Q8_E2E_TOL`` against the CPU, its
+    aggregations replayed there ≤1e-5, against ``dense`` a reading), one
+    warm step of each traced.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
-12's wrapper calls and each training run of phases 13–15) and read just
+12's wrapper calls and each training run of phases 13–16) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -234,6 +257,7 @@ OGB_PRODUCTS = (2_449_029, 61_859_140, 100)
 # minibatch_lg's graph (nodes, edges), repro configs/shapes.py:66-69
 MINIBATCH_LG_GRAPH = (232_965, 114_615_892)
 QWEN3_ATTENTION = (1, 4096, 16, 8, 128)
+GEOM_ARCHS = ("schnet", "dimenet")
 
 
 class SmokeFailure(RuntimeError):
@@ -764,9 +788,26 @@ def q8_tol(ref, relative: bool) -> float:
     return Q8_E2E_TOL * max(1.0, float(np.abs(np.asarray(ref)).max()))
 
 
+def serve_tol(arch, backend, ref, q8_relative=False) -> float:
+    """The served-vs-replay bar: ``SERVE_TOL``, under int8 ``q8_tol``; for
+    the geometric family (f32 on every executor) ``SERVE_TOL`` relative to
+    the largest output past 1: DimeNet's per-atom energies at FULL with
+    random weights reach ~700, where one f32 ulp is 6e-5, and a bucket-16
+    step rounds its products otherwise than its bucket-1 replay."""
+    if arch in GEOM_ARCHS:
+        return SERVE_TOL * max(1.0, float(np.abs(np.asarray(ref)).max()))
+    if backend == "cuda_q8":
+        return q8_tol(ref, q8_relative)
+    return SERVE_TOL
+
+
 def aggregations_per_step(arch: str, cfg) -> int:
     """``sparse.backend.aggregate`` calls in one forward: one per layer,
-    and one per head on GAT's hidden layers."""
+    and one per head on GAT's hidden layers; none for schnet and dimenet,
+    whose vector messages go through ``accumulate`` (the chunked schedule
+    on every executor)."""
+    if arch in GEOM_ARCHS:
+        return 0
     if arch.startswith("gat"):
         return cfg.n_heads * (cfg.n_layers - 1) + 1
     return cfg.n_layers
@@ -832,10 +873,11 @@ def phase_serve(dev, mode, params, indptr, indices, store, seeds,
         if mode == "device":
             breakdown["device_step"] = device_step_breakdown(server, reqs)
     got = np.concatenate([r.result for r in reqs])
-    check(got.shape == (len(seeds), cfg.n_classes) and np.isfinite(
-        got).all(), f"{arch} {backend}/{mode}: served results malformed")
+    width = 1 if arch in GEOM_ARCHS else cfg.n_classes   # energies
+    check(got.shape == (len(seeds), width) and np.isfinite(got).all(),
+          f"{arch} {backend}/{mode}: served results malformed")
     err = float(np.abs(got - ref).max())
-    tol = q8_tol(ref, q8_relative) if backend == "cuda_q8" else SERVE_TOL
+    tol = serve_tol(arch, backend, ref, q8_relative)
     check(err <= tol, f"{arch} {backend}/{mode}: served vs offline replay "
                       f"{err:.3e} > {tol}")
     rec = dict(arch=arch, backend=backend, sampler=mode,
@@ -1320,7 +1362,7 @@ def q8_step_vs_cpu(server, seeds, relative=False) -> dict:
     card's inputs (≤1e-5), and the whole step's output (within
     ``q8_tol``: the CPU's own ``h @ W`` may round an int8 the other
     way)."""
-    from repro_torch.serve.compute import FeatureStore, build_infer_step
+    from repro_torch.serve.compute import build_infer_step
     step, node_ids, hop_valid = host_input_step(server, seeds)
     y, n_calls, replay_err = replay_aggregates_on_cpu(
         lambda: step(server.params, node_ids, hop_valid))
@@ -1328,13 +1370,16 @@ def q8_step_vs_cpu(server, seeds, relative=False) -> dict:
           and replay_err <= KERNEL_TOL,
           f"q8 step: {n_calls} aggregations, card vs CPU replay "
           f"{replay_err:.3e}")
-    store = FeatureStore(n_nodes=server.store.n_nodes,
-                         x=server.store.x.cpu())
-    cpu_step = build_infer_step(server.arch_id, server.cfg, store,
-                                server._struct(16), backend="cuda_q8")
+    cpu_step = build_infer_step(server.arch_id, server.cfg,
+                                server.store.to("cpu"), server._struct(16),
+                                backend="cuda_q8")
     y_cpu = cpu_step(tree_to(server.params, "cpu"), node_ids, hop_valid)
     err = float((y.cpu() - y_cpu).abs().max())
-    check(err <= q8_tol(y_cpu, relative), f"q8 step GPU vs CPU {err:.3e}")
+    # the geometric family runs no int8 aggregation: an f32 step, held
+    # relative to its outputs past 1 (as ``serve_tol``)
+    tol = (EXECUTOR_TOL * max(1.0, float(y_cpu.abs().max()))
+           if server.arch_id in GEOM_ARCHS else q8_tol(y_cpu, relative))
+    check(err <= tol, f"q8 step GPU vs CPU {err:.3e} > {tol}")
     return dict(step_aggregations_vs_cpu_replay=replay_err,
                 step_gpu_vs_cpu=err)
 
@@ -2326,7 +2371,7 @@ def phase_train(dev):
 # phase 14 — GAT, GIN and SAGE: serving and training
 # ---------------------------------------------------------------------------
 
-CONV_STEPS = 50
+CONV_STEPS = 30
 # (arch, backend, two_hop): GAT through launch/train's setup, GIN through
 # build_gnn_step, also over Â²
 CONV_RUNS = tuple((arch, backend, two_hop)
@@ -2481,8 +2526,8 @@ def phase_conv_train(dev):
     ``dense`` and on the CPU, in the loss and the gradient's norm; the
     whole run against the same run on
     ``dense`` and on the CPU (held for GAT, a reading for GIN, whose
-    trajectory amplifies a rounding difference past 1e-4 within 50 steps
-    on the CPU alone)."""
+    trajectory amplifies a rounding difference past 1e-4 within a few tens
+    of steps on the CPU alone)."""
     import shutil
     import tempfile
     from repro_torch.sparse.quantize import Q8_E2E_TOL
@@ -2877,11 +2922,289 @@ def dlrm_step_breakdown(dev, params, batch, n_steps: int = 5) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16 — SchNet and DimeNet: serving and training
+# ---------------------------------------------------------------------------
+
+GEOM_STEPS = 8
+GEOM_CKPT_EVERY = 4
+# the steps (0-based) of each run recomputed on the CPU from the card's
+# parameters: the last (a DimeNet step at FULL takes ~7 s on 8 cores)
+GEOM_CPU_AT = (GEOM_STEPS - 1,)
+# AdamW's rate: DimeNet's random-weight energies (~6,000 a molecule
+# against N(0, 1) targets) overshoot at 1e-3 within 8 steps
+GEOM_LR = {"schnet": 1e-3, "dimenet": 1e-4}
+# (arch, backend, two_hop): each through build_gnn_step on one batch of
+# the molecule shape; DimeNet also with its Â² output stage
+GEOM_RUNS = tuple((arch, backend, False) for arch in GEOM_ARCHS
+                  for backend in ("dense", "cuda", "cuda_q8")) + tuple(
+    ("dimenet", backend, True) for backend in ("cuda", "cuda_q8"))
+
+
+def geom_world(dev):
+    """The Cora-scale graph's CSR with species and positions drawn as
+    ``gnn_serve.build_world`` draws them (after 32 feature columns, from
+    ``default_rng(1)``), and schnet's and dimenet's FULL parameters (seed
+    0): (indptr, indices, store, {arch: (cfg, params)})."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.launch.gnn_serve import MODELS, geometry
+    from repro_torch.serve import FeatureStore
+    from repro_torch.sparse.graph import coo_to_csr
+    s, r, _, _, _ = cora_like(seed=0)
+    indptr, indices, _ = coo_to_csr(s, r, 2708)
+    rng = np.random.default_rng(1)
+    rng.normal(size=(2708, 32))
+    species, pos = geometry(rng, 2708)
+    store = FeatureStore.build(2708, device=dev, species=species, pos=pos)
+    models = {}
+    for arch in GEOM_ARCHS:
+        cfg = registry.get_config(arch)
+        models[arch] = (cfg, MODELS[arch][0].init_params(
+            cfg, torch.Generator().manual_seed(0), dev))
+    return indptr, indices, store, models
+
+
+def phase_geom_serve(dev, seeds):
+    """schnet and dimenet at FULL served on the Cora-scale graph as phases
+    4, 5 and 8 serve gcn: ``cuda`` and ``cuda_q8`` (both accumulate in f32
+    on the chunked schedule: no B1 or B4 launch), each with the host and
+    the device sampler (one ``forest_sample`` a step), held to offline
+    replay ≤1e-5 with no rebuild, each warm bucket-16 step traced."""
+    indptr, indices, store, models = geom_world(dev)
+    return [phase_serve(dev, mode, params, indptr, indices, store, seeds,
+                        backend=backend, arch=arch, cfg=cfg)
+            for arch, (cfg, params) in models.items()
+            for backend in ("cuda", "cuda_q8")
+            for mode in ("host", "device")]
+
+
+def geom_setup(arch, device, backend, two_hop=False):
+    """schnet or dimenet at FULL on one batch of the ``molecule`` shape
+    (``molecule_batch(128, 30, 64, seed=0)``: 3,840 atoms and 8,192
+    edges, flattened with a ghost row; dimenet's 65,536 triplet slots)
+    through ``build_gnn_step`` with AdamW at ``GEOM_LR``: the edge plan
+    from the plan cache, the triplet plan built once: (params, step,
+    batches)."""
+    import itertools
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import molecule_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.gnn_serve import MODELS
+    from repro_torch.launch.steps import build_gnn_step
+    from repro_torch.optim import adamw
+    from repro_torch.sparse.graph import make_graph
+    from repro_torch.models.gnn.dimenet import build_triplet_plan
+    from repro_torch.sparse.triplets import build_triplets
+    dev = resolve_device(device)
+    cfg = registry.get_config(arch)
+    b, n_nodes, n_edges = GIN_MOLECULES
+    species, pos, snd, rcv, _, targets = molecule_batch(b, n_nodes, n_edges,
+                                                        seed=0)
+    offs = (np.arange(b) * n_nodes)[:, None]
+    n = b * n_nodes
+    g = make_graph((snd + offs).ravel(), (rcv + offs).ravel(), n,
+                   device=dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    batch = {"species": t(np.append(species.ravel(), 0).astype(np.int64)),
+             "pos": t(np.vstack([pos.reshape(-1, 3),
+                                 np.zeros((1, 3), np.float32)])),
+             "senders": g.senders, "receivers": g.receivers,
+             "edge_valid": g.edge_valid,
+             "graph_ids": t(np.append(np.repeat(np.arange(b), n_nodes), b)),
+             "targets": t(targets)}
+    pt = None
+    if arch == "dimenet":
+        t_in, t_out, t_valid = build_triplets(
+            g.senders.cpu().numpy(), g.receivers.cpu().numpy(),
+            cfg.max_triplets_per_edge)
+        batch.update(t_in=t(t_in), t_out=t(t_out), t_valid=t(t_valid))
+        pt = build_triplet_plan(batch["t_in"], batch["t_out"],
+                                batch["t_valid"], g.senders.shape[0])
+    params = MODELS[arch][0].init_params(
+        cfg, torch.Generator().manual_seed(0), dev)
+    step = build_gnn_step(arch, cfg, adamw.AdamWConfig(lr=GEOM_LR[arch]),
+                          backend=backend, graph=g, two_hop=two_hop,
+                          n_graphs=b, triplet_plan=pt)
+    return params, step, itertools.repeat(batch)
+
+
+def geom_job(arch, device, backend, two_hop, ckpt_dir, seen=None):
+    """``geom_setup`` run ``GEOM_STEPS`` steps through ``train.loop.run``
+    with a commit every ``GEOM_CKPT_EVERY`` steps; ``seen`` as in
+    ``conv_job``."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    params, step, batches = geom_setup(arch, device, backend, two_hop)
+    if seen is not None:
+        inner = step
+
+        def step(p, opt, batch):
+            out = inner(p, opt, batch)
+            seen.append((p, float(out[2]["grad_norm"])))
+            return out
+    state = loop.TrainState(params=params, opt_state=adamw.init_state(params))
+    cfg = loop.TrainLoopConfig(n_steps=GEOM_STEPS, ckpt_every=GEOM_CKPT_EVERY,
+                               ckpt_dir=str(ckpt_dir), log_every=10 ** 9)
+    return loop.run(state, step, batches, cfg, log=lambda *_: None)
+
+
+def geom_losses_at(arch, device, backend, two_hop, seen) -> list:
+    """(loss, gradient norm) of the steps of ``seen`` recomputed on
+    ``backend`` on ``device``, as ``conv_losses_at``."""
+    from repro_torch.optim import adamw
+    _, step, batches = geom_setup(arch, device, backend, two_hop)
+    batch = next(batches)
+    out = []
+    for p, _ in seen:
+        p = tree_to(p, device)
+        m = step(p, adamw.init_state(p), batch)[2]
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+def geom_launches(backend, two_hop) -> dict:
+    """Kernel launches of a whole run: none one-hop (every aggregation is
+    an accumulate on the chunked schedule); over Â² one B2 for the build
+    (f32 under ``cuda`` and ``cuda_q8``), then a step's one aggregation:
+    B1 forward and B1 on the transpose as its backward under ``cuda``, B4
+    forward and the f32 B1 backward under ``cuda_q8``."""
+    b1 = b4 = 0
+    if two_hop:
+        b1 = (2 if backend == "cuda" else 1) * GEOM_STEPS
+        b4 = GEOM_STEPS if backend == "cuda_q8" else 0
+    return {"spmm_dedup_chunks": b1, "spmm_dedup_chunks_q8": b4,
+            "spgemm_hashpad": int(two_hop), "spgemm_hashpad_q8": 0}
+
+
+def geom_step_breakdown(dev, arch, backend, two_hop, n_steps=6) -> dict:
+    """One warm training step of ``arch`` as the loop runs it, traced as
+    ``conv_step_breakdown`` traces GAT's and GIN's."""
+    from repro_torch.optim import adamw
+    params, step, batches = geom_setup(arch, dev, backend, two_hop)
+    opt, batch = adamw.init_state(params), next(batches)
+    rec = trace_steps(lambda: float(step(params, opt, batch)[2]["loss"]),
+                      n_steps, "spmm_dedup_chunks", top=4,
+                      split={"b1": is_b1, "b4": is_b4})
+    rec.pop("kernel_ms_per_step")
+    rec.pop("op_keys")
+    return rec
+
+
+def phase_geom_train(dev):
+    """schnet (dense, cuda, cuda_q8) and dimenet (the same, and over Â² on
+    cuda and cuda_q8) at FULL on the molecule batch, each run counted;
+    bitwise against a second run and a run resumed from its
+    ``GEOM_CKPT_EVERY``-step commit; each step's loss and gradient norm
+    against the same parameters' on ``dense``, and at ``GEOM_CPU_AT`` on
+    the CPU (≤1e-4; the loss relative to itself past 1: DimeNet's energies
+    with random weights put it near 4·10⁷, 3·10⁹ over Â²; the norm relative
+    to the larger of its own and the run's first; int8 ≤ ``Q8_E2E_TOL``
+    against the CPU, its aggregations replayed there ≤1e-5, and against
+    ``dense`` a reading); one warm step of each traced."""
+    import shutil
+    import tempfile
+    from repro_torch.sparse.quantize import Q8_E2E_TOL
+    kernels = conv_kernels()
+    runs, launches, errs, readings, cpu_s, run_s = {}, {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for arch, backend, two_hop in GEOM_RUNS:
+            t_run = time.perf_counter()
+            name = f"{arch}{'_two_hop' if two_hop else ''}_{backend}"
+            job = functools.partial(geom_job, arch, dev, backend, two_hop)
+            int8 = backend == "cuda_q8" and two_hop
+            seen = []
+            zero_counts(kernels)
+            if int8:
+                run, n_calls, replay = replay_aggregates_on_cpu(
+                    functools.partial(job, tmp / name, seen))
+                errs[f"{name}_aggregations_vs_cpu_replay"] = replay
+                check(n_calls == GEOM_STEPS and replay <= KERNEL_TOL,
+                      f"train {name}: {n_calls} aggregations (want "
+                      f"{GEOM_STEPS}), card vs CPU replay {replay:.3e}")
+            else:
+                run = job(tmp / name, seen)
+            launches[name] = read_counts(kernels)
+            runs[name] = run
+            state, hist = run
+            check(state.step == GEOM_STEPS
+                  and all(math.isfinite(v) for v in hist["loss"])
+                  and hist["loss"][-1] < hist["loss"][0]
+                  and hist["retries"] == 0,
+                  f"train {name}: {state.step} steps, losses "
+                  f"{hist['loss'][0]} → {hist['loss'][-1]}")
+            want = geom_launches(backend, two_hop)
+            check(launches[name] == want,
+                  f"train {name}: launches {launches[name]}, expected {want}")
+            check(same_run(run, job(tmp / f"{name}_again")),
+                  f"train {name}: two runs on the card differ")
+            resume = tmp / f"{name}_resume"
+            resume.mkdir()
+            commit = f"step_{GEOM_CKPT_EVERY:06d}"
+            shutil.copytree(tmp / name / commit, resume / commit)
+            resumed = job(resume)
+            check(len(resumed[1]["loss"]) == GEOM_STEPS - GEOM_CKPT_EVERY
+                  and same_run(resumed, run),
+                  f"train {name}: the run resumed at step {GEOM_CKPT_EVERY}"
+                  " does not reproduce the unbroken run bitwise")
+            shutil.rmtree(resume)
+            tol = Q8_E2E_TOL if int8 else EXECUTOR_TOL
+            g0 = abs(seen[0][1])
+            for other, device in (("dense", dev), (backend, "cpu")):
+                on_cpu = device == "cpu"
+                key = f"{name}_vs_{'cpu' if on_cpu else other}"
+                if not on_cpu and backend == "dense":
+                    continue
+                points = ([seen[i] for i in GEOM_CPU_AT] if on_cpu
+                          else seen)
+                losses = ([hist["loss"][i] for i in GEOM_CPU_AT] if on_cpu
+                          else hist["loss"])
+                t0 = time.perf_counter()
+                at = geom_losses_at(arch, device, other, two_hop, points)
+                if on_cpu:
+                    cpu_s[name] = (time.perf_counter() - t0) / len(points)
+                errs[key + "_same_params"] = max(
+                    abs(a[0] - b) / max(1.0, abs(b))
+                    for a, b in zip(at, losses))
+                errs[key + "_same_params_grad_norm"] = max(
+                    abs(a[1] - g) / max(abs(g), g0, 1e-30)
+                    for a, (_, g) in zip(at, points))
+                if int8 and not on_cpu:
+                    # a reading: int8 against f32 on DimeNet's Â² stage
+                    # (the random-weight model's node features quantized
+                    # per feature tile); the int8 run is held to the CPU
+                    # and to its replays
+                    continue
+                check(errs[key + "_same_params"] <= tol
+                      and errs[key + "_same_params_grad_norm"] <= tol,
+                      f"train {key}: a step from the same parameters: loss "
+                      f"{errs[key + '_same_params']:.3e} (relative past 1),"
+                      f" gradient norm (relative) "
+                      f"{errs[key + '_same_params_grad_norm']:.3e}; bar "
+                      f"{tol}")
+            readings[name] = geom_step_breakdown(dev, arch, backend,
+                                                 two_hop)
+            run_s[name] = time.perf_counter() - t_run
+    rec = dict(losses={k: h["loss"] for k, (_, h) in runs.items()},
+               launches=launches, errors=errs, cpu_s_per_step=cpu_s,
+               seconds=run_s)
+    say(f"geom train {json.dumps(rec)}")
+    for k, r in readings.items():
+        say(f"geom train step {k} {json.dumps(r)}")
+    total = {k: sum(v[k] for v in launches.values()) for k in CONV_KERNELS}
+    return dict(launches=total, per_run=launches, readings=readings,
+                errors=errs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
               "needs a GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     warnings.filterwarnings("ignore", message="Sparse")   # beta CSR notes
     from repro_torch.configs.gcn_cora import FULL
@@ -2978,20 +3301,32 @@ def main() -> int:
 
     # phase 15 — dlrm-rm2 training: B6 forward, order-fixed table gradient
     dlrm_train = phase_dlrm_train(dev)
+    torch.cuda.empty_cache()
+
+    # phase 16 — SchNet and DimeNet: serving (B3), training (B1, B4 and B2
+    # on DimeNet's Â² stage)
+    t16 = time.perf_counter()
+    say(f"phases 1-15 took {t16 - t_start:.1f} s")
+    geom_serves = phase_geom_serve(dev, seeds)
+    geom = phase_geom_train(dev)
+    say(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
                           "forest_sample", "hash_draws")}
     conv_serving = {k: sum(sv["launches"][k] for sv in conv_serves)
                     for k in launches}
+    geom_serving = {k: sum(sv["launches"][k] for sv in geom_serves)
+                    for k in launches}
     launches["spmm_dedup_chunks"] += two_hop["launches"]["spmm_dedup_chunks"]
     launches["spmm_dedup_chunks_q8"] += \
         two_hop_q8["launches"]["spmm_dedup_chunks_q8"]
     serving = dict(launches)
     for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8"):
-        launches[k] += train["launches"][k] + conv["launches"][k]
+        launches[k] += (train["launches"][k] + conv["launches"][k]
+                        + geom["launches"][k])
     for k in conv_serving:
-        launches[k] += conv_serving[k]
+        launches[k] += conv_serving[k] + geom_serving[k]
     runs = train["per_run"]
     train_note = ", ".join(
         f"{name} {runs[name]['spmm_dedup_chunks']} + "
@@ -3002,7 +3337,8 @@ def main() -> int:
     main_b2 = b2[0]                      # gcn-cora Â²: the two-hop path's
     main_b4 = b4[0]                      # bucket 16, D = 16: q8 serving
     main_b5 = b5[0]                      # gcn-cora Â²: the q8 two-hop path
-    # B6 at serve_bulk, B7 at ogb_products, B8 in bf16 (b*[1] below)
+    # B6 at serve_bulk, B7 at ogb_products, B8 in bf16 (b*[1] below; B8 in
+    # f32 beside it)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="spmm_dedup_chunks", route="cuda",
@@ -3021,7 +3357,10 @@ def main() -> int:
                  f"{conv_serving['spmm_dedup_chunks']} (one an "
                  "aggregation: 9 a gat step, 3 gin, 2 sage) and training "
                  f"{conv['launches']['spmm_dedup_chunks']} (gat 18 a cuda "
-                 "step, 9 a cuda_q8 step; gin 5 and 2)"),
+                 "step, 9 a cuda_q8 step; gin 5 and 2); phase 16's DimeNet "
+                 f"over Â² {geom['launches']['spmm_dedup_chunks']} (2 a "
+                 "cuda step, 1 a cuda_q8 step: the Â² stage and its "
+                 "backward; schnet, dimenet one-hop and their serving 0)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
              backward=[{k: c[k] for k in ("shape",) + keys}
@@ -3048,7 +3387,9 @@ def main() -> int:
              launches=launches["forest_sample"],
              launches_note=f"one a device-sampled step: gcn "
                            f"{serving['forest_sample']}, phase 14's gat, "
-                           f"gin and sage {conv_serving['forest_sample']}",
+                           f"gin and sage {conv_serving['forest_sample']}, "
+                           f"phase 16's schnet and dimenet "
+                           f"{geom_serving['forest_sample']}",
              max_abs_err=max(c["max_abs_err"] for c in b3_fused),
              shape=main_b3["shape"], **{k: main_b3[k] for k in keys}),
         dict(name="spgemm_hashpad", route="cuda",
@@ -3056,9 +3397,12 @@ def main() -> int:
                     "spgemm_hashpad.cu",
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:83",
              launches=(two_hop["launches"]["spgemm_hashpad"]
-                       + conv["launches"]["spgemm_hashpad"]),
+                       + conv["launches"]["spgemm_hashpad"]
+                       + geom["launches"]["spgemm_hashpad"]),
              launches_note="two_hop_graph and coarsen_graph (phase 7); "
-                           "GIN's Â² under cuda and cuda_q8 (phase 14)",
+                           "GIN's Â² under cuda and cuda_q8 (phase 14); "
+                           "DimeNet's Â² under cuda and cuda_q8 (phase "
+                           "16)",
              max_abs_err=max(c["max_abs_err"] for c in b2),
              shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
         dict(name="spmm_dedup_chunks_q8", route="cuda",
@@ -3074,7 +3418,9 @@ def main() -> int:
                  "(2 a step, the forward); phase 14's int8 serving "
                  f"{conv_serving['spmm_dedup_chunks_q8']} and training "
                  f"{conv['launches']['spmm_dedup_chunks_q8']} (gat 9 a "
-                 "step, gin 3)"),
+                 "step, gin 3); phase 16's DimeNet over Â² "
+                 f"{geom['launches']['spmm_dedup_chunks_q8']} (1 a cuda_q8 "
+                 "step, the Â² stage's forward)"),
              max_abs_err=max(c["max_abs_err"]
                              for c in b4 + train["forward_q8"]),
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
@@ -3083,9 +3429,11 @@ def main() -> int:
                     "spgemm_hashpad.cu",
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:168",
              launches=(two_hop_q8["launches"]["spgemm_hashpad_q8"]
-                       + conv["launches"]["spgemm_hashpad_q8"]),
-             launches_note="the int8 two-hop path (phase 9); phase 14 "
-                           "builds GIN's Â² in f32 (B2) and counts B5 at 0",
+                       + conv["launches"]["spgemm_hashpad_q8"]
+                       + geom["launches"]["spgemm_hashpad_q8"]),
+             launches_note="the int8 two-hop path (phase 9); phases 14 "
+                           "and 16 build GIN's and DimeNet's Â² in f32 (B2) "
+                           "and count B5 at 0",
              max_abs_err=max(c["max_abs_err"] for c in b5),
              shape=main_b5["shape"], **{k: main_b5[k] for k in keys}),
         dict(name="embedding_bag", route="cuda",
@@ -3112,7 +3460,9 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/flash_attention.py"
                       ":68",
              launches=b8_launches,
+             launches_note="mha_causal in f32 and in bf16: one each",
              max_abs_err=max(c["max_abs_err"] for c in b8),
+             f32={k: b8[0][k] for k in ("shape",) + keys},
              shape=b8[1]["shape"], **{k: b8[1][k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
 """Architecture registry of the ported archs (the part of
 ``repro.configs.registry`` that ``launch/train.py`` reads): id → family,
-config module.  The reference's other archs are listed with the ROADMAP
-queue item that ports them; asking for one raises ``NotImplementedError``.
+config module and, for a GNN, its kind: ``conv`` (gcn/gat, node features
+on a graph) or ``geom`` (schnet/dimenet, species and positions).  The
+reference's other archs are listed with the ROADMAP queue item that ports
+them; asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,21 +17,26 @@ class ArchEntry:
     arch_id: str
     family: str           # "lm" | "gnn" | "recsys"
     module: str
+    gnn_kind: str = ""    # "" | "conv" (gcn/gat) | "geom" (schnet/dimenet)
 
 
 ARCHS: Dict[str, ArchEntry] = {
-    "gcn-cora": ArchEntry("gcn-cora", "gnn", "repro_torch.configs.gcn_cora"),
-    "gat-cora": ArchEntry("gat-cora", "gnn", "repro_torch.configs.gat_cora"),
+    "schnet": ArchEntry("schnet", "gnn", "repro_torch.configs.schnet",
+                        "geom"),
+    "gcn-cora": ArchEntry("gcn-cora", "gnn", "repro_torch.configs.gcn_cora",
+                          "conv"),
+    "dimenet": ArchEntry("dimenet", "gnn", "repro_torch.configs.dimenet",
+                         "geom"),
+    "gat-cora": ArchEntry("gat-cora", "gnn", "repro_torch.configs.gat_cora",
+                          "conv"),
     "dlrm-rm2": ArchEntry("dlrm-rm2", "recsys",
                           "repro_torch.configs.dlrm_rm2"),
 }
 
 # the reference's archs that the port does not have yet → ROADMAP item
-# (schnet and dimenet: the second half of A2, the geometric GNNs)
 NOT_PORTED: Dict[str, str] = {
     "llama4-maverick-400b-a17b": "A8", "grok-1-314b": "A8",
     "gemma-7b": "A8", "qwen3-0.6b": "A8", "deepseek-67b": "A8",
-    "schnet": "A2", "dimenet": "A2",
 }
 
 

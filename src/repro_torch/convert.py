@@ -6,10 +6,13 @@ reference's GCN parameters are ``{"layer{i}": {"w": (d_in, d_out),
 "b": (d_out,)}}``, GAT's ``{"layer{i}": {"w": (d_in, heads, d_out),
 "a_src", "a_dst": (heads, d_out), "b": (heads·d_out,)}}``, GIN's
 ``{"layer{i}": {"mlp": {"w{j}", "b{j}"}, "eps": ()}}``, SAGE's
-``{"layer{i}": {"w_self", "w_nbr": (d_in, d_out), "b": (d_out,)}}`` and
-DLRM's ``{"table": (V, D), "bot": {"w{i}", "b{i}"}, "top": {"w{i}",
-"b{i}"}}``; the port keeps every layout, so conversion is a checked copy of
-each array onto the device.
+``{"layer{i}": {"w_self", "w_nbr": (d_in, d_out), "b": (d_out,)}}``,
+SchNet's ``{"embed": (S, d), "atomwise": mlp, "int{i}": {"w_in",
+"filter": mlp, "w_out1", "w_out2"}}``, DimeNet's ``{"embed", "rbf_embed",
+"edge_embed": mlp, "output": mlp, "blocks": {...}}`` (per-block weights
+stacked on a leading axis) and DLRM's ``{"table": (V, D), "bot": {"w{i}",
+"b{i}"}, "top": {"w{i}", "b{i}"}}``; the port keeps every layout, so
+conversion is a checked copy of each array onto the device.
 Input arrays are numpy (``np.asarray`` of the JAX leaves): this module
 never imports JAX.
 """
@@ -160,3 +163,96 @@ def dlrm_params_from_jax(tree: Mapping[str, object],
                          f" features, the table has D = {table.shape[1]}")
     return {"table": torch.from_numpy(table.copy()).to(dev), "bot": bot,
             "top": top}
+
+
+def _square(name: str, a, d: int):
+    if np.shape(a) != (d, d):
+        raise ValueError(f"{name} has shape {np.shape(a)}, expected "
+                         f"{(d, d)}")
+
+
+def schnet_params_from_jax(tree: Mapping[str, object],
+                           device: DeviceLike = None) -> Dict:
+    """Reference SchNet parameter tree (numpy leaves) → port parameters."""
+    dev = resolve_device(device)
+    n_int = len(tree) - 2
+    want = {"embed", "atomwise"} | {f"int{i}" for i in range(n_int)}
+    if set(tree) != want:
+        raise ValueError(f"SchNet tree has keys {sorted(tree)}, expected "
+                         f"{sorted(want)}")
+    embed = np.asarray(tree["embed"])
+    if embed.ndim != 2:
+        raise ValueError(f"embed has shape {embed.shape}, expected "
+                         "(n_species, d)")
+    d = embed.shape[1]
+    out = {"embed": _t(embed, dev),
+           "atomwise": _mlp_from_jax("atomwise", tree["atomwise"], dev)}
+    if out["atomwise"]["w0"].shape[0] != d:
+        raise ValueError(f"atomwise takes {out['atomwise']['w0'].shape[0]}"
+                         f" inputs, the embedding gives {d}")
+    for i in range(n_int):
+        p = tree[f"int{i}"]
+        if set(p) != {"w_in", "filter", "w_out1", "w_out2"}:
+            raise ValueError(f"int{i} has keys {sorted(p)}, expected "
+                             "filter, w_in, w_out1, w_out2")
+        for k in ("w_in", "w_out1", "w_out2"):
+            _square(f"int{i}.{k}", p[k], d)
+        filt = _mlp_from_jax(f"int{i}.filter", p["filter"], dev)
+        n = len(filt) // 2
+        if filt[f"w{n - 1}"].shape[1] != d:
+            raise ValueError(f"int{i}.filter gives "
+                             f"{filt[f'w{n - 1}'].shape[1]} channels, the "
+                             f"interaction has {d}")
+        out[f"int{i}"] = {"w_in": _t(p["w_in"], dev), "filter": filt,
+                          "w_out1": _t(p["w_out1"], dev),
+                          "w_out2": _t(p["w_out2"], dev)}
+    return out
+
+
+def dimenet_params_from_jax(tree: Mapping[str, object],
+                            device: DeviceLike = None) -> Dict:
+    """Reference DimeNet parameter tree (numpy leaves) → port
+    parameters: the per-block weights stay stacked on their leading
+    ``n_blocks`` axis."""
+    dev = resolve_device(device)
+    top = {"embed", "rbf_embed", "edge_embed", "output", "blocks"}
+    if set(tree) != top:
+        raise ValueError(f"DimeNet tree has keys {sorted(tree)}, expected "
+                         f"{sorted(top)}")
+    embed = np.asarray(tree["embed"])
+    rbf_embed = np.asarray(tree["rbf_embed"])
+    if embed.ndim != 2 or rbf_embed.ndim != 2 or (
+            rbf_embed.shape[1] != embed.shape[1]):
+        raise ValueError(f"embed {embed.shape} and rbf_embed "
+                         f"{rbf_embed.shape} are not (S, d) and (R, d)")
+    d = embed.shape[1]
+    r = rbf_embed.shape[0]
+    blocks = tree["blocks"]
+    keys = {"w_src", "w_rbf_gate", "w_sbf", "w_bilinear", "w_self",
+            "w_out1", "w_out2", "rbf_out"}
+    if set(blocks) != keys:
+        raise ValueError(f"blocks has keys {sorted(blocks)}, expected "
+                         f"{sorted(keys)}")
+    nb = np.shape(blocks["w_src"])[0]
+    sbf = np.shape(blocks["w_sbf"])
+    if len(sbf) != 3:
+        raise ValueError(f"blocks.w_sbf has shape {sbf}, expected "
+                         "(n_blocks, n_sbf, n_bilinear)")
+    want = {"w_src": (nb, d, d), "w_rbf_gate": (nb, r, d),
+            "w_sbf": (nb, sbf[1], sbf[2]),
+            "w_bilinear": (nb, sbf[2], d, d), "w_self": (nb, d, d),
+            "w_out1": (nb, d, d), "w_out2": (nb, d, d),
+            "rbf_out": (nb, r, d)}
+    for k, shape in want.items():
+        if np.shape(blocks[k]) != shape:
+            raise ValueError(f"blocks.{k} has shape {np.shape(blocks[k])}"
+                             f", expected {shape}")
+    edge = _mlp_from_jax("edge_embed", tree["edge_embed"], dev)
+    output = _mlp_from_jax("output", tree["output"], dev)
+    if edge["w0"].shape[0] != 3 * d or output["w0"].shape[0] != d:
+        raise ValueError(f"edge_embed takes {edge['w0'].shape[0]} inputs "
+                         f"(want {3 * d}), output {output['w0'].shape[0]} "
+                         f"(want {d})")
+    return {"embed": _t(embed, dev), "rbf_embed": _t(rbf_embed, dev),
+            "edge_embed": edge, "output": output,
+            "blocks": {k: _t(blocks[k], dev) for k in want}}

@@ -4,10 +4,11 @@ Train steps take (params, opt_state, batch) and return (params,
 opt_state, metrics); serve steps take (params, batch) and return outputs.
 Batches are dicts of tensors on the parameters' device.
 
-* GNN: ``build_gnn_step`` builds the training step of gcn, gat and gin on
-  any aggregation executor (``dense``, ``chunked``, ``cuda``, ``cuda_q8``),
-  gcn and gin optionally over the SpGEMM-precomputed Â² (``two_hop``).
-  schnet and dimenet are ROADMAP queue A2's second half.
+* GNN: ``build_gnn_step`` builds the training step of gcn, gat, gin,
+  schnet and dimenet on any aggregation executor (``dense``, ``chunked``,
+  ``cuda``, ``cuda_q8``), gcn and gin optionally over the
+  SpGEMM-precomputed Â² (``two_hop``), dimenet with an Â² stage added to
+  its output block.
 * RecSys: ``build_recsys_step`` — ``train`` → (params, opt_state,
   metrics), ``serve`` → logits, ``retrieval`` → candidate scores
   (``dense`` (B, 13) f32, ``sparse_ids`` (B, 26, M) int32, ``labels`` (B,)
@@ -69,33 +70,38 @@ def resolve_gnn_plan(graph, backend: str, two_hop: bool = False):
 
 
 # archs whose aggregation plan can be swapped for the Â² two-hop plan
-# wholesale (sum aggregators over plan-carried weights); gat computes its
-# edge values from the batch edge arrays
+# wholesale (sum aggregators over plan-carried weights); gat, schnet and
+# dimenet compute per-edge quantities from the batch edge arrays, so only
+# dimenet's dedicated ``two_hop_plan`` extra stage applies there
 _TWO_HOP_MAIN = ("gin", "gcn")
 
 
 def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
-                   plan=None, graph=None, two_hop=None, n_graphs: int = 1):
-    """The training step of gcn, gat or gin on the executor ``backend``;
-    ``plan`` is a host-built ``make_plan`` — required for
-    ``cuda``/``cuda_q8`` — or pass ``graph`` and the plan comes from the
-    plan cache (``resolve_gnn_plan``); with neither, ``dense``/``chunked``
-    build an inline COO plan from each batch's edge arrays.
-    ``two_hop`` (default: the config's ``two_hop`` field, if any)
+                   plan=None, graph=None, two_hop=None, n_graphs: int = 1,
+                   triplet_plan=None):
+    """The training step of gcn, gat, gin, schnet or dimenet on the
+    executor ``backend``; ``plan`` is a host-built ``make_plan`` —
+    required for ``cuda``/``cuda_q8`` — or pass ``graph`` and the plan
+    comes from the plan cache (``resolve_gnn_plan``); with neither,
+    ``dense``/``chunked`` build an inline COO plan from each batch's edge
+    arrays.  ``two_hop`` (default: the config's ``two_hop`` field, if any)
     precomputes Â² once through the SpGEMM engine and aggregates over it
-    (gcn and gin).  ``n_graphs`` is gin's number of graphs in a batch
-    (``graph_ids`` ≥ it are dropped from the readout)."""
-    if arch_id in ("schnet", "dimenet"):
-        raise NotImplementedError(
-            f"training {arch_id!r} is not ported yet: the geometric GNNs "
-            "are the second half of ROADMAP queue A2")
+    (gcn and gin), or adds an SpMM over it to dimenet's output block.
+    ``n_graphs`` is the number of graphs in a batch of gin, schnet or
+    dimenet (``graph_ids`` ≥ it are dropped from the readout).
+    ``triplet_plan`` is dimenet's ``build_triplet_plan(t_in, t_out,
+    t_valid, E)``: built once for a static batch, it keeps its sums'
+    orders from step to step (without it, each step builds one)."""
     gcn_like = arch_id.startswith("gcn")
-    if not (gcn_like or arch_id == "gin" or arch_id.startswith("gat")):
+    if not (gcn_like or arch_id in ("gin", "schnet", "dimenet")
+            or arch_id.startswith("gat")):
         raise KeyError(f"unknown GNN arch {arch_id!r}")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     if two_hop is None:
         two_hop = getattr(cfg, "two_hop", False)
-    if two_hop and not any(arch_id.startswith(p) for p in _TWO_HOP_MAIN):
+    main_two_hop = two_hop and any(arch_id.startswith(p)
+                                   for p in _TWO_HOP_MAIN)
+    if two_hop and not main_two_hop and arch_id != "dimenet":
         raise ValueError(
             f"two_hop aggregation is not defined for {arch_id!r}: the "
             "model derives per-edge values from the batch edge arrays")
@@ -104,13 +110,13 @@ def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
         raise ValueError(
             "two_hop=True needs graph=<Graph> so the step builder can "
             "precompute Â² through the SpGEMM engine")
-    if two_hop and plan is not None:
+    if main_two_hop and plan is not None:
         raise ValueError(
             "pass graph=, not plan=, with two_hop=True — the Â² plan is "
             "derived from the graph (an explicit plan would aggregate "
             "one-hop)")
     if plan is None:
-        plan = resolve_gnn_plan(graph, backend, two_hop=two_hop)
+        plan = resolve_gnn_plan(graph, backend, two_hop=main_two_hop)
     bk = {"backend": backend, "plan": plan}
 
     if arch_id == "gin":
@@ -120,6 +126,27 @@ def build_gnn_step(arch_id: str, cfg, opt_cfg=None, backend: str = "dense",
             return gin.loss_fn(p, cfg, b["x"], b["senders"], b["receivers"],
                                b["edge_valid"], b["graph_ids"], n_graphs,
                                b["labels"], **bk)
+    elif arch_id == "schnet":
+        from repro_torch.models.gnn import schnet
+
+        def loss(p, b):
+            return schnet.loss_fn(p, cfg, b["species"], b["pos"],
+                                  b["senders"], b["receivers"],
+                                  b["edge_valid"], b["graph_ids"], n_graphs,
+                                  b["targets"], **bk)
+    elif arch_id == "dimenet":
+        from repro_torch.models.gnn import dimenet
+        two_hop_plan = (resolve_gnn_plan(graph, backend, two_hop=True)
+                        if two_hop else None)
+
+        def loss(p, b):
+            return dimenet.loss_fn(p, cfg, b["species"], b["pos"],
+                                   b["senders"], b["receivers"],
+                                   b["edge_valid"], b["t_in"], b["t_out"],
+                                   b["t_valid"], b["graph_ids"], n_graphs,
+                                   b["targets"], **bk,
+                                   triplet_plan=triplet_plan,
+                                   two_hop_plan=two_hop_plan)
     elif gcn_like:
         from repro_torch.models.gnn import gcn
 

@@ -22,8 +22,12 @@ stream, checkpoints and the fault-tolerant loop, on the card unless
 ``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the SpGEMM-built Â²
 (gcn).  dlrm-rm2 trains its *reduced* config, as the reference does, on
 ``--batch``-sample ``dlrm_batch(seed=i)`` batches.  The LM preset and
-family (ROADMAP queue A8) and the geometric GNNs (A2's second half) raise
-``NotImplementedError``.
+family (ROADMAP queue A8) raise ``NotImplementedError``, and so do schnet
+and dimenet, which the reference's launcher does not train either: its
+setup builds Cora's graph and its node features (``dataclasses.replace(
+cfg, d_in=...)``), which the geometric configs do not have.  Train those
+through ``launch/steps.build_gnn_step`` and ``train.loop.run`` on a
+molecule batch.
 """
 from __future__ import annotations
 
@@ -147,6 +151,13 @@ def main(argv=None):
             "the lm100m preset trains the LM family, not ported yet "
             "(ROADMAP queue A8)")
     arch_id = args.arch or "gcn-cora"
+    if registry.entry(arch_id).gnn_kind == "geom":
+        raise NotImplementedError(
+            f"{arch_id!r} is not trained by this launcher, as the "
+            "reference's is not: its setup builds the Cora-scale graph and "
+            "its node features (d_in), which the geometric configs do not "
+            "have; train it on a molecule batch through "
+            "launch/steps.build_gnn_step and train.loop.run")
     if registry.entry(arch_id).family == "recsys":
         params, step, batches = _recsys_setup(arch_id, args.seed,
                                               args.batch, args.device)

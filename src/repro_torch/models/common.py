@@ -3,10 +3,13 @@ trees are plain dicts of tensors, in the reference's ``(d_in, d_out)``
 weight layout, so ``x @ w + b`` reads the same on both sides."""
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import tree
 
 Params = Dict[str, torch.Tensor]
 
@@ -45,3 +48,31 @@ def mlp_apply(params: Params, x: torch.Tensor,
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / √(mean(x²) + eps) · gamma``, the mean taken in f32."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x − mean) / √(var + eps) · gamma + beta`` in f32, the population
+    variance as ``jnp.var`` takes it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
+
+
+def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    """SchNet's ssp(x) = ln(0.5 eˣ + 0.5): ``jax.nn.softplus`` (which is
+    ``logaddexp(x, 0)``) minus ln 2."""
+    return torch.logaddexp(x, torch.zeros_like(x)) - math.log(2.0)
+
+
+def count_params(params) -> int:
+    """Number of scalars in a parameter tree."""
+    return sum(p.numel() for p in tree.leaves(params))

@@ -7,6 +7,11 @@ share one static structure: one step, one host aggregation plan, zero
 rebuilds after warm-up.  ``stack_trees`` splices per-request trees into the
 bucket's breadth-major layout (seeds occupy slots ``0..k-1``).  GCN's
 self-loop edges (``A + I``) are appended after the hop edges.
+
+DimeNet's triplet indices come with the structure: the trees make every
+sampled node's in-edges consecutive, so ``(t_in, t_out)`` are again arange
+arithmetic; only ``t_valid = valid[t_in] & valid[t_out]`` depends on the
+request.
 """
 from __future__ import annotations
 
@@ -50,10 +55,16 @@ class BucketStructure:
     receivers: np.ndarray      # (E,) int32
     n_hop_edges: int           # hop edges come first; loops (if any) after
     with_loops: bool
+    t_in: np.ndarray           # (T,) int32 — triplet in-edge (into hop list)
+    t_out: np.ndarray          # (T,) int32 — triplet out-edge
 
     @property
     def n_edges(self) -> int:
         return int(self.senders.shape[0])
+
+    @property
+    def n_triplets(self) -> int:
+        return int(self.t_in.shape[0])
 
 
 def build_bucket_structure(n_seeds: int, fanouts: Sequence[int],
@@ -71,9 +82,25 @@ def build_bucket_structure(n_seeds: int, fanouts: Sequence[int],
         loops = np.arange(n_nodes, dtype=np.int32)
         senders = np.concatenate([senders, loops])
         receivers = np.concatenate([receivers, loops])
+    # triplets: hop-(h+1) edge (k→j) feeds hop-h edge (j→i); node j's
+    # in-edges are the f_{h+2} consecutive hop-(h+1) edges of its slot
+    budgets = sampler.budget(n_seeds, fanouts)
+    offsets = np.concatenate([[0], np.cumsum(budgets)])
+    t_in_parts, t_out_parts = [], []
+    for h in range(len(fanouts) - 1):
+        e_h, f_next = budgets[h], fanouts[h + 1]
+        t_out_parts.append(
+            offsets[h] + np.repeat(np.arange(e_h, dtype=np.int64), f_next))
+        t_in_parts.append(
+            offsets[h + 1] + np.arange(budgets[h + 1], dtype=np.int64))
+    t_in = (np.concatenate(t_in_parts).astype(np.int32) if t_in_parts
+            else np.zeros(0, np.int32))
+    t_out = (np.concatenate(t_out_parts).astype(np.int32) if t_out_parts
+             else np.zeros(0, np.int32))
     return BucketStructure(n_seeds=n_seeds, fanouts=fanouts, n_nodes=n_nodes,
                            senders=senders, receivers=receivers,
-                           n_hop_edges=n_hop, with_loops=with_loops)
+                           n_hop_edges=n_hop, with_loops=with_loops,
+                           t_in=t_in, t_out=t_out)
 
 
 def stack_trees(trees: List, n_seeds: int,

@@ -11,60 +11,85 @@ PyTorch runs eagerly, so a "build" is the host plan packing plus the
 closure; ``StepCache.builds`` still counts cache misses, and steady-state
 serving must hold it constant after warm-up.
 
-The conv family is ported: ``gcn`` (sym-normed, self loops) and the
-unweighted ``sage``, ``gin`` and ``gat``, whose edge validity flows in
-through ``plan_with_values``; the geometric archs raise ``KeyError``.
+All six GNNs serve through here.  The conv family (``gcn`` sym-normed with
+self loops; the unweighted ``sage``, ``gin`` and ``gat``, whose edge
+validity flows in through ``plan_with_values``) returns per-seed logits;
+the geometric family (``schnet``, ``dimenet``) reads species and
+positions from the store and returns per-seed atomwise energies: its
+graph readout runs with ``graph_ids = arange(n)``, so the readout
+degenerates to per-node outputs and the seed rows are well-defined
+without a molecule boundary.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serve.buckets import BucketStructure
-from repro_torch.sparse.plan import make_plan, plan_with_values
+from repro_torch.sparse.plan import edge_plan, make_plan, plan_with_values
 
-PORTED_ARCHS = ("gcn", "gat", "sage", "gin")
-REFERENCE_ARCHS = ("gcn", "gat", "sage", "gin", "schnet", "dimenet")
+CONV_ARCHS = ("gcn", "gat", "sage", "gin")
+GEOM_ARCHS = ("schnet", "dimenet")
+PORTED_ARCHS = CONV_ARCHS + GEOM_ARCHS
 
 
 def _arch_key(arch_id: str) -> str:
-    for a in REFERENCE_ARCHS:
+    for a in PORTED_ARCHS:
         if arch_id == a or arch_id.startswith(a + "-"):
-            if a not in PORTED_ARCHS:
-                raise KeyError(f"serving arch {a!r} is not ported yet; "
-                               f"ported: {PORTED_ARCHS}")
             return a
     raise KeyError(f"unservable arch {arch_id!r}; servable: "
-                   f"{REFERENCE_ARCHS}")
+                   f"{PORTED_ARCHS}")
 
 
 @dataclasses.dataclass(frozen=True)
 class FeatureStore:
     """Resident per-node features on one device, ghost row (zeros) last.
-    Lookups use ``row_index(node_ids)`` so padding lanes (``node_id ==
-    -1``) read the ghost row."""
+
+    ``x`` feeds the conv family; ``species``/``pos`` feed the geometric
+    family.  Lookups use ``row_index(node_ids)`` so padding lanes
+    (``node_id == -1``) read the ghost row."""
 
     n_nodes: int
-    x: torch.Tensor                   # (n_nodes+1, d) f32
+    x: Optional[torch.Tensor] = None          # (n_nodes+1, d) f32
+    species: Optional[torch.Tensor] = None    # (n_nodes+1,) int64
+    pos: Optional[torch.Tensor] = None        # (n_nodes+1, 3) f32
 
     @staticmethod
-    def build(n_nodes: int, x: np.ndarray,
-              device: DeviceLike = None) -> "FeatureStore":
+    def build(n_nodes: int, x: Optional[np.ndarray] = None,
+              device: DeviceLike = None,
+              species: Optional[np.ndarray] = None,
+              pos: Optional[np.ndarray] = None) -> "FeatureStore":
         dev = resolve_device(device)
-        x = np.asarray(x, np.float32)
-        if x.shape[0] != n_nodes:
-            raise ValueError(f"x has {x.shape[0]} rows for {n_nodes} nodes")
-        table = np.concatenate([x, np.zeros((1,) + x.shape[1:], x.dtype)])
-        return FeatureStore(n_nodes=n_nodes,
-                            x=torch.from_numpy(table).to(dev))
+
+        def ghost(name, a, dtype):
+            if a is None:
+                return None
+            a = np.asarray(a, dtype)
+            if a.shape[0] != n_nodes:
+                raise ValueError(f"{name} has {a.shape[0]} rows for "
+                                 f"{n_nodes} nodes")
+            table = np.concatenate([a, np.zeros((1,) + a.shape[1:], dtype)])
+            return torch.from_numpy(table).to(dev)
+        if x is None and species is None and pos is None:
+            raise ValueError("a feature store needs x, or species and pos")
+        return FeatureStore(n_nodes=n_nodes, x=ghost("x", x, np.float32),
+                            species=ghost("species", species, np.int64),
+                            pos=ghost("pos", pos, np.float32))
 
     @property
     def device(self) -> torch.device:
-        return self.x.device
+        return next(t for t in (self.x, self.species, self.pos)
+                    if t is not None).device
+
+    def to(self, device: DeviceLike) -> "FeatureStore":
+        """The same store with every table copied to ``device``."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in ("x", "species", "pos")
+            if getattr(self, k) is not None})
 
     def row_index(self, node_ids: torch.Tensor) -> torch.Tensor:
         return torch.where(node_ids >= 0, node_ids, self.n_nodes)
@@ -110,10 +135,10 @@ class StepCache:
 
 def _build_bucket_plan(key: tuple):
     from repro_torch.serve.buckets import build_bucket_structure
-    n_seeds, fanouts, with_loops, backend, device = key
+    n_seeds, fanouts, with_loops, backend, need_ell, device = key
     struct = build_bucket_structure(n_seeds, fanouts, with_loops=with_loops)
     backends = ["dense", "chunked"]
-    if backend in ("cuda", "cuda_q8"):
+    if backend in ("cuda", "cuda_q8") and need_ell:
         backends.append(backend)
     return make_plan(struct.senders, struct.receivers, struct.n_nodes,
                      backends=tuple(backends), device=device)
@@ -122,13 +147,18 @@ def _build_bucket_plan(key: tuple):
 _BUCKET_PLANS = StepCache(_build_bucket_plan, maxsize=32)
 
 
-def bucket_plan(struct: BucketStructure, backend: str,
+def bucket_plan(struct: BucketStructure, backend: str, need_ell: bool,
                 device: torch.device):
     """Host aggregation plan for a bucket's static edge structure on
     ``device``, all edges valid (per-request validity flows in via
-    ``plan_with_values``)."""
+    ``plan_with_values``).  ``need_ell``: the arch aggregates scalar edge
+    values through ``aggregate``, which on ``cuda``/``cuda_q8`` reads the
+    dedup-chunk layout; the geometric family only ``accumulate``s vector
+    messages (the chunked schedule on every executor), so its plans hold
+    the COO section alone."""
     return _BUCKET_PLANS.get((struct.n_seeds, struct.fanouts,
-                              struct.with_loops, backend, device))
+                              struct.with_loops, backend, bool(need_ell),
+                              device))
 
 
 # ---------------------------------------------------------------------------
@@ -139,53 +169,86 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
                      struct: BucketStructure,
                      backend: str = "dense") -> Callable:
     """``step(params, node_ids, hop_valid) -> (n_seeds, d_out)`` for one
-    bucket on the store's device.  ``node_ids``/``hop_valid`` may be numpy
-    arrays or tensors; everything else (structure, plan, store) is closed
-    over."""
-    arch = _arch_key(arch_id)          # raises for archs not ported yet
+    bucket on the store's device (``d_out`` = 1 for the geometric
+    family's energies).  ``node_ids``/``hop_valid`` may be numpy arrays or
+    tensors; everything else (structure, plans, store) is closed over."""
+    arch = _arch_key(arch_id)
     if arch == "gcn" and not struct.with_loops:
         raise ValueError("gcn serving needs with_loops=True structure "
                          "(A + I normalization)")
+    if arch in CONV_ARCHS and store.x is None:
+        raise ValueError(f"{arch} serving needs FeatureStore.x")
+    if arch in GEOM_ARCHS and (store.species is None or store.pos is None):
+        raise ValueError(f"{arch} serving needs FeatureStore.species/pos")
     dev = store.device
     n = struct.n_nodes
     k = struct.n_seeds
-    plan0 = bucket_plan(struct, backend, dev)
+    plan0 = bucket_plan(struct, backend, arch in CONV_ARCHS, dev)
 
     def edge_validity(node_ids, hop_valid):
         if struct.with_loops:
             return torch.cat([hop_valid, node_ids >= 0])
         return hop_valid
 
+    def t(a):
+        return torch.from_numpy(a.astype(np.int64)).to(dev)
+
     if arch == "gcn":
         from repro_torch.models.gnn import gcn as m
-        senders = torch.from_numpy(struct.senders.astype(np.int64)).to(dev)
-        receivers = torch.from_numpy(
-            struct.receivers.astype(np.int64)).to(dev)
+        senders, receivers = t(struct.senders), t(struct.receivers)
 
-        def weighted(ev):
+        def forward(params, node_ids, ev):
+            x = store.x.index_select(0, store.row_index(node_ids))
             # symmetric normalization on the sampled subgraph: in-degree
             # over valid edges, self loops included
             deg = torch.zeros(n, device=dev).index_add_(
                 0, receivers, ev.to(torch.float32))
             dinv = torch.rsqrt(deg.clamp_min(1.0))
-            return plan_with_values(plan0,
-                                    edge_weight=dinv[senders]
-                                    * dinv[receivers], edge_valid=ev)
-    else:
+            pl = plan_with_values(plan0, edge_weight=dinv[senders]
+                                  * dinv[receivers], edge_valid=ev)
+            return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
+    elif arch in CONV_ARCHS:
         # the unweighted conv family: one shared closure, the model module
         # is the only thing that differs (validity flows in as plan values)
         import importlib
         m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
 
-        def weighted(ev):
-            return plan_with_values(plan0, edge_valid=ev)
+        def forward(params, node_ids, ev):
+            x = store.x.index_select(0, store.row_index(node_ids))
+            pl = plan_with_values(plan0, edge_valid=ev)
+            return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
+    else:
+        import importlib
+        m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+        graph_ids = torch.arange(n, device=dev)
+        # dimenet's triplet plan, all triplets valid: per request only its
+        # validity changes (the reference builds the same COO plan inline
+        # each step; kept here, its sums' orders are built once)
+        t_in, t_out = t(struct.t_in), t(struct.t_out)
+        pt0 = edge_plan(t_in, t_out, struct.n_edges)
+
+        def forward(params, node_ids, ev):
+            idx = store.row_index(node_ids)
+            species = store.species.index_select(0, idx)
+            pos = store.pos.index_select(0, idx)
+            pl = plan_with_values(plan0, edge_valid=ev)
+            if arch == "schnet":
+                e = m.forward(params, cfg, species, pos, graph_ids=graph_ids,
+                              n_graphs=n, backend=backend, plan=pl)
+            else:
+                tv = ev.index_select(0, t_in) & ev.index_select(0, t_out)
+                e = m.forward(params, cfg, species, pos,
+                              graph_ids=graph_ids, n_graphs=n,
+                              backend=backend, plan=pl,
+                              triplet_plan=plan_with_values(pt0,
+                                                            edge_valid=tv))
+            return e[:k, None]
 
     def step(params, node_ids, hop_valid):
         node_ids = torch.as_tensor(node_ids, device=dev)
         hop_valid = torch.as_tensor(hop_valid, device=dev)
         with torch.no_grad():
-            x = store.x.index_select(0, store.row_index(node_ids))
-            pl = weighted(edge_validity(node_ids, hop_valid))
-            return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
+            return forward(params, node_ids,
+                           edge_validity(node_ids, hop_valid))
 
     return step

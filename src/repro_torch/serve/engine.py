@@ -47,8 +47,8 @@ from repro_torch.sparse import sampler
 
 
 def _needs_loops(arch_id: str) -> bool:
-    """gcn's A + I normalization needs self loops; sage, gin and gat
-    aggregate over the sampled edges alone."""
+    """gcn's A + I normalization needs self loops; sage, gin, gat and the
+    geometric family aggregate over the sampled edges alone."""
     return _arch_key(arch_id) == "gcn"
 
 
@@ -154,7 +154,9 @@ class GNNServer:
     """Dynamic-batching inference server over a resident graph.
 
     ``device=None`` serves on ``cuda`` (and raises without a GPU); the
-    feature store must live on the same device.
+    feature store must live on the same device and hold what the arch
+    reads: ``x`` for the conv family, ``species`` and ``pos`` for schnet
+    and dimenet.
     """
 
     def __init__(self, arch_id: str, cfg, params, indptr: np.ndarray,

@@ -18,12 +18,16 @@ the forward and in the backward, so a training run repeats bit for bit
 * a sum reads the entries in that order and adds each segment's run one
   after another (``torch.segment_reduce`` on 2-D data: one sequential loop
   per output element on either device, bitwise equal across devices);
-* ``gather`` reads rows by id, and its backward is that ordered sum;
+  ``kept_order`` keeps the order of an id tensor that is passed again (a
+  static batch's species, graph ids or triplet indices);
+* ``gather`` reads rows by id, and its backward is that ordered sum (with
+  no gradient to carry, it is one ``index_select``);
 * ``segment_max`` is ``scatter_reduce("amax")``: a maximum does not depend
   on the order it is taken in.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -58,6 +62,29 @@ def segment_order(segment_ids: torch.Tensor, n: int) -> SegmentOrder:
     gather_bounds = torch.cat([ends.new_zeros(1), ends[1:n], edge])
     return SegmentOrder(n=n, read=ids.clamp(0, n - 1), perm=perm,
                         sum_bounds=sum_bounds, gather_bounds=gather_bounds)
+
+
+# (id(ids), n) → (ids, order); the entry holds the id tensor so its id()
+# cannot be reused while the entry lives
+_KEPT: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+KEPT_ORDERS_MAXSIZE = 32
+
+
+def kept_order(segment_ids: torch.Tensor, n: int) -> SegmentOrder:
+    """``segment_order(segment_ids, n)``, built once per id tensor: passed
+    the same tensor object again (a static batch's ids, step after step),
+    it returns the order it built then, so no call sorts.  The last
+    ``KEPT_ORDERS_MAXSIZE`` orders are kept."""
+    key = (id(segment_ids), n)
+    got = _KEPT.get(key)
+    if got is not None and got[0] is segment_ids:
+        _KEPT.move_to_end(key)
+        return got[1]
+    order = segment_order(segment_ids, n)
+    _KEPT[key] = (segment_ids, order)
+    while len(_KEPT) > KEPT_ORDERS_MAXSIZE:
+        _KEPT.popitem(last=False)
+    return order
 
 
 def _ordered_sum(data: torch.Tensor, order: SegmentOrder,
@@ -96,8 +123,22 @@ def gather(data: torch.Tensor, ids: torch.Tensor,
            order: Optional[SegmentOrder] = None) -> torch.Tensor:
     """``data[ids]`` along the first axis, ids clamped into range; the
     backward adds a repeated id's rows in a fixed order (``order``: the
-    ids' order over ``data``'s rows, built here if not given)."""
+    ids' order over ``data``'s rows, built here if not given and a
+    gradient is to flow)."""
+    if order is None and not (torch.is_grad_enabled()
+                              and data.requires_grad):
+        n = data.shape[0]
+        return data.index_select(0, ids.to(torch.int64).clamp(0, n - 1))
     return _Gather.apply(data, _order(ids, data.shape[0], order))
+
+
+def take(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``data[ids]`` whose backward, where a gradient flows, adds a
+    repeated id's rows in the ids' kept order (``kept_order``): a table
+    lookup by a static batch's ids (an embedding by species)."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return gather(data, ids, kept_order(ids, data.shape[0]))
+    return gather(data, ids)
 
 
 def _col(t: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -120,9 +120,11 @@ def test_infer_step_matches_reference(world, bucket):
 
 
 def test_unported_archs_raise(world):
+    """The reference's guard: a geometric arch over a store without
+    species or positions raises."""
     tstore = tcompute.FeatureStore.build(N, world["x"], device="cpu")
     struct = build_bucket_structure(1, FANOUTS, with_loops=True)
-    with pytest.raises(KeyError, match="not ported yet"):
+    with pytest.raises(ValueError, match="species/pos"):
         tcompute.build_infer_step("schnet", world["tcfg"], tstore, struct)
 
 

@@ -404,9 +404,11 @@ def test_configs_and_registry():
     assert registry.entry("gat-cora").family == "gnn"
     assert registry.entry("gat-cora").module == "repro_torch.configs.gat_cora"
     assert registry.get_config("gat-cora") == tcfgs.FULL
+    # the geometric archs now resolve; an LM arch is still queued (A8)
     for arch in ("schnet", "dimenet"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            registry.entry(arch)
+        assert registry.entry(arch).gnn_kind == "geom"
+    with pytest.raises(NotImplementedError, match="A8"):
+        registry.entry("qwen3-0.6b")
 
 
 def dataclass_items(cfg):
@@ -476,9 +478,10 @@ def test_build_gnn_step_guards():
     g = make_graph(s, r, 30, device=CPU)
     with pytest.raises(ValueError, match="two_hop"):
         build_gnn_step("gat-cora", FULL, graph=g, two_hop=True)
-    for arch in ("schnet", "dimenet"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            build_gnn_step(arch, FULL, graph=g)
+    from repro_torch.configs import dimenet, schnet
+    for arch, cfg in (("schnet", schnet.reduced()),
+                      ("dimenet", dimenet.reduced())):
+        assert callable(build_gnn_step(arch, cfg, graph=g, n_graphs=2))
     with pytest.raises(KeyError):
         build_gnn_step("unknown", FULL, graph=g)
     assert callable(build_gnn_step("gin", tgin.GINConfig(), graph=g,

@@ -637,7 +637,7 @@ def test_train_cli(tmp_path, capsys, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--full-gnn", "--steps", "1"])
     for bad, item in ((["--preset", "lm100m"], "A8"),
-                      (["--arch", "schnet"], "A2"),
+                      (["--arch", "schnet"], "Cora-scale graph"),
                       (["--arch", "qwen3-0.6b"], "A8")):
         with pytest.raises(NotImplementedError, match=item):
             ttrain.main(bad + ["--device", "cpu"])
@@ -654,8 +654,8 @@ def test_build_gnn_step_guards():
     with pytest.raises(ValueError, match="not plan="):
         build_gnn_step("gcn-cora", FULL, graph=g,
                        plan=_tplan(s, r, 41), two_hop=True)
-    with pytest.raises(NotImplementedError, match="A2"):
-        build_gnn_step("schnet", FULL, graph=g)
+    from repro_torch.configs import schnet
+    assert callable(build_gnn_step("schnet", schnet.reduced(), graph=g))
     assert not resolve_gnn_plan(g, "dense").has("ell")
     assert resolve_gnn_plan(g, "dense") is resolve_gnn_plan(g, "chunked")
     assert resolve_gnn_plan(g, "cuda").has("ell")
