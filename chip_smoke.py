@@ -33,6 +33,17 @@ Phases, each of which raises (exit code 1) on any failure:
    graph-replayed beside the eager plain path and its traced device
    operations, with the bound (bytes once, each distinct ``indices`` slot
    once, and 32-byte sectors as a reading);
+2b. B1 in bf16 — ``spmm_dedup_chunks`` on bf16 x (its bf16 instantiation:
+   f32 tiles rounded to bf16, each chunk's f32 sum rounded to bf16, the
+   block rounded once a chunk) at the bucket-16 plan (D = 16 and 7), the
+   Cora-scale graph (D = 16 and 1433) and minibatch_lg's block (D = 602),
+   against its bf16 plain version (within 2 bf16 ulps; it repeats the
+   kernel's order, so 0 is expected) and itself run to run (bitwise), timed
+   beside the f32 kernel at the same shape and ``torch.sparse.mm`` on a
+   bf16 CSR (or the reason it is absent), with its bound in bytes at 2-byte
+   x and y; then gcn-cora at full width through ``cuda`` in bf16 (bf16 out,
+   two launches of the bf16 instantiation) against ``dense`` in f32 within
+   the reference's 5e-2;
 3. full-graph forward — gcn-cora at full width on the Cora-scale graph,
    ``backend="cuda"`` against ``backend="dense"`` (≤1e-4), and the dense GPU
    run against the CPU (≤1e-4);
@@ -203,11 +214,30 @@ Phases, each of which raises (exit code 1) on any failure:
     within 1e-4 of the same parameters' on ``dense`` and, at the last step,
     on the CPU (int8 over Â²: ``Q8_E2E_TOL`` against the CPU, its
     aggregations replayed there ≤1e-5, against ``dense`` a reading), one
-    warm step of each traced.
+    warm step of each traced;
+17. the serving plane — gcn-cora at full width under ``cuda`` on the
+    Cora-scale graph, 256 requests as one burst a server: with tracing and
+    the metrics server on an ephemeral port (device sampler), every request
+    has one well-formed span tree (``sample, queue_wait, bucket_pack,
+    dispatch, settle``, none open), ``/metrics`` scraped over HTTP during
+    the traffic and after the drain parses and counts ``n_served`` served
+    requests and histogram observations, one ``forest_sample`` and two B1
+    a step, results equal to replay (≤1e-5), with the median span times
+    and the device window (dispatch end to settle); with
+    ``ChaosInjector(p_step_fault=0.2)`` and one retry, every request
+    settles once, the served equal replay, the failed are
+    ``RetriesExhausted``, every retried request has a ``retry`` span and
+    the launches match the dispatched steps; with ``p_step_fault=1.0``
+    every request fails ``RetriesExhausted`` and nothing launches; on the
+    host sampler with ``p_sampler_fault=0.1`` exactly the faulted requests
+    fail as ``SamplerError`` and the rest equal replay; then the tracing
+    cost as a reading: req/s with tracing off and on, in turns, the median
+    of 5 bursts each.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
-12's wrapper calls and each training run of phases 13–16) and read just
+12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
+forward and phase 17's servers) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -666,6 +696,135 @@ def phase_forward(dev, cora_plan, params, x_table):
     check(err_cpu <= EXECUTOR_TOL, f"forward GPU vs CPU {err_cpu:.3e}")
     say(f"forward gcn-cora on the Cora-scale graph: cuda vs dense "
         f"{err:.3e}, GPU dense vs CPU dense {err_cpu:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b — B1 in bf16
+# ---------------------------------------------------------------------------
+
+BF16_ULPS = 2            # bf16 kernel vs its plain version (0 expected)
+BF16_MODEL_TOL = 5e-2    # a bf16 forward vs f32 dense, the reference's bar
+
+
+def bf16_ulps(got, want) -> float:
+    """Largest |got − want| in bf16 ulps at the larger magnitude."""
+    g, w = got.double(), want.double()
+    mag = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        torch.full_like(g, 2.0 ** -126))
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                             - 7)).max())
+
+
+def spmm_bf16_case(name, plan, d, rng):
+    """B1's bf16 instantiation at one shape: against its plain version
+    (which repeats the kernel's order and rounding, so 0 is expected; the
+    bar is ``BF16_ULPS``) and itself run to run, timed beside the f32
+    kernel on the same values in f32 and ``torch.sparse.mm`` on a bf16
+    CSR, with its bound in bytes at 2-byte x and y."""
+    from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_plain)
+    dev = plan.device
+    x = torch.from_numpy(rng.normal(size=(plan.n_rows, d)).astype(
+        np.float32)).to(dev)
+    x16 = x.to(torch.bfloat16)
+    br = plan.block_rows
+    meta = (plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr,
+            plan.ell_a)
+    y = spmm_dedup_chunks(*meta, x16, block_rows=br)
+    y_plain = spmm_dedup_chunks_plain(*meta, x16, block_rows=br)
+    torch.cuda.synchronize()
+    check(y.dtype == torch.bfloat16, f"B1 bf16 {name}: output {y.dtype}")
+    check(bool(torch.isfinite(y).all()), f"B1 bf16 {name}: non-finite")
+    ulps = bf16_ulps(y, y_plain)
+    err = float((y.float() - y_plain.float()).abs().max())
+    check(ulps <= BF16_ULPS, f"B1 bf16 {name} d={d}: {ulps} ulps from its "
+                             f"plain version > {BF16_ULPS}")
+    equal_plain = bool(torch.equal(y, y_plain))
+    del y_plain
+    check(torch.equal(spmm_dedup_chunks(*meta, x16, block_rows=br), y),
+          f"B1 bf16 {name} d={d}: not bitwise equal run to run")
+    calls = 50 if y.numel() < 2 ** 26 else 5
+    rec = dict(
+        shape=f"{name} D={d} bf16", max_abs_err=err, max_ulps=ulps,
+        equal_plain=equal_plain, run_to_run="bitwise",
+        ms=graph_ms(lambda: spmm_dedup_chunks(*meta, x16, block_rows=br),
+                    calls),
+        f32_ms=graph_ms(lambda: spmm_dedup_chunks(*meta, x, block_rows=br),
+                        calls),
+        plain_ms=eager_ms(lambda: spmm_dedup_chunks_plain(
+            *meta, x16, block_rows=br), iters=50 if calls == 50 else 3))
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([plan.rows, plan.cols]), plan.base_vals,
+        (plan.n_rows, plan.n_rows),
+        check_invariants=True).coalesce().to_sparse_csr()
+    a16 = torch.sparse_csr_tensor(a_csr.crow_indices(), a_csr.col_indices(),
+                                  a_csr.values().to(torch.bfloat16),
+                                  a_csr.shape)
+    try:
+        torch.sparse.mm(a16, x16)
+    except RuntimeError as exc:       # a yardstick only: say why it is absent
+        rec.update(library_ms=None, library_note=str(exc).splitlines()[0])
+    else:
+        rec["library_ms"] = graph_ms(lambda: torch.sparse.mm(a16, x16),
+                                     calls)
+    # least bytes as phase 2 counts them, x and y at 2 bytes; operations at
+    # the f32 CUDA-core rate (the kernel widens bf16 to f32)
+    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
+    u_cols = plan.ell_u_cols.cpu().numpy()
+    live = np.arange(u_cols.shape[1]) < rem[:, None]
+    live_lanes = int(rem.sum())
+    x_rows = np.unique(u_cols[live]).size
+    n_bytes = (4 * (live_lanes * (1 + br) + rem.size
+                    + plan.ell_block_ptr.numel())
+               + 2 * (x_rows * d + y.numel()))
+    n_flops = 2 * int((plan.ell_a != 0).sum()) * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=n_bytes)
+    rec.update(bound_share=rec["bound_ms"] / rec["ms"],
+               vs_f32=rec["ms"] / rec["f32_ms"])
+    say(f"B1 bf16 {json.dumps(rec)}")
+    return rec
+
+
+def phase_bf16(dev, agg_plans, params, x_table):
+    """Phase 2b: B1's bf16 instantiation at phase 2's serving and Cora
+    shapes and minibatch_lg's block, then gcn-cora at full width through
+    ``cuda`` in bf16 against ``dense`` in f32, counted."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    from repro_torch.models.gnn import gcn
+    rng = np.random.default_rng(16)
+    cases = [spmm_bf16_case("bucket16", agg_plans["bucket16"], 16, rng),
+             spmm_bf16_case("bucket16", agg_plans["bucket16"], 7, rng),
+             spmm_bf16_case("cora_full", agg_plans["cora_full"], 16, rng),
+             spmm_bf16_case("cora_full", agg_plans["cora_full"], 1433, rng),
+             spmm_bf16_case("minibatch_lg", agg_plans["minibatch_lg"], 602,
+                            rng)]
+    plan = agg_plans["cora_full"]
+    x = torch.from_numpy(x_table).to(dev)
+    spmm_dedup_chunks.launches = spmm_dedup_chunks.launches_bf16 = 0
+    y16 = gcn.forward(params, FULL, x.to(torch.bfloat16), backend="cuda",
+                      plan=plan)
+    torch.cuda.synchronize()
+    launches = {"spmm_dedup_chunks": spmm_dedup_chunks.launches,
+                "bf16": spmm_dedup_chunks.launches_bf16}
+    y32 = gcn.forward(params, FULL, x, backend="dense", plan=plan)
+    check(y16.dtype == torch.bfloat16 and tuple(y16.shape) == (2709, 7),
+          f"bf16 forward: {y16.dtype} {tuple(y16.shape)}")
+    check(bool(torch.isfinite(y16).all()), "bf16 forward: non-finite")
+    err = float((y16.float() - y32).abs().max())
+    check(err <= BF16_MODEL_TOL, f"bf16 cuda forward vs f32 dense {err:.3e}"
+                                 f" > {BF16_MODEL_TOL}")
+    check(launches == {"spmm_dedup_chunks": FULL.n_layers,
+                       "bf16": FULL.n_layers},
+          f"bf16 forward launches {launches}, expected {FULL.n_layers} of "
+          "the bf16 instantiation")
+    rec = dict(forward_err_vs_f32_dense=err, forward_tol=BF16_MODEL_TOL,
+               launches=launches)
+    say(f"bf16 forward {json.dumps(rec)}")
+    return cases, rec
 
 
 def tree_to(params, device):
@@ -3199,6 +3358,269 @@ def phase_geom_train(dev):
                 errors=errs)
 
 
+# ---------------------------------------------------------------------------
+# phase 17 — the serving plane: tracing, metrics, chaos and retries
+# ---------------------------------------------------------------------------
+
+HAPPY_SPANS = ["sample", "queue_wait", "bucket_pack", "dispatch", "settle"]
+TRACING_COST_RUNS = 5
+
+
+def ops_server(dev, params, indptr, indices, store, sampler="device",
+               **kw):
+    """gcn-cora at full width under ``cuda`` on the Cora-scale graph, as
+    phases 4-5 serve it, with the operations-plane options ``kw``."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.serve import GNNServer
+    return GNNServer("gcn", FULL, params, indptr, indices, store,
+                     fanouts=(5, 3), backend="cuda", sampler=sampler,
+                     max_batch_seeds=16, device=dev, **kw)
+
+
+def ops_kernels():
+    from repro_torch.kernels.forest_sampler import forest_sample, hash_draws
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks
+    return (spmm_dedup_chunks, forest_sample, hash_draws)
+
+
+def served_burst(server, seeds, scrape=None):
+    """Counts zeroed, ``seeds`` submitted as one burst of single-seed
+    requests and drained, with ``scrape`` called from another thread from
+    the first submit until the drain ends; the requests, the launch
+    counts, the wall s and the scrapes that started before the drain
+    ended."""
+    import threading
+    kernels = ops_kernels()
+    for k in kernels:
+        k.launches = 0
+    go, stop = threading.Event(), threading.Event()
+    scrapes = []
+
+    def scraper():
+        go.wait()
+        while True:
+            t = time.perf_counter()
+            scrapes.append((t, scrape()))
+            if stop.wait(0.002):
+                return
+    thread = threading.Thread(target=scraper) if scrape else None
+    if thread:
+        thread.start()
+    t0 = time.perf_counter()
+    go.set()
+    reqs = [server.submit([int(s)]) for s in seeds]
+    server.drain()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dt = t1 - t0
+    stop.set()
+    if thread:
+        thread.join()
+    during = [fams for t, fams in scrapes if t < t1]
+    return reqs, {k.__name__: k.launches for k in kernels}, dt, during
+
+
+def replay_err(server, reqs) -> float:
+    from repro_torch.serve import offline_replay
+    served = [r for r in reqs if r.error is None]
+    if not served:
+        return 0.0
+    got = np.concatenate([r.result for r in served])
+    ref = np.concatenate([offline_replay(server, r) for r in served])
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          "phase 17: served results malformed")
+    return float(np.abs(got - ref).max())
+
+
+def check_launches(name, launches, n_steps, device_sampler=True):
+    """Two B1 a dispatched step, one ``forest_sample`` under the device
+    sampler (none under the host's), no ``hash_draws``."""
+    want = {"spmm_dedup_chunks": 2 * n_steps,
+            "forest_sample": n_steps if device_sampler else 0,
+            "hash_draws": 0}
+    check(launches == want, f"{name}: launches {launches} for {n_steps} "
+                            f"dispatched steps, expected {want}")
+
+
+def span_ms(recs, name):
+    return [1e3 * (s["t1"] - s["t0"]) for r in recs for s in r["spans"]
+            if s["name"] == name]
+
+
+def device_window_ms(recs):
+    """Per request, the gap from the end of its ``dispatch`` span to its
+    ``settle`` span: the device's time, and its wait behind the batch in
+    flight before it."""
+    out = []
+    for r in recs:
+        by = {s["name"]: s for s in r["spans"]}
+        if "dispatch" in by and "settle" in by:
+            out.append(1e3 * (by["settle"]["t0"] - by["dispatch"]["t1"]))
+    return out
+
+
+def med(xs):
+    return float(statistics.median(xs)) if xs else None
+
+
+def phase_ops(dev, params, indptr, indices, store, seeds):
+    """Phase 17: the single-lane serving plane around gcn-cora serving."""
+    import urllib.request
+    from repro_torch.serve import ChaosInjector, verify_traces
+    from repro_torch.serve.chaos import _hash_p
+    from repro_torch.serve.errors import RetriesExhausted, SamplerError
+    from repro_torch.serve.metrics import (histogram_counts_from_samples,
+                                           parse_exposition)
+    out = {}
+
+    # 1. tracing on, metrics on an ephemeral port, the device sampler
+    with ops_server(dev, params, indptr, indices, store, tracing=True,
+                    metrics_port=0) as srv:
+        srv.warmup()
+        srv.reset_stats()
+        url = srv.stats()["metrics_url"]
+
+        def scrape():
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                return parse_exposition(resp.read().decode())
+        reqs, launches, dt, scrapes = served_burst(srv, seeds, scrape)
+        st = srv.stats()
+        check(all(r.n_settles == 1 and r.error is None for r in reqs),
+              "traced server: a request did not settle once with a result")
+        recs = srv.tracer.traces()
+        check(verify_traces(recs) == [],
+              f"traced server: {verify_traces(recs)[:3]}")
+        by_id = {r["trace"]: r for r in recs}
+        check(sorted(by_id) == sorted(r.rid for r in reqs)
+              and len(recs) == len(reqs),
+              f"traced server: {len(recs)} trees for {len(reqs)} requests")
+        orders = {tuple(s["name"] for s in r["spans"]) for r in recs}
+        check(orders == {tuple(HAPPY_SPANS)}, f"span orders {orders}")
+        check(st["tracing"]["open"] == 0 and st["tracing"]["dropped"] == 0,
+              f"tracing stats {st['tracing']}")
+        fams = scrape()
+        check(len(scrapes) >= 1, "no scrape landed during the traffic")
+        served = [v for _, lab, v, _ in
+                  fams["neurachip_requests_total"]["samples"]
+                  if lab == {"outcome": "served"}]
+        samples = fams["neurachip_request_latency_seconds"]["samples"]
+        hist_n = sum(histogram_counts_from_samples(samples, {}))
+        check(served == [st["n_served"]] == [len(reqs)]
+              and hist_n == st["n_served"],
+              f"exposition served {served}, histogram {hist_n}, "
+              f"n_served {st['n_served']}")
+        check_launches("traced server", launches, st["n_batches"])
+        err = replay_err(srv, reqs)
+        check(err <= SERVE_TOL, f"traced server vs replay {err:.3e}")
+        out["traced"] = dict(
+            requests=len(reqs), req_per_s=len(reqs) / dt,
+            batches=st["n_batches"], launches=launches, parity_max_abs=err,
+            scrapes_during_traffic=len(scrapes), tracing=st["tracing"],
+            bucket_hits=st["bucket_hits"],
+            **{f"{n}_median_ms": med(span_ms(recs, n))
+               for n in ("sample", "queue_wait", "bucket_pack",
+                         "dispatch")},
+            device_window_median_ms=med(device_window_ms(recs)),
+            dispatch_p90_ms=float(np.percentile(span_ms(recs, "dispatch"),
+                                                90)))
+    say(f"ops traced {json.dumps(out['traced'])}")
+
+    # 2. transient step faults at p = 0.2, one retry each
+    chaos = ChaosInjector(17, p_step_fault=0.2)
+    with ops_server(dev, params, indptr, indices, store, tracing=True,
+                    chaos=chaos, max_retries=1) as srv:
+        srv.warmup()
+        srv.reset_stats()
+        reqs, launches, dt, _ = served_burst(srv, seeds)
+        st = srv.stats()
+        check(all(r.n_settles == 1 for r in reqs),
+              "chaos 0.2: a request settled other than once")
+        failed = [r for r in reqs if r.error is not None]
+        check(all(isinstance(r.error, RetriesExhausted) and r.attempts == 2
+                  for r in failed),
+              f"chaos 0.2: failures {[repr(r.error) for r in failed[:3]]}")
+        recs = srv.tracer.traces()
+        check(verify_traces(recs) == [], "chaos 0.2: malformed traces")
+        by_id = {r["trace"]: r for r in recs}
+        retried = [r for r in reqs if r.attempts]
+        check(all(("retry" in [s["name"] for s in by_id[r.rid]["spans"]])
+                  == bool(r.attempts) for r in reqs),
+              "chaos 0.2: a retried request without a retry span")
+        check(chaos.injected["step"] >= 1 and len(retried) >= 1,
+              f"chaos 0.2: {chaos.injected['step']} faulted rounds")
+        check_launches("chaos 0.2", launches, st["n_batches"])
+        err = replay_err(srv, reqs)
+        check(err <= SERVE_TOL, f"chaos 0.2 served vs replay {err:.3e}")
+        out["chaos_0.2"] = dict(
+            faulted_rounds=chaos.injected["step"],
+            dispatched_steps=st["n_batches"], retried=len(retried),
+            served_after_retry=sum(r.error is None for r in retried),
+            retries_exhausted=len(failed), served=st["n_served"],
+            launches=launches, parity_max_abs=err)
+    say(f"ops chaos 0.2 {json.dumps(out['chaos_0.2'])}")
+
+    # 3. every step faults: every request exhausts its retry, nothing runs
+    chaos = ChaosInjector(17, p_step_fault=1.0)
+    with ops_server(dev, params, indptr, indices, store, chaos=chaos,
+                    max_retries=1) as srv:
+        reqs, launches, _, _ = served_burst(srv, seeds)
+        check(all(r.n_settles == 1 and isinstance(r.error, RetriesExhausted)
+                  for r in reqs), "chaos 1.0: a request did not fail "
+                                  "RetriesExhausted once")
+        check_launches("chaos 1.0", launches, 0)
+        out["chaos_1.0"] = dict(failed=len(reqs), launches=launches,
+                                faulted_rounds=chaos.injected["step"])
+    say(f"ops chaos 1.0 {json.dumps(out['chaos_1.0'])}")
+
+    # 4. sampler faults on the host sampler: only those requests fail
+    chaos = ChaosInjector(17, p_sampler_fault=0.1)
+    with ops_server(dev, params, indptr, indices, store, sampler="host",
+                    chaos=chaos) as srv:
+        srv.warmup()
+        reqs, launches, _, _ = served_burst(srv, seeds)
+        want = {r.rid for r in reqs if _hash_p(17, 2, r.rid, 0.1)}
+        got = {r.rid for r in reqs if r.error is not None}
+        check(got == want and all(isinstance(r.error, SamplerError)
+                                  for r in reqs if r.rid in got)
+              and all(r.n_settles == 1 for r in reqs),
+              f"sampler faults: failed {sorted(got)[:5]}, expected "
+              f"{sorted(want)[:5]}")
+        check_launches("sampler faults", launches, srv.stats()["n_batches"],
+                       device_sampler=False)
+        err = replay_err(srv, reqs)
+        check(err <= SERVE_TOL, f"sampler faults: served vs replay {err:.3e}")
+        out["sampler_faults"] = dict(failed=len(got),
+                                     injected=chaos.injected["sampler"],
+                                     parity_max_abs=err, launches=launches)
+    say(f"ops sampler faults {json.dumps(out['sampler_faults'])}")
+
+    # 5. the tracing cost, a reading: req/s off and on, in turns
+    rates = {False: [], True: []}
+    servers = {on: ops_server(dev, params, indptr, indices, store,
+                              tracing=on) for on in (False, True)}
+    try:
+        for srv in servers.values():
+            srv.warmup()
+        for turn in range(TRACING_COST_RUNS):
+            for on in ((False, True) if turn % 2 == 0 else (True, False)):
+                _, _, dt, _ = served_burst(servers[on], seeds)
+                rates[on].append(len(seeds) / dt)
+    finally:
+        for srv in servers.values():
+            srv.close()
+    off, on = med(rates[False]), med(rates[True])
+    out["tracing_cost"] = dict(req_per_s_off=rates[False],
+                               req_per_s_on=rates[True], median_off=off,
+                               median_on=on, cost=1.0 - on / off)
+    say(f"ops tracing cost {json.dumps(out['tracing_cost'])}")
+    out["launches"] = {
+        k: sum(out[n]["launches"][k] for n in ("traced", "chaos_0.2",
+                                               "chaos_1.0",
+                                               "sampler_faults"))
+        for k in ("spmm_dedup_chunks", "forest_sample", "hash_draws")}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -3240,11 +3662,16 @@ def main() -> int:
     b3_fused = phase_forest(dev)
     cora_plan = agg_plans["cora_full"]
 
-    # phase 3 — gcn-cora at full width on the Cora-scale graph
+    # phase 2b — B1 in bf16, then a bf16 gcn-cora forward
     s, r, x, _, _ = cora_like(seed=0)
     params = gcn.init_params(FULL, torch.Generator().manual_seed(0),
                              device=dev)
     x_table = np.concatenate([x, np.zeros((1, x.shape[1]), np.float32)])
+    t2b = time.perf_counter()
+    b1_bf16, bf16_forward = phase_bf16(dev, agg_plans, params, x_table)
+    say(f"phase 2b took {time.perf_counter() - t2b:.1f} s")
+
+    # phase 3 — gcn-cora at full width on the Cora-scale graph
     phase_forward(dev, cora_plan, params, x_table)
 
     # phases 4-5 — serving from the resident Cora-scale graph
@@ -3311,6 +3738,13 @@ def main() -> int:
     geom = phase_geom_train(dev)
     say(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
+    # phase 17 — the serving plane around gcn-cora serving: tracing,
+    # metrics over HTTP, transient step faults and retries, sampler faults
+    t17 = time.perf_counter()
+    ops = phase_ops(dev, params, indptr, indices, store, seeds)
+    say(f"phase 17 took {time.perf_counter() - t17:.1f} s; the script "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     launches = {k: sum(sv["launches"][k] for sv in serves)
                 for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
                           "forest_sample", "hash_draws")}
@@ -3326,7 +3760,10 @@ def main() -> int:
         launches[k] += (train["launches"][k] + conv["launches"][k]
                         + geom["launches"][k])
     for k in conv_serving:
-        launches[k] += conv_serving[k] + geom_serving[k]
+        launches[k] += (conv_serving[k] + geom_serving[k]
+                        + ops["launches"].get(k, 0))
+    launches["spmm_dedup_chunks"] += \
+        bf16_forward["launches"]["spmm_dedup_chunks"]
     runs = train["per_run"]
     train_note = ", ".join(
         f"{name} {runs[name]['spmm_dedup_chunks']} + "
@@ -3360,11 +3797,26 @@ def main() -> int:
                  "step, 9 a cuda_q8 step; gin 5 and 2); phase 16's DimeNet "
                  f"over Â² {geom['launches']['spmm_dedup_chunks']} (2 a "
                  "cuda step, 1 a cuda_q8 step: the Â² stage and its "
-                 "backward; schnet, dimenet one-hop and their serving 0)"),
+                 "backward; schnet, dimenet one-hop and their serving 0); "
+                 "phase 2b's bf16 forward "
+                 f"{bf16_forward['launches']['spmm_dedup_chunks']}; "
+                 "phase 17's serving plane "
+                 f"{ops['launches']['spmm_dedup_chunks']} (2 a dispatched "
+                 "step)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
              backward=[{k: c[k] for k in ("shape",) + keys}
                        for c in train["backward"]],
+             bf16=dict(
+                 instantiation="spmm_dedup_chunks_kernel<__nv_bfloat16, "
+                               "VEC, RPT> (spmm_dedup_chunks_bf16_launch)",
+                 launches=bf16_forward["launches"]["bf16"],
+                 launches_note="phase 2b's gcn-cora forward in bf16",
+                 max_abs_err=max(c["max_abs_err"] for c in b1_bf16),
+                 shape=b1_bf16[0]["shape"],
+                 **{k: b1_bf16[0][k] for k in keys},
+                 cases=[{k: c[k] for k in ("shape", "f32_ms") + keys}
+                        for c in b1_bf16]),
              shape=main_b1["shape"], **{k: main_b1[k] for k in keys}),
         dict(name="hash_draws", route="cuda",
              source="src/repro_torch/kernels/forest_sampler/csrc/"
@@ -3389,7 +3841,8 @@ def main() -> int:
                            f"{serving['forest_sample']}, phase 14's gat, "
                            f"gin and sage {conv_serving['forest_sample']}, "
                            f"phase 16's schnet and dimenet "
-                           f"{geom_serving['forest_sample']}",
+                           f"{geom_serving['forest_sample']}, phase 17's "
+                           f"serving plane {ops['launches']['forest_sample']}",
              max_abs_err=max(c["max_abs_err"] for c in b3_fused),
              shape=main_b3["shape"], **{k: main_b3[k] for k in keys}),
         dict(name="spgemm_hashpad", route="cuda",

@@ -29,3 +29,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def host_to_device(a, device: torch.device,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` (a host array or a tensor) as a tensor on ``device``, without a
+    host sync: a blocking host-to-device copy waits for every launch queued
+    on the stream, so a served step's inputs would wait for the step before
+    it.  The driver stages pageable host memory before the asynchronous
+    copy returns, so ``a`` may be reused at once."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if t.device == device:
+        return t
+    return t.to(device, non_blocking=True)

@@ -1,5 +1,5 @@
-// Gustavson SpMM on the operand-deduplicated chunk layout, f32 and int8, for
-// Hopper.
+// Gustavson SpMM on the operand-deduplicated chunk layout, f32, bf16 and
+// int8, for Hopper.
 //
 // Replaces the Pallas TPU kernels
 // repro/kernels/gustavson_spmm/gustavson_spmm.py:spmm_dedup_chunks (bodies
@@ -12,6 +12,13 @@
 // block_ptr[b+1]-1, consecutive.  The int8 kernel takes a_q8 (int8 tiles,
 // one f32 scale a_scale[k] per chunk) and x_q8 (int8, one f32 scale
 // x_scale[col / q_tile] per scale tile of q_tile columns) and writes f32.
+// The bf16 kernel takes the f32 tiles and a bf16 x and writes bf16 with the
+// reference's rounding (_fold on a bf16 landing buffer): each coefficient is
+// rounded to bf16 before its multiply, a chunk's sum is taken in f32 and
+// rounded to bf16, and the block's first chunk sets the block while every
+// later one is added in f32 and rounded back to bf16 -- a block is rounded
+// once per chunk, not once at the store.  A product of two bf16 values is
+// exact in f32, so a chunk's sum depends only on its order.
 //
 // What bounds them on the H100: bytes, and the latency of a block's chain
 // of dependent loads.  A chunk gathers remaining[k] rows of x and folds
@@ -30,7 +37,8 @@
 //   gathered x vector is loaded once per block, straight into registers,
 //   and used for all 8 rows; neighbouring threads load neighbouring vectors
 //   of one x row.  A stripe has up to 256 column threads, so D = 1433
-//   (4-byte rows) takes 6 stripes and D = 602 (8-byte rows) 2;
+//   (4-byte rows) takes 6 stripes and D = 602 (8-byte rows) 2; bf16 loads
+//   VEC = 4 columns as 8 bytes and widens them to f32 in registers;
 // * rows of at most 16 vectors (D = 16, 7, 64) give each of 8 row threads
 //   one row instead, so a narrow block spreads over a warp or more; the 8
 //   row threads of a column sit in one warp and load their vector in one
@@ -38,7 +46,10 @@
 // * a group walks its block's chunks in slices of 64 lanes.  A slice's
 //   live u_cols and live tile columns land in shared memory in one step, by
 //   16-byte cp.async with zero fill: a dead lane (u >= remaining[k]) is
-//   never read, so it needs no zeroing and cannot inject a NaN.  Slices
+//   never read, so it needs no zeroing and cannot inject a NaN.  In bf16
+//   each thread rounds the coefficients it staged to bf16 there, once a
+//   slice (a conversion issues at a fraction of the FMA rate: rounding at
+//   each use made the kernel twice as slow as f32).  Slices
 //   are double-buffered: a hub's next chunk's metadata is in flight while
 //   the current slice folds, and remaining[] is loaded one chunk ahead.  A
 //   block's chain is block_ptr -> remaining -> chunk metadata -> x -> store,
@@ -56,7 +67,8 @@
 //   __byte_perm transpose, |sum| <= 127^2 * width < 2^24), and the partials
 //   fold into the accumulator chunk after chunk: f32 acc += part, int8 acc =
 //   __fmaf_rn(isum, __fmul_rn(a_scale[k], x_scale[col / q_tile]), acc), the
-//   reference's XLA-contracted fold, which the plain version emulates.  The
+//   reference's XLA-contracted fold, which the plain version emulates; bf16
+//   acc = bf16(acc + bf16(part)), the first chunk acc = bf16(part).  The
 //   bits depend on neither the stripe width nor the groups per thread block,
 //   and are the same from run to run;
 // * each block's tile is written once, after its last chunk: no atomics.
@@ -68,6 +80,7 @@
 //
 // The tiles must have 8 rows, a width that is a multiple of 16 and 16-byte
 // aligned rows (pack_dedup_chunks' default layout); the wrapper checks.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,9 +112,9 @@ struct Args {
   const int32_t* block_ptr;
   const void* a;           // float or int8_t tiles
   const float* a_scale;    // int8 only
-  const void* x;           // float or int8_t
+  const void* x;           // float, __nv_bfloat16 or int8_t
   const float* x_scale;    // int8 only
-  float* y;
+  void* y;                 // float, or __nv_bfloat16 for a bf16 x
   int n_blocks, n_chunks, width, d, lanes, q_tile;
 };
 
@@ -209,6 +222,34 @@ __device__ __forceinline__ void load_vec(float (&v)[VEC], const float* p) {
   }
 }
 
+// VEC bf16 columns at p, widened to f32 (a bf16 is the high half of its f32)
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&v)[VEC],
+                                         const __nv_bfloat16* p) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else if constexpr (VEC == 2) {
+    const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __uint_as_float(t << 16);
+    v[1] = __uint_as_float(t & 0xffff0000u);
+  } else {
+    const unsigned short t =
+        __ldg(reinterpret_cast<const unsigned short*>(p));
+    v[0] = __uint_as_float((unsigned)t << 16);
+  }
+}
+
+// f32 -> the nearest bf16 (ties to even), back as f32.  A conversion issues
+// at a fraction of the FMA rate, so the kernel rounds each staged
+// coefficient once (round_tiles) and each chunk's sum once, never per use
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // VEC int8 columns at p, as the low VEC bytes of a word
 template <int VEC>
 __device__ __forceinline__ unsigned load_vec(const int8_t* p) {
@@ -232,6 +273,24 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
+// VEC values already on the bf16 grid, stored as bf16 (exact)
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[VEC]) {
+  unsigned short h[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    h[e] = __bfloat16_as_ushort(__float2bfloat16_rn(v[e]));
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(h[0] | ((unsigned)h[1] << 16), h[2] | ((unsigned)h[3] << 16));
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<unsigned*>(p) = h[0] | ((unsigned)h[1] << 16);
+  } else {
+    *reinterpret_cast<unsigned short*>(p) = h[0];
+  }
+}
+
 // Four lanes' words (byte s = column s) -> four column words (byte t =
 // lane t), the layout of a staged tile word (byte t = lane t of one row).
 __device__ __forceinline__ void transpose4(const unsigned (&w)[4],
@@ -246,7 +305,8 @@ __device__ __forceinline__ void transpose4(const unsigned (&w)[4],
   c[3] = (int)__byte_perm(t2, t3, 0x7632);
 }
 
-// T = float: f32 tiles and x; T = int8_t: int8 tiles and x with scales.
+// T = float: f32 tiles and x; T = __nv_bfloat16: f32 tiles, bf16 x and y;
+// T = int8_t: int8 tiles and x with scales.
 // VEC: elements per load, one vector a thread per row.  RPT: output rows a
 // thread holds, 8, or 1 for rows of at most 16 vectors (then ROWS row
 // threads a column).
@@ -257,11 +317,14 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
                                                                        : 2)
     spmm_dedup_chunks_kernel(const Args p) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  constexpr int A_ROW = SLICE * (int)sizeof(T); // staged bytes per tile row
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  using TA = typename std::conditional<Q8, int8_t, float>::type;  // tiles
+  using TY = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int A_ROW = SLICE * (int)sizeof(TA); // staged bytes per tile row
   constexpr int BUF = SLICE * 4 + ROWS * A_ROW;
   constexpr int COL_SEGS = SLICE * 4 / 16;      // 16-byte copies of u_cols
   constexpr int A_SEGS = A_ROW / 16;            // ... of one tile row
-  constexpr int SEG_LANES = 16 / (int)sizeof(T);
+  constexpr int SEG_LANES = 16 / (int)sizeof(TA);
   // quads of lanes a stage, two stages in flight: 32 lanes where a thread
   // holds int8 words or one row of 1 or 2 floats, 24 where it holds one
   // row of 4, else 16 floats of x a stage
@@ -284,7 +347,7 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
   walk.start(p, b);
   unsigned char* const buffers = smem + (size_t)g * 2 * BUF;
 
-  const T* __restrict__ a = static_cast<const T*>(p.a);
+  const TA* __restrict__ a = static_cast<const TA*>(p.a);
   const int d = p.d;
   const int width = p.width;
   const int v = blockIdx.y * lanes + l;  // this thread's vector of a row
@@ -315,7 +378,7 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
   // one slice's live u_cols and tile columns -> buf; dead lanes unread
   auto fetch = [&](const Slice& sl, unsigned char* buf) {
     const int32_t* cols = p.u_cols + (int64_t)sl.k * width + sl.off;
-    const T* tile = a + (int64_t)sl.k * ROWS * width + sl.off;
+    const TA* tile = a + (int64_t)sl.k * ROWS * width + sl.off;
     for (int i = tg; i < COL_SEGS + ROWS * A_SEGS; i += group) {
       if (i < COL_SEGS) {
         const int bytes = min(max(sl.cnt - i * 4, 0), 4) * 4;
@@ -327,7 +390,30 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
         if (live > 0)
           cp_async16(buf + SLICE * 4 + r * A_ROW + seg * 16,
                      tile + (int64_t)r * width + seg * SEG_LANES,
-                     live * (int)sizeof(T));
+                     live * (int)sizeof(TA));
+      }
+    }
+  };
+
+  // bf16: once a slice has landed, each thread rounds the tile segments it
+  // copied (its own cp.async copies are visible to it after the wait) to
+  // bf16 in place -- a.astype(bf16) once per staged coefficient, not once
+  // per use; the barrier that follows publishes them to the group
+  auto round_tiles = [&](const Slice& sl, unsigned char* buf) {
+    if constexpr (BF16) {
+      for (int i = tg; i < COL_SEGS + ROWS * A_SEGS; i += group) {
+        if (i < COL_SEGS) continue;
+        const int r = (i - COL_SEGS) / A_SEGS;
+        const int seg = (i - COL_SEGS) % A_SEGS;
+        if (sl.cnt - seg * SEG_LANES <= 0) continue;
+        float4* q = reinterpret_cast<float4*>(buf + SLICE * 4 + r * A_ROW +
+                                              seg * 16);
+        float4 v = *q;
+        v.x = round_bf16(v.x);
+        v.y = round_bf16(v.y);
+        v.z = round_bf16(v.z);
+        v.w = round_bf16(v.w);
+        *q = v;
       }
     }
   };
@@ -408,11 +494,13 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
     }
   };
 
+  bool first_chunk = true;  // bf16: the block's first chunk sets it
   Slice cur = walk.slice();
   if (cur.valid) fetch(cur, buffers);
   walk.advance(cur);
   int stage = 0;
   cp_async_wait_all();
+  if (cur.valid) round_tiles(cur, buffers);
   // one barrier a step: this slice has landed for every thread, and every
   // thread is done with the buffer the next slice lands in
   while (__syncthreads_or(cur.valid)) {
@@ -444,14 +532,20 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
             if constexpr (Q8) {
               acc[r][e] = __fmaf_rn((float)part[r][e],
                                     __fmul_rn(cur.scale, xs[e]), acc[r][e]);
+            } else if constexpr (BF16) {
+              const float pr = round_bf16(part[r][e]);
+              acc[r][e] =
+                  first_chunk ? pr : round_bf16(__fadd_rn(acc[r][e], pr));
             } else {
               acc[r][e] += part[r][e];
             }
             part[r][e] = 0;
           }
+        first_chunk = false;
       }
       if (cur.end_block && ok) {
-        float* out = p.y + ((int64_t)b * ROWS + row0) * d + (int64_t)v * VEC;
+        TY* out = static_cast<TY*>(p.y) + ((int64_t)b * ROWS + row0) * d +
+                  (int64_t)v * VEC;
 #pragma unroll
         for (int r = 0; r < RPT; ++r) store_vec<VEC>(out + (int64_t)r * d,
                                                      acc[r]);
@@ -460,6 +554,7 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
     cur = next;
     stage ^= 1;
     cp_async_wait_all();
+    if (cur.valid) round_tiles(cur, buffers + stage * BUF);
   }
 }
 
@@ -467,7 +562,8 @@ template <typename T, int VEC, int RPT>
 int launch(const Args& p, int groups, cudaStream_t stream) {
   const int threads = groups * (RPT == 1 ? p.lanes * ROWS : p.lanes);
   const size_t smem =
-      (size_t)groups * 2 * (SLICE * 4 + ROWS * SLICE * sizeof(T));
+      (size_t)groups * 2 *
+      (SLICE * 4 + ROWS * SLICE * (std::is_same<T, int8_t>::value ? 1 : 4));
   const int stripes = (p.d / VEC + p.lanes - 1) / p.lanes;
   const int64_t blocks = (p.n_blocks + groups - 1) / groups;
   spmm_dedup_chunks_kernel<T, VEC, RPT>
@@ -520,9 +616,22 @@ extern "C" int spmm_dedup_chunks_launch(
     int width, int d, int vec, int lanes, int rows, int groups,
     void* stream) {
   const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
-               (const int32_t*)block_ptr, a, nullptr, x, nullptr, (float*)y,
+               (const int32_t*)block_ptr, a, nullptr, x, nullptr, y,
                n_blocks, n_chunks, width, d, lanes, 1};
   return dispatch<float>(p, vec, rows, groups, stream);
+}
+
+// As above with x (N, d) and y (n_blocks * 8, d) bf16; the tiles stay f32.
+// vec divides d and the bf16 alignment of x and y (4: 8 bytes).
+extern "C" int spmm_dedup_chunks_bf16_launch(
+    const void* u_cols, const void* remaining, const void* block_ptr,
+    const void* a, const void* x, void* y, int n_blocks, int n_chunks,
+    int width, int d, int vec, int lanes, int rows, int groups,
+    void* stream) {
+  const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
+               (const int32_t*)block_ptr, a, nullptr, x, nullptr, y,
+               n_blocks, n_chunks, width, d, lanes, 1};
+  return dispatch<__nv_bfloat16>(p, vec, rows, groups, stream);
 }
 
 // As above with int8 tiles a_q8 and scales a_scale (n_chunks,) f32, int8
@@ -536,7 +645,7 @@ extern "C" int spmm_dedup_chunks_q8_launch(
   if (q_tile <= 0) return (int)cudaErrorInvalidValue;
   const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
                (const int32_t*)block_ptr, a_q8, (const float*)a_scale, x_q8,
-               (const float*)x_scale, (float*)y, n_blocks, n_chunks, width,
+               (const float*)x_scale, y, n_blocks, n_chunks, width,
                d, lanes, q_tile};
   return dispatch<int8_t>(p, vec, rows, groups, stream);
 }

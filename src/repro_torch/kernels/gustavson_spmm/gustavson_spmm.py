@@ -1,9 +1,10 @@
-"""Gustavson SpMM on the dedup-chunk layout, f32 and int8: CUDA kernels,
-plain versions, wrappers and launch counters.
+"""Gustavson SpMM on the dedup-chunk layout, f32, bf16 and int8: CUDA
+kernels, plain versions, wrappers and launch counters.
 
 Port of ``repro.kernels.gustavson_spmm.gustavson_spmm.spmm_dedup_chunks``
-and ``spmm_dedup_chunks_q8``.  Both kernels are one templated walk in
-``csrc/spmm_dedup_chunks.cu``, built as one library: a group of threads
+and ``spmm_dedup_chunks_q8``.  The kernels are one templated walk in
+``csrc/spmm_dedup_chunks.cu``, built as one library (f32, bf16 x with f32
+tiles, and int8): a group of threads
 owns one output block (8 rows) and a stripe of columns held in registers,
 one vector of ``lane_layout``'s width (as wide as D and the pointers allow)
 per thread; it walks the block's chunk range ``block_ptr[b] ..
@@ -12,6 +13,11 @@ memory one slice ahead.  Several groups share a thread block where the
 plan is small (``blocks_per_cta``).  The int8 kernel's feature scales
 cover a *scale* tile, ``auto_d_tile(D)`` (up to 512 columns), which has
 nothing to do with the stripes.  The source says what bounds the kernels.
+
+A bf16 ``x`` keeps the reference's rounding (its ``_fold`` on a bf16
+landing buffer): the f32 coefficients are rounded to bf16, a chunk's sum is
+taken in f32 and rounded to bf16, and a block is rounded once per chunk —
+its first chunk sets it, each later one is added in f32 and rounded back.
 
 The wrappers take the plain PyTorch version only for tensors on the CPU.
 For CUDA tensors they launch the kernel or raise.
@@ -33,9 +39,12 @@ LIBRARY = build.KernelLibrary(
     sources=(pathlib.Path(__file__).parent / "csrc"
              / "spmm_dedup_chunks.cu",),
     functions=(("spmm_dedup_chunks_launch", (_P,) * 6 + (_I,) * 8 + (_P,)),
+               ("spmm_dedup_chunks_bf16_launch",
+                (_P,) * 6 + (_I,) * 8 + (_P,)),
                ("spmm_dedup_chunks_q8_launch",
                 (_P,) * 8 + (_I,) * 9 + (_P,))))
 
+X_DTYPES = (torch.float32, torch.bfloat16)  # what spmm_dedup_chunks takes
 ROWS = 8                  # output rows per block the kernels fold (csrc)
 MAX_THREADS = 256         # per thread block (csrc)
 MAX_GROUPS = 8            # output blocks per thread block (csrc)
@@ -52,7 +61,7 @@ def lane_layout(d: int, *tensors: torch.Tensor) -> Tuple[int, int, int]:
     """(elements per load, column threads per stripe, rows a thread holds)
     for rows of ``d`` columns.  The load is VEC = 4, 2 or 1 elements, the
     widest that divides ``d`` and every pointer's alignment in its own
-    element size (f32: 16, 8 or 4 bytes; int8: 4, 2 or 1).  Rows of at
+    element size (f32: 16, 8 or 4 bytes; bf16: 8, 4 or 2; int8: 4, 2 or 1).  Rows of at
     most ``NARROW_VECTORS`` vectors give each column thread one row
     (``ROWS`` row threads a column), wider rows all ``ROWS`` rows; either
     way a column thread holds one vector.  A stripe takes up to
@@ -133,20 +142,66 @@ def fold_q8_in_order(isum: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+def _live_landing(u_cols, remaining, x):
+    """Each chunk's gathered operand rows ``(n_chunks, width, D)`` in
+    ``x.dtype``, zero at the lanes ``u ≥ remaining[k]``, which are not
+    read."""
+    n_chunks, width = u_cols.shape
+    lane = torch.arange(width, device=u_cols.device)
+    live = lane[None, :] < remaining[:, None].to(torch.int64)
+    idx = torch.where(live, u_cols.to(torch.int64), 0)
+    land = x.index_select(0, idx.reshape(-1)).reshape(n_chunks, width, -1)
+    return torch.where(live[:, :, None], land, 0)
+
+
+def fold_bf16_in_order(part: torch.Tensor,
+                       block_ptr: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's fold: per output block, its first chunk's bf16
+    sum ``part[k]`` sets the block and every later one is added in f32 and
+    rounded back to bf16, chunk after chunk (the reference's ``_fold`` on a
+    bf16 output block).  Reads the deepest block's chunk count back to the
+    host."""
+    n_blocks = block_ptr.shape[0] - 1
+    start = block_ptr[:-1].to(torch.int64)
+    count = block_ptr[1:].to(torch.int64) - start
+    y = torch.zeros((n_blocks,) + tuple(part.shape[1:]),
+                    dtype=torch.bfloat16, device=part.device)
+    for i in range(int(count.max()) if n_blocks else 0):
+        blocks = torch.nonzero(count > i).reshape(-1)
+        k = start[blocks] + i
+        y[blocks] = part[k] if i == 0 else (
+            y[blocks].float() + part[k].float()).to(torch.bfloat16)
+    return y
+
+
+def _plain_bf16(u_cols, remaining, block_ptr, a, x, block_rows):
+    """bf16 ``x``: the kernel's arithmetic step for step.  Each lane's
+    product of a bf16-rounded coefficient and a bf16 operand is exact in
+    f32, so adding the lanes in ascending ``u`` gives the kernel's chunk
+    sums bit for bit; each is rounded to bf16 and folded in order."""
+    n_chunks, width = u_cols.shape
+    land = _live_landing(u_cols, remaining, x).float()
+    a3 = a.reshape(n_chunks, block_rows, width).to(torch.bfloat16).float()
+    part = land.new_zeros((n_chunks, block_rows, x.shape[1]))
+    for u in range(width):
+        part += a3[:, :, u, None] * land[:, None, u, :]
+    y = fold_bf16_in_order(part.to(torch.bfloat16), block_ptr)
+    return y.reshape(-1, x.shape[1])
+
+
 def spmm_dedup_chunks_plain(u_cols: torch.Tensor, remaining: torch.Tensor,
                             block_ptr: torch.Tensor, a: torch.Tensor,
                             x: torch.Tensor, *,
                             block_rows: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: per chunk, coefficient tile ×
     gathered live operands, chunks summed into their block in order.
-    Lanes ``u ≥ remaining[k]`` are neither gathered nor added."""
+    Lanes ``u ≥ remaining[k]`` are neither gathered nor added.  A bf16
+    ``x`` follows the bf16 kernel's rounding (``_plain_bf16``)."""
+    if x.dtype == torch.bfloat16:
+        return _plain_bf16(u_cols, remaining, block_ptr, a, x, block_rows)
     n_chunks, width = u_cols.shape
     n_blocks = block_ptr.shape[0] - 1
-    lane = torch.arange(width, device=u_cols.device)
-    live = lane[None, :] < remaining[:, None].to(torch.int64)
-    idx = torch.where(live, u_cols.to(torch.int64), 0)
-    land = x.index_select(0, idx.reshape(-1)).reshape(n_chunks, width, -1)
-    land = torch.where(live[:, :, None], land, 0.0)
+    land = _live_landing(u_cols, remaining, x)
     contrib = torch.bmm(a.reshape(n_chunks, block_rows, width), land)
     out_block = torch.repeat_interleave(
         torch.arange(n_blocks, device=u_cols.device),
@@ -156,11 +211,12 @@ def spmm_dedup_chunks_plain(u_cols: torch.Tensor, remaining: torch.Tensor,
     return y.reshape(n_blocks * block_rows, x.shape[1])
 
 
-def _check(u_cols, remaining, block_ptr, a, x, block_rows, dtype,
-           scales=()):
-    """Devices, dtypes, contiguity and shapes shared by both kernels:
-    ``dtype`` is the tiles' and operands' (f32, or int8 for the int8
-    kernel), ``scales`` the int8 kernel's (name, f32 tensor) scales."""
+def _check(u_cols, remaining, block_ptr, a, x, block_rows, a_dtype,
+           x_dtypes, scales=()):
+    """Devices, dtypes, contiguity and shapes shared by the kernels:
+    ``a_dtype`` is the tiles' (f32, or int8 for the int8 kernel),
+    ``x_dtypes`` the operands' allowed types, ``scales`` the int8 kernel's
+    (name, f32 tensor) scales."""
     dev = x.device
     for name, t in (("u_cols", u_cols), ("remaining", remaining),
                     ("block_ptr", block_ptr), ("a", a), ("x", x), *scales):
@@ -172,9 +228,11 @@ def _check(u_cols, remaining, block_ptr, a, x, block_rows, dtype,
                     ("block_ptr", block_ptr)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("a", a), ("x", x)):
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if a.dtype != a_dtype:
+        raise TypeError(f"a must be {a_dtype}, got {a.dtype}")
+    if x.dtype not in x_dtypes:
+        raise TypeError(f"x must be one of {', '.join(map(str, x_dtypes))}, "
+                        f"got {x.dtype}")
     for name, t in scales:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -223,12 +281,15 @@ def _kernel_layout(u_cols, a, x, y,
 def spmm_dedup_chunks(u_cols: torch.Tensor, remaining: torch.Tensor,
                       block_ptr: torch.Tensor, a: torch.Tensor,
                       x: torch.Tensor, *, block_rows: int) -> torch.Tensor:
-    """y = A @ x on the dedup-chunk layout → ``(n_blocks·block_rows, D)``.
+    """y = A @ x on the dedup-chunk layout → ``(n_blocks·block_rows, D)``
+    in ``x.dtype``.
 
     u_cols (n_chunks, width) int32; remaining (n_chunks,) int32; block_ptr
-    (n_blocks+1,) int32; a (n_chunks·block_rows, width) f32; x (N, D) f32.
+    (n_blocks+1,) int32; a (n_chunks·block_rows, width) f32; x (N, D) f32
+    or bf16 (the tiles stay f32 and are rounded to bf16 in the kernel).
     """
-    _check(u_cols, remaining, block_ptr, a, x, block_rows, torch.float32)
+    _check(u_cols, remaining, block_ptr, a, x, block_rows, torch.float32,
+           X_DTYPES)
     if x.device.type == "cpu":
         return spmm_dedup_chunks_plain(u_cols, remaining, block_ptr, a, x,
                                        block_rows=block_rows)
@@ -242,18 +303,23 @@ def spmm_dedup_chunks(u_cols: torch.Tensor, remaining: torch.Tensor,
                     device=x.device)
     vec, lanes, rows, groups = _kernel_layout(u_cols, a, x, y, block_rows)
     lib = build.load(LIBRARY)
+    bf16 = x.dtype == torch.bfloat16
+    launch = (lib.spmm_dedup_chunks_bf16_launch if bf16
+              else lib.spmm_dedup_chunks_launch)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.spmm_dedup_chunks_launch(
+        err = launch(
             u_cols.data_ptr(), remaining.data_ptr(), block_ptr.data_ptr(),
             a.data_ptr(), x.data_ptr(), y.data_ptr(), n_blocks, n_chunks,
             width, d, vec, lanes, rows, groups, stream)
     build.check_launch("spmm_dedup_chunks", err)
     spmm_dedup_chunks.launches += 1
+    spmm_dedup_chunks.launches_bf16 += bf16
     return y
 
 
 spmm_dedup_chunks.launches = 0
+spmm_dedup_chunks.launches_bf16 = 0     # the bf16 instantiation's share
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +370,7 @@ def spmm_dedup_chunks_q8(u_cols: torch.Tensor, remaining: torch.Tensor,
     """
     q_tile = auto_d_tile(x_q8.shape[1]) if q_tile is None else int(q_tile)
     _check(u_cols, remaining, block_ptr, a_q8, x_q8, block_rows, torch.int8,
-           (("a_scale", a_scale), ("x_scale", x_scale)))
+           (torch.int8,), (("a_scale", a_scale), ("x_scale", x_scale)))
     d = x_q8.shape[1]
     n_scales = -(-d // q_tile) if q_tile >= 1 else -1
     if a_scale.shape != remaining.shape or x_scale.shape != (n_scales,):

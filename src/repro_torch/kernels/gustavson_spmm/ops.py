@@ -42,6 +42,7 @@ def _save(ctx, want_da: bool, want_dx: bool, u_cols, remaining, out_block,
     ctx.want_da, ctx.want_dx = want_da, want_dx
     ctx.block_rows = block_rows
     ctx.n_x = x.shape[0]
+    ctx.x_dtype = x.dtype
     ctx.transpose = transpose
     if want_da:
         ctx.save_for_backward(u_cols, remaining, out_block, x)
@@ -49,15 +50,16 @@ def _save(ctx, want_da: bool, want_dx: bool, u_cols, remaining, out_block,
 
 def _backward(ctx, grad_y: torch.Tensor):
     """(dA, dX) of y = A·x on the dedup-chunk layout, as the reference's
-    ``_ad_bwd``: dX by B1 on the transpose layout, dA from the gather.
-    dA's lanes ``u ≥ remaining[k]`` are zero."""
+    ``_ad_bwd``: dX by B1 on the transpose layout (a bf16 cotangent runs
+    the bf16 kernel) in ``x.dtype``, dA in f32 from the f32 gather.  dA's
+    lanes ``u ≥ remaining[k]`` are zero."""
     br = ctx.block_rows
     dy = grad_y.contiguous()
     da = dx = None
     if ctx.want_dx:
         t_u_cols, t_remaining, t_block_ptr, a_t = ctx.transpose
         dx = spmm_dedup_chunks(t_u_cols, t_remaining, t_block_ptr, a_t, dy,
-                               block_rows=br)[: ctx.n_x]
+                               block_rows=br)[: ctx.n_x].to(ctx.x_dtype)
     if ctx.want_da:
         u_cols, remaining, out_block, x = ctx.saved_tensors
         n_chunks, width = u_cols.shape
@@ -103,7 +105,8 @@ class _SpmmDedupQ8(torch.autograd.Function):
         x_q8, x_scale = quantize_feature_tiles(x, q_tile)
         return spmm_dedup_chunks_q8(u_cols, remaining, block_ptr, a_q8,
                                     a_scale, x_q8, x_scale,
-                                    block_rows=block_rows, q_tile=q_tile)
+                                    block_rows=block_rows,
+                                    q_tile=q_tile).to(x.dtype)
 
     @staticmethod
     def backward(ctx, grad_y):
@@ -138,7 +141,8 @@ def spmm_dedup_grad_q8(u_cols, remaining, block_ptr, out_block, a, t_u_cols,
                        t_remaining, t_block_ptr, a_t, x, *, a_q8, a_scale,
                        block_rows: int,
                        q_tile: Optional[int] = None) -> torch.Tensor:
-    """Differentiable int8 y ≈ A·x (straight-through gradients).
+    """Differentiable int8 y ≈ A·x (straight-through gradients), returned
+    in ``x.dtype`` as the reference's ``y.astype(x.dtype)``.
 
     ``a_q8``/``a_scale`` are the int8 forward tiles (baked at plan time,
     or quantized from ``a`` by the caller); X quantizes here per feature
@@ -150,7 +154,8 @@ def spmm_dedup_grad_q8(u_cols, remaining, block_ptr, out_block, a, t_u_cols,
         x_q8, x_scale = quantize_feature_tiles(x, q_tile)
         return spmm_dedup_chunks_q8(u_cols, remaining, block_ptr, a_q8,
                                     a_scale, x_q8, x_scale,
-                                    block_rows=block_rows, q_tile=q_tile)
+                                    block_rows=block_rows,
+                                    q_tile=q_tile).to(x.dtype)
     return _SpmmDedupQ8.apply(u_cols, remaining, block_ptr, out_block, a,
                               a_q8, a_scale, t_u_cols, t_remaining,
                               t_block_ptr, a_t, x, block_rows, q_tile)

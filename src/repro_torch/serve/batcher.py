@@ -38,6 +38,7 @@ class ServeRequest:
     t_ready: float = 0.0              # sampling finished, joined the queue
     t_done: float = 0.0               # result materialized
     deadline: Optional[float] = None  # absolute clock time; None = none
+    attempts: int = 0                 # dispatch attempts (transient retries)
     trees: Optional[list] = None      # per-seed SampledSubgraph (host plane)
     tkm: Optional[np.ndarray] = None  # (k,) int64 tree-key counter terms
     #                                   (device sampling plane)
@@ -124,6 +125,8 @@ class DynamicBatcher:
             raise ValueError(
                 f"request {req.rid} carries {req.n_seeds} seeds but the "
                 f"batcher's bucket capacity is {self.max_seeds}")
+        # t_ready re-stamps on every (re-)enqueue, so a retried request's
+        # queue_wait span measures its current wait, not the first
         req.t_ready = self.clock()
         with self._cond:
             self._pending.append(req)

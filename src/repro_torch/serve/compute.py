@@ -28,7 +28,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.serve.buckets import BucketStructure
 from repro_torch.sparse.plan import edge_plan, make_plan, plan_with_values
 
@@ -161,6 +161,11 @@ def bucket_plan(struct: BucketStructure, backend: str, need_ell: bool,
                               device))
 
 
+def bucket_plan_cache_info() -> dict:
+    """Process-wide bucket-plan cache counters (builds/hits/size)."""
+    return _BUCKET_PLANS.info()
+
+
 # ---------------------------------------------------------------------------
 # Inference steps
 # ---------------------------------------------------------------------------
@@ -245,8 +250,8 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
             return e[:k, None]
 
     def step(params, node_ids, hop_valid):
-        node_ids = torch.as_tensor(node_ids, device=dev)
-        hop_valid = torch.as_tensor(hop_valid, device=dev)
+        node_ids = host_to_device(node_ids, dev)
+        hop_valid = host_to_device(hop_valid, dev)
         with torch.no_grad():
             return forward(params, node_ids,
                            edge_validity(node_ids, hop_valid))

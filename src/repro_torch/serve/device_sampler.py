@@ -21,7 +21,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, host_to_device, resolve_device
 from repro_torch.kernels.forest_sampler import forest_sample
 from repro_torch.sparse import sampler as host_sampler
 from repro_torch.sparse.sampler import _K_TREE, _mix64, SampledSubgraph
@@ -64,7 +64,7 @@ class DeviceSamplerPlane:
         """``forest_sample`` on a (3, T) ``pack_trees`` array (host or
         device): ``(node_ids (n_nodes,), hop_valid (Σbudgets,))`` in the
         bucket's breadth-major layout, on the device."""
-        trees = torch.as_tensor(trees, dtype=torch.int64, device=self.device)
+        trees = host_to_device(trees, self.device, torch.int64)
         return forest_sample(self.indptr, self.indices, trees, self.fanouts,
                              self.key_c)
 

@@ -20,6 +20,18 @@ model) and serves seed-node requests:
 4. results come back per request (``.cpu()`` is the device sync) and the
    request's latency clock stops.
 
+The operations plane is opt-in, each part ``None`` when off so the hot
+loops pay one ``is None`` test per stage: ``tracing=`` records a span tree
+per request (``serve.tracing``: ``sample``, ``queue_wait``,
+``bucket_pack``, ``dispatch``, then ``settle`` or ``error``; ``dispatch``
+covers the asynchronous launches alone, and the device window is the gap
+from its end to ``settle``, taken after the ``.cpu()`` sync);
+``metrics=``/``metrics_port=`` keep a ``MetricsRegistry`` and serve it over
+HTTP (``launch.metrics_server``); ``chaos=`` injects sampler faults and
+transient step faults, which the retry path re-queues up to
+``max_retries`` times before failing the request with
+``RetriesExhausted``.
+
 ``offline_inference`` is the correctness anchor: the same trees, one
 request at a time through the bucket-1 step — serving output must match it
 to ≤1e-5.
@@ -41,9 +53,16 @@ from repro_torch.serve.buckets import (all_buckets, bucket_for,
 from repro_torch.serve.compute import (FeatureStore, StepCache, _arch_key,
                                        build_infer_step)
 from repro_torch.serve.errors import (DeadlineExceeded, DrainTimeout,
-                                      SamplerError, ServeError, ServerClosed)
+                                      RetriesExhausted, SamplerError,
+                                      ServeError, ServerClosed,
+                                      TransientStepError)
 from repro_torch.serve.telemetry import percentiles_ms
+from repro_torch.serve.tracing import Tracer
 from repro_torch.sparse import sampler
+from repro_torch.sparse.plan import plan_cache_info
+
+# span attrs are read-only once emitted: hot-path spans share one dict
+_DEVICE_SAMPLE_ATTRS = {"mode": "device"}
 
 
 def _needs_loops(arch_id: str) -> bool:
@@ -64,18 +83,21 @@ class SamplerPool:
     on daemon threads, draining whatever else is queued into one vectorized
     forest pass (counter-based draws make grouped sampling identical to
     per-request sampling), then hands the request to ``on_ready``.  A
-    failing request is isolated and reported through ``on_error``."""
+    failing request is isolated and reported through ``on_error``.
+    ``fault_hook`` (chaos) is called with each request before sampling; a
+    raise is handled like a real sampling failure."""
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray,
                  fanouts: Sequence[int], key: int, *,
                  on_ready, on_error, n_workers: int = 2,
-                 group_cap: int = 64):
+                 group_cap: int = 64, fault_hook=None):
         self.indptr = np.asarray(indptr)
         self.indices = np.asarray(indices)
         self.fanouts = tuple(int(f) for f in fanouts)
         self.key = key
         self.on_ready = on_ready
         self.on_error = on_error
+        self.fault_hook = fault_hook
         self.group_cap = int(group_cap)
         self._q: "queue.Queue[Optional[ServeRequest]]" = queue.Queue()
         self._workers = [threading.Thread(target=self._worker, daemon=True,
@@ -88,6 +110,9 @@ class SamplerPool:
         self._q.put(req)
 
     def _sample_group(self, group):
+        if self.fault_hook is not None:
+            for r in group:
+                self.fault_hook(r)
         seeds_all = np.concatenate([r.seeds for r in group])
         keys = np.concatenate([default_tree_keys(r.rid, r.n_seeds)
                                for r in group])
@@ -156,7 +181,8 @@ class GNNServer:
     ``device=None`` serves on ``cuda`` (and raises without a GPU); the
     feature store must live on the same device and hold what the arch
     reads: ``x`` for the conv family, ``species`` and ``pos`` for schnet
-    and dimenet.
+    and dimenet.  ``chaos``, ``tracing`` and ``metrics``/``metrics_port``
+    are off by default (the module docstring says what each adds).
     """
 
     def __init__(self, arch_id: str, cfg, params, indptr: np.ndarray,
@@ -166,6 +192,9 @@ class GNNServer:
                  max_batch_seeds: int = 16, max_wait_ms: float = 5.0,
                  n_workers: int = 2, seed: int = 0,
                  step_cache_size: int = 16, inflight: int = 2,
+                 chaos=None, max_retries: int = 1,
+                 tracing: bool = False, trace_capacity: int = 4096,
+                 metrics: bool = False, metrics_port: Optional[int] = None,
                  clock=time.monotonic, device: DeviceLike = None):
         self.device = resolve_device(device)
         if store.device != self.device:
@@ -184,6 +213,11 @@ class GNNServer:
         self.seed = seed
         self.clock = clock
         self.inflight_depth = max(int(inflight), 1)
+        self.chaos = chaos                # fault injector; None = no chaos
+        self.max_retries = max(int(max_retries), 0)
+        self._round_no = 0                # dispatch counter (chaos trigger)
+        self.tracer = (Tracer(capacity=trace_capacity, clock=clock)
+                       if tracing else None)
 
         self.batcher = DynamicBatcher(self.max_batch_seeds,
                                       max_wait_ms / 1e3, clock=clock)
@@ -199,10 +233,33 @@ class GNNServer:
         # grow without bound; percentiles are over recent traffic
         self._stats_lock = threading.Lock()
         self.bucket_counts: Dict[int, int] = collections.Counter()
+        self.bucket_hits = 0            # batches landing in a warm bucket
         self.n_served = 0
         self.n_deadline_failed = 0
         self.latencies: "collections.deque[float]" = collections.deque(
             maxlen=4096)
+
+        # metrics plane: a registry read by scrapes (host state only)
+        self.metrics = None
+        self._metrics_server = None
+        self._m_latency = self._m_requests = None
+        if metrics or metrics_port is not None:
+            from repro_torch.serve.metrics import MetricsRegistry
+            self.metrics = MetricsRegistry()
+            self._m_latency = self.metrics.histogram(
+                "request_latency_seconds", "end-to-end request latency")
+            self._m_requests = self.metrics.counter(
+                "requests_total", "settled requests by outcome")
+            self._m_queue = self.metrics.gauge(
+                "queue", "dynamic-batcher queue state")
+            self._m_cache = self.metrics.gauge(
+                "cache_hit_rate", "host plan/step cache hit rates")
+            self.metrics.connect_kernel_stats()
+            self.metrics.register_pull(self._pull_metrics)
+            if metrics_port is not None:
+                from repro_torch.launch.metrics_server import MetricsServer
+                self._metrics_server = MetricsServer(self.metrics.render,
+                                                     port=metrics_port)
 
         # data plane: host sampler worker pool, or the device plane — where
         # sampling runs INSIDE the per-bucket step
@@ -220,8 +277,13 @@ class GNNServer:
             self._plane = None
             self._sampler = SamplerPool(
                 self.indptr, self.indices, self.fanouts, seed,
-                on_ready=self.batcher.submit, on_error=self._fail_requests,
-                n_workers=n_workers)
+                # tracing picks the hand-off at construction: the untraced
+                # one carries no branch
+                on_ready=(self.batcher.submit if self.tracer is None
+                          else self._on_sampled_traced),
+                on_error=self._fail_requests, n_workers=n_workers,
+                fault_hook=(chaos.sampler_hook if chaos is not None
+                            else None))
         # compute plane: engine loop + in-flight double buffer
         self._closing = False
         self._close_lock = threading.Lock()
@@ -260,10 +322,21 @@ class GNNServer:
         if self._plane is not None:
             from repro_torch.serve.device_sampler import tree_key_mix
             req.tkm = tree_key_mix(default_tree_keys(rid, seeds.shape[0]))
+            if self.tracer is not None:
+                # the host's whole data-plane stage is the key mix above;
+                # the span keeps the tree's shape the same in both modes
+                self.tracer.span(rid, "sample", now, self.clock(),
+                                 _DEVICE_SAMPLE_ATTRS)
             self.batcher.submit(req)
         else:
             self._sampler.submit(req)
         return req
+
+    def _on_sampled_traced(self, req: ServeRequest):
+        """The traced sampler hand-off: the ``sample`` span covers the whole
+        data-plane stage (the pool's queue and the forest pass)."""
+        self.tracer.span(req.rid, "sample", req.t_submit, self.clock())
+        self.batcher.submit(req)
 
     # -- data plane ---------------------------------------------------------
     def _fail_requests(self, reqs, exc: BaseException):
@@ -274,8 +347,17 @@ class GNNServer:
             for req in reqs:
                 self.requests.pop(req.rid, None)
         for req in reqs:
-            req.fail(exc if isinstance(exc, ServeError)
-                     else SamplerError(req.rid, exc), now)
+            err = exc if isinstance(exc, ServeError) \
+                else SamplerError(req.rid, exc)
+            if req.fail(err, now):
+                self._trace_error(req, err, now)
+
+    def _trace_error(self, req: ServeRequest, err: BaseException,
+                     now: float) -> None:
+        """The terminal ``error`` span of a request that just failed."""
+        if self.tracer is not None:
+            self.tracer.settle(req.rid, "error", now, now,
+                               {"error": type(err).__name__})
 
     def sample_for(self, seeds, rid: int) -> list:
         """The data plane's sampling, re-runnable offline (parity anchor).
@@ -315,7 +397,7 @@ class GNNServer:
                       bucket: int) -> np.ndarray:
         """Pack a batch's seeds + counter terms into the bucket's lanes as
         one (3, bucket) ``pack_trees`` array, written in place: one
-        synchronous host-to-device copy a step (padding lanes: live=0 ⇒
+        asynchronous host-to-device copy a step (padding lanes: live=0 ⇒
         the device sampler blanks them)."""
         trees = np.zeros((3, bucket), np.int64)
         i = 0
@@ -328,17 +410,39 @@ class GNNServer:
         return trees
 
     def _dispatch(self, batch: List[ServeRequest]):
+        self._round_no += 1
+        if self.chaos is not None and self.chaos.step_fault(self._round_no):
+            # a faulted round launches nothing
+            self._retry_batch(batch, TransientStepError(self._round_no))
+            return
+        tr = self.tracer
+        t_pack0 = self.clock() if tr is not None else 0.0
         n_trees = sum(r.n_seeds for r in batch)
         bucket = bucket_for(n_trees, self.max_batch_seeds)
+        warm = self.steps.builds
         step = self.steps.get((bucket,))
         if self._plane is None:
             trees = [t for r in batch for t in r.trees]
             node_ids, hop_valid = stack_trees(trees, bucket, self.fanouts)
+            t_pack1 = self.clock() if tr is not None else 0.0
             out = step(self.params, node_ids, hop_valid)   # async launch
         else:
-            out = step(self.params, self._device_batch(batch, bucket))
+            packed = self._device_batch(batch, bucket)
+            t_pack1 = self.clock() if tr is not None else 0.0
+            out = step(self.params, packed)
+        if tr is not None:
+            # queue_wait ends where packing starts; dispatch is the
+            # asynchronous step call alone — the device window shows as
+            # the gap from its end to the settle span
+            t_disp = self.clock()
+            attrs = {"bucket": bucket, "round": self._round_no}
+            for r in batch:
+                tr.extend(r.rid, (("queue_wait", r.t_ready, t_pack0, None),
+                                  ("bucket_pack", t_pack0, t_pack1, attrs),
+                                  ("dispatch", t_pack1, t_disp, attrs)))
         with self._stats_lock:
             self.bucket_counts[bucket] += 1
+            self.bucket_hits += int(self.steps.builds == warm)
         self._inflight.append((batch, out))
         while len(self._inflight) > self.inflight_depth:
             self._finalize_one()
@@ -347,11 +451,16 @@ class GNNServer:
         batch, out = self._inflight.popleft()
         out = out.cpu().numpy()                        # device sync
         now = self.clock()
+        tr = self.tracer
+        settles = [] if tr is not None else None
         row = 0
         for req in batch:
             k = req.n_seeds
-            req.finish(out[row:row + k].copy(), now)
+            if req.finish(out[row:row + k].copy(), now) and tr is not None:
+                settles.append((req.rid, "settle", now, now, None))
             row += k
+        if settles:
+            tr.settle_many(settles)
         with self._rid_lock:
             # results live on the request objects; the server-side index
             # must not grow without bound under sustained traffic
@@ -360,6 +469,45 @@ class GNNServer:
         with self._stats_lock:
             self.n_served += len(batch)
             self.latencies.extend(r.latency for r in batch)
+        if self._m_latency is not None:
+            for r in batch:      # exemplar = the request's trace id
+                self._m_latency.observe(r.latency, exemplar=str(r.rid))
+            self._m_requests.inc(len(batch), outcome="served")
+
+    def _pull_metrics(self):
+        """Render-time gauge refresh from host bookkeeping (queue and
+        cache state); a scrape reads no device tensor."""
+        info = self.batcher.info()
+        self._m_queue.set(float(info["depth"]), field="depth")
+        self._m_queue.set(float(info["depth_seeds"]), field="depth_seeds")
+        sc = self.steps.info()
+        tries = sc["hits"] + sc["builds"]
+        self._m_cache.set(sc["hits"] / tries if tries else 0.0, cache="step")
+        with self._stats_lock:
+            n_batches = int(sum(self.bucket_counts.values()))
+            hits = self.bucket_hits
+        self._m_cache.set(hits / n_batches if n_batches else 0.0,
+                          cache="bucket")
+
+    def _retry_batch(self, batch: List[ServeRequest], exc: ServeError):
+        """Transient step failure: re-queue each request, or fail it with
+        ``RetriesExhausted`` once its retry budget is spent.  A retried
+        request keeps its rid, so it samples the same trees."""
+        now = self.clock()
+        tr = self.tracer
+        for req in batch:
+            req.attempts += 1
+            if req.attempts > self.max_retries:
+                with self._rid_lock:
+                    self.requests.pop(req.rid, None)
+                err = RetriesExhausted(req.rid, req.attempts, exc)
+                if req.fail(err, now):
+                    self._trace_error(req, err, now)
+            else:
+                if tr is not None:
+                    tr.span(req.rid, "retry", now, now,
+                            {"attempt": req.attempts})
+                self.batcher.submit(req)
 
     def _reap_expired(self):
         expired = self.batcher.reap_expired(self.clock())
@@ -369,7 +517,9 @@ class GNNServer:
                 for req in expired:
                     self.requests.pop(req.rid, None)
             for req in expired:
-                req.fail(DeadlineExceeded(req.rid, req.deadline, now), now)
+                err = DeadlineExceeded(req.rid, req.deadline, now)
+                if req.fail(err, now):
+                    self._trace_error(req, err, now)
             with self._stats_lock:
                 self.n_deadline_failed += len(expired)
 
@@ -428,28 +578,37 @@ class GNNServer:
                 for r in stragglers:
                     self.requests.pop(r.rid, None)
             for r in stragglers:
-                r.fail(err, now)
+                if r.fail(err, now):
+                    self._trace_error(r, err, now)
             raise err
 
     def reset_stats(self):
         with self._stats_lock:
             self.bucket_counts.clear()
+            self.bucket_hits = 0
             self.n_served = 0
             self.n_deadline_failed = 0
             self.latencies.clear()
 
     def stats(self) -> dict:
         with self._stats_lock:
-            return {
+            out = {
                 "n_served": self.n_served,
                 "deadline_failed": self.n_deadline_failed,
                 "n_batches": int(sum(self.bucket_counts.values())),
                 "bucket_counts": dict(self.bucket_counts),
+                "bucket_hits": self.bucket_hits,
                 "recompiles": self.steps.builds,
                 "step_cache": self.steps.info(),
+                "plan_cache": plan_cache_info(),
                 "batcher": self.batcher.info(),
                 **percentiles_ms(self.latencies),
             }
+        if self.tracer is not None:
+            out["tracing"] = self.tracer.stats()
+        if self._metrics_server is not None:
+            out["metrics_url"] = self._metrics_server.url
+        return out
 
     def close(self, timeout: float = 30.0):
         """Graceful shutdown: everything submitted before ``close`` is still
@@ -471,7 +630,11 @@ class GNNServer:
                 pending = list(self.requests.values())
                 self.requests.clear()
             for req in pending:
-                req.fail(ServerClosed(req.rid), now)
+                err = ServerClosed(req.rid)
+                if req.fail(err, now):
+                    self._trace_error(req, err, now)
+        if self._metrics_server is not None:
+            self._metrics_server.close()
 
     def __enter__(self):
         return self

@@ -1,5 +1,5 @@
-"""Typed failure vocabulary of the serving engine (stdlib copy of the
-single-lane part of ``repro.serve.errors``).
+"""Typed failure vocabulary of the serving engine (stdlib copy of
+``repro.serve.errors`` without the live-mutation errors).
 
 Every way a request can fail is a distinct exception type carrying the
 request id; all extend ``ServeError`` (a ``RuntimeError``), and the
@@ -49,6 +49,52 @@ class DrainTimeout(ServeError, TimeoutError):
                          f"{timeout:g}s drain")
         self.n_pending = int(n_pending)
         self.rids = list(rids)
+
+
+class TransientStepError(ServeError):
+    """A device step failed in a retryable way (injected by chaos; on real
+    hardware a preempted or failed device stream).  The engine retries the
+    affected requests before giving up."""
+
+    def __init__(self, round_no: int):
+        super().__init__(f"transient device-step failure at round {round_no}")
+        self.round_no = round_no
+
+
+class RetriesExhausted(ServeError):
+    """The request hit transient faults on every allowed attempt."""
+
+    def __init__(self, rid: int, attempts: int, cause: BaseException):
+        super().__init__(f"request {rid}: {attempts} attempt(s) all hit "
+                         f"transient faults", rid=rid)
+        self.attempts = attempts
+        self.__cause__ = cause
+
+
+class Overloaded(ServeError):
+    """Load shed at submit: the server is protecting its tail latency.
+    ``retry_after_s`` is the backpressure signal; ``cls`` names the request
+    class that was refused (``None`` for a class-blind shed)."""
+
+    def __init__(self, depth: float, retry_after_s: float,
+                 cls: Optional[str] = None):
+        super().__init__(
+            f"overloaded (queue depth {depth:.0f}"
+            + (f", class {cls} shed" if cls else "")
+            + f"); retry after {retry_after_s:.3f}s")
+        self.depth = depth
+        self.retry_after_s = retry_after_s
+        self.cls = cls
+
+
+class LaneFailure(ServeError):
+    """A serving lane died (crash or stalled heartbeat) and this request
+    could not be re-routed to a surviving lane."""
+
+    def __init__(self, rid: Optional[int], lane: int, reason: str):
+        super().__init__(f"lane {lane} failed ({reason})", rid=rid)
+        self.lane = lane
+        self.reason = reason
 
 
 class ServerClosed(ServeError):

@@ -1,5 +1,6 @@
-"""Counter-based forest sampler for serving (numpy copy of the serving part
-of ``repro.sparse.sampler``).
+"""Fanout samplers (numpy copy of ``repro.sparse.sampler``): the
+counter-based forest sampler for serving and the rng-driven
+``sample_subgraph``.
 
 Host-side data-pipeline work.  Emits fixed-shape padded subgraph tables so
 each shape bucket has one static structure.  The draw for (tree, hop, lane)
@@ -64,6 +65,49 @@ def hop_slots(n_seeds: int, fanouts: Sequence[int]):
         next_base += nf * f
         nf *= f
     return out
+
+
+def sample_subgraph(indptr: np.ndarray, indices: np.ndarray,
+                    seeds: np.ndarray, fanouts: Sequence[int],
+                    rng: np.random.Generator) -> SampledSubgraph:
+    """Uniform with-replacement fanout sampling from a numpy ``rng``
+    (fixed shapes, padded): the reference's ``sample_subgraph``, draw for
+    draw.  ``indptr``/``indices``: CSR of the (reverse) adjacency —
+    ``indices[j]`` lists the in-neighbors whose messages node j
+    aggregates."""
+    n_seeds = seeds.shape[0]
+    frontier = seeds.astype(np.int64)
+    table = [seeds.astype(np.int64)]
+    hop_s, hop_r, hop_v = [], [], []
+    slots = hop_slots(n_seeds, fanouts)
+    live = np.ones(n_seeds, bool)               # frontier-lane validity
+    for f in fanouts:
+        nf = frontier.shape[0]
+        deg = indptr[frontier + 1] - indptr[frontier]
+        has_nbr = deg > 0
+        # a fanout larger than the degree repeats neighbors
+        r = rng.integers(0, np.maximum(deg, 1)[:, None], size=(nf, f))
+        if indices.size:
+            # zero-degree nodes draw a clipped dummy index (masked below):
+            # an isolated node's slice may start at the end of `indices`
+            gather = np.minimum(indptr[frontier][:, None] + r,
+                                indices.size - 1)
+            nbr = indices[gather]
+        else:                                   # edgeless graph: all invalid
+            nbr = np.zeros((nf, f), dtype=np.int64)
+        # valid iff the frontier node has neighbors and its lane is live
+        valid = (has_nbr & live)[:, None] & np.ones((nf, f), bool)
+        nbr = np.where(valid, nbr, -1)
+        send, recv = slots[len(hop_s)]
+        table.append(nbr.reshape(-1))
+        hop_s.append(send)
+        hop_r.append(recv)
+        hop_v.append(valid.reshape(-1))
+        frontier = np.where(valid, nbr, 0).reshape(-1)
+        live = valid.reshape(-1)
+    return SampledSubgraph(node_ids=np.concatenate(table), hop_senders=hop_s,
+                           hop_receivers=hop_r, hop_valid=hop_v,
+                           n_seeds=n_seeds)
 
 
 _SM_GAMMA = np.uint64(0x9E3779B97F4A7C15)

@@ -91,9 +91,56 @@ def test_spmm_kernel_never_reads_dead_lanes(cuda):
 
 
 def test_spmm_wrapper_raises_on_bf16(cuda):
+    # bf16 tiles and f16/f64 x raise; a bf16 x launches the bf16 kernel
     u, rem, ptr, a, x = _args(16, 60, 8, seed=2, width_cap=128, dev=cuda)
+    before = spmm_dedup_chunks.launches_bf16
+    y = spmm_dedup_chunks(u, rem, ptr, a, x.to(torch.bfloat16), block_rows=8)
+    assert y.dtype == torch.bfloat16 and y.device.type == "cuda"
+    assert spmm_dedup_chunks.launches_bf16 == before + 1
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            spmm_dedup_chunks(u, rem, ptr, a, x.to(bad), block_rows=8)
     with pytest.raises(TypeError):
-        spmm_dedup_chunks(u, rem, ptr, a, x.to(torch.bfloat16), block_rows=8)
+        spmm_dedup_chunks(u, rem, ptr, a.to(torch.bfloat16),
+                          x.to(torch.bfloat16), block_rows=8)
+
+
+@pytest.mark.parametrize("n,e,d,width_cap", [
+    (40, 300, 7, 128), (40, 300, 16, 128), (64, 900, 33, 8),
+    (300, 2000, 602, 128), (300, 2000, 1433, 8), (200, 30, 16, 128)])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_spmm_bf16_kernel_equals_plain_bitwise(cuda, n, e, d, width_cap,
+                                               offset):
+    # bf16 x at every load width (offset views: 8-, 4- and 2-byte loads)
+    # and with hub splits (width_cap 8): equal to the plain version, which
+    # adds each chunk's exact products in the kernel's order and rounds as
+    # it does, and to itself run to run
+    u, rem, ptr, a, x = _args(n, e, d, seed=n + d + offset,
+                              width_cap=width_cap, dev=cuda)
+    xv = _offset_view(x.to(torch.bfloat16), offset)
+    assert spmm_module.lane_layout(d, xv)[0] == (
+        1 if d % 2 or offset % 2 else 2 if d % 4 or offset else 4)
+    got = spmm_dedup_chunks(u, rem, ptr, a, xv, block_rows=8)
+    want = spmm_dedup_chunks_plain(u, rem, ptr, a, xv, block_rows=8)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert torch.equal(got, spmm_dedup_chunks(u, rem, ptr, a, xv,
+                                              block_rows=8))
+
+
+@pytest.mark.parametrize("d,width_cap", [(7, 128), (64, 8), (1433, 128)])
+def test_spmm_bf16_bitwise_across_stripes_and_blocks_per_cta(
+        cuda, monkeypatch, d, width_cap):
+    u, rem, ptr, a, x = _args(400, 3000, d, seed=d, width_cap=width_cap,
+                              dev=cuda)
+    x16 = x.to(torch.bfloat16)
+    first = spmm_dedup_chunks(u, rem, ptr, a, x16, block_rows=8)
+    for max_lanes, per_cta in ((32, 1), (4, 16), (256, 16), (8, 1)):
+        monkeypatch.setattr(spmm_module, "MAX_LANES", max_lanes)
+        monkeypatch.setattr(spmm_module, "BLOCKS_PER_CTA", per_cta)
+        assert torch.equal(spmm_dedup_chunks(u, rem, ptr, a, x16,
+                                             block_rows=8), first)
 
 
 def _offset_view(t, offset):

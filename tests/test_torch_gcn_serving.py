@@ -53,6 +53,35 @@ def world():
                 seeds=seeds)
 
 
+def test_gcn_forward_bf16_matches_reference_pallas(world):
+    """gcn-cora (reduced) in bf16 through the port's ``cuda`` executor (its
+    plain version here) against the reference's ``pallas`` on the same
+    bf16 features: bf16 logits within torch's bf16 defaults, and both
+    within the reference's 5e-2 of the f32 ``dense`` forward."""
+    s2, r2, w = sym_norm_weights(world["s"], world["r"], N)
+    x = np.concatenate([world["x"], np.zeros((1, world["x"].shape[1]),
+                                             np.float32)])
+    x16 = torch.from_numpy(x).to(torch.bfloat16)
+    tp = tplan.make_plan(s2, r2, N + 1, edge_weight=w, device="cpu",
+                         backends=("dense", "cuda"))
+    jp = jplan.make_plan(s2, r2, N + 1, edge_weight=w,
+                         backends=("dense", "pallas"))
+    got = tgcn.forward(world["tparams"], world["tcfg"], x16, backend="cuda",
+                       plan=tp)
+    assert got.dtype == torch.bfloat16
+    want = jgcn.forward(world["jparams"], world["jcfg"],
+                        jnp.asarray(x16.float().numpy(), jnp.bfloat16),
+                        backend="pallas", plan=jp)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    torch.testing.assert_close(got.float(), torch.from_numpy(want.copy()),
+                               rtol=1.6e-2, atol=1e-5)
+    ref = np.asarray(jgcn.forward(world["jparams"], world["jcfg"],
+                                  jnp.asarray(x), backend="dense", plan=jp))
+    for out in (got.float().numpy(), want):
+        np.testing.assert_allclose(out, ref, rtol=5e-2, atol=5e-2)
+
+
 def test_configs_carry_reference_numbers():
     for a, b in ((tcfgs.FULL, jcfgs.FULL), (tcfgs.reduced(), jcfgs.reduced())):
         for f in ("name", "n_layers", "d_in", "d_hidden", "n_classes",

@@ -16,6 +16,9 @@ from repro_torch.kernels.gustavson_spmm.gustavson_spmm import (
 from repro_torch.sparse.plan import block_ptr_from_first
 
 TOL = 1e-5
+# bf16 against the reference: torch's bf16 defaults for assert_close, and
+# each element within 2 bf16 ulps of the larger magnitude
+BF16_RTOL, BF16_ATOL, BF16_ULPS = 1.6e-2, 1e-5, 2
 
 
 def _packed(n, e, seed, width_cap=32, block_rows=8):
@@ -101,12 +104,21 @@ def test_empty_blocks_evict_zero_tiles():
 
 
 def test_wrapper_rejects_bf16_and_bad_shapes():
+    """bf16 tiles are rejected (they stay f32 and are rounded in the
+    kernel) and so are the x dtypes B1 does not take (f16, f64); a bf16 x
+    is taken and gives a bf16 y."""
     ch, rng = _packed(16, 60, seed=3)
     x = rng.normal(size=(16, 8)).astype(np.float32)
     u, rem, ptr, a, xt = _torch_args(ch, x)
-    with pytest.raises(TypeError, match="float32"):
-        spmm_dedup_chunks(u, rem, ptr, a, xt.to(torch.bfloat16),
-                          block_rows=ch.block_rows)
+    assert spmm_dedup_chunks(u, rem, ptr, a, xt.to(torch.bfloat16),
+                             block_rows=ch.block_rows).dtype == torch.bfloat16
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16"):
+            spmm_dedup_chunks(u, rem, ptr, a, xt.to(bad),
+                              block_rows=ch.block_rows)
+    with pytest.raises(TypeError, match="a must be"):
+        spmm_dedup_chunks(u, rem, ptr, a.to(torch.bfloat16),
+                          xt.to(torch.bfloat16), block_rows=ch.block_rows)
     with pytest.raises(ValueError, match="a has shape"):
         spmm_dedup_chunks(u, rem, ptr, a[:-1], xt, block_rows=ch.block_rows)
     with pytest.raises(ValueError, match="remaining"):
@@ -185,3 +197,70 @@ def test_block_ptr_from_first():
     assert block_ptr_from_first(first, 3).tolist() == [0, 3, 4, 6]
     with pytest.raises(ValueError):
         block_ptr_from_first(first, 4)
+
+
+def bf16_ulps(got, want) -> np.ndarray:
+    """|got - want| in bf16 ulps at the larger magnitude of the two."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    mag = np.maximum(np.maximum(np.abs(g), np.abs(w)), 2.0 ** -126)
+    return np.abs(g - w) / 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("width_cap", [32, 8])
+@pytest.mark.parametrize("d", [7, 16, 600])
+def test_bf16_plain_matches_reference_kernel(d, width_cap):
+    """bf16 x through the port's plain version against the reference's
+    Pallas kernel (interpret mode) on the same bf16 x: bf16 out, within
+    torch's bf16 defaults and 2 ulps (width_cap 8 splits blocks into
+    several chunks, each rounded)."""
+    ch, rng = _packed(40, 300, seed=d + width_cap, width_cap=width_cap)
+    x16 = torch.from_numpy(rng.normal(size=(40, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    args = _torch_args(ch, x16.float().numpy())[:4]
+    got = spmm_dedup_chunks(*args, x16, block_rows=ch.block_rows)
+    assert got.dtype == torch.bfloat16
+    jargs = tuple(jnp.asarray(a) for a in (ch.u_cols, ch.remaining,
+                                           ch.out_block, ch.first, ch.a))
+    kern = jax_spmm(*jargs, jnp.asarray(x16.float().numpy(), jnp.bfloat16),
+                    block_rows=ch.block_rows, n_blocks=ch.n_blocks,
+                    interpret=True)
+    assert kern.dtype == jnp.bfloat16
+    want = np.asarray(kern.astype(jnp.float32))
+    torch.testing.assert_close(got.float(), torch.from_numpy(want.copy()),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert bf16_ulps(got.float().numpy(), want).max() <= BF16_ULPS
+
+
+def test_bf16_plain_rounds_once_per_chunk():
+    """A hand-built block of two chunks: the tile is rounded to bf16, each
+    chunk's f32 sum is rounded to bf16, and the second chunk is added in f32
+    and rounded again — not one f32 sum rounded at the end."""
+    one = 1.0 + 2.0 ** -8              # rounds to 1.0 in bf16 (ties to even)
+    u_cols = torch.tensor([[0] + [0] * 15, [1] + [0] * 15], dtype=torch.int32)
+    remaining = torch.tensor([1, 1], dtype=torch.int32)
+    block_ptr = torch.tensor([0, 2], dtype=torch.int32)
+    a = torch.zeros(16, 16)
+    a[0, 0] = one                      # chunk 0, row 0
+    a[8, 0] = 1.0                      # chunk 1, row 0
+    x = torch.tensor([[1.0], [2.0 ** -8 * 3]]).to(torch.bfloat16)
+    got = spmm_dedup_chunks(u_cols, remaining, block_ptr, a, x,
+                            block_rows=8)
+    # chunk 0: bf16(one) · 1 = 1; chunk 1: 3·2⁻⁸; 1 + 3·2⁻⁸ in f32 rounds to
+    # bf16 1 + 2⁻⁶ (ulp 2⁻⁷ at 1: 1.01171875 → 1.015625, ties to even)
+    assert got.dtype == torch.bfloat16 and got.shape == (8, 1)
+    assert float(got[0, 0]) == 1.0 + 2.0 ** -6
+    # where one rounding at the end would differ: three chunks of 2⁻⁹ on 1
+    # each round away (1 + 2⁻⁹ → 1), while their f32 sum does not
+    u3 = torch.tensor([[0] + [0] * 15] * 4, dtype=torch.int32)
+    rem3 = torch.ones(4, dtype=torch.int32)
+    ptr3 = torch.tensor([0, 4], dtype=torch.int32)
+    a3 = torch.zeros(32, 16)
+    a3[0, 0] = 1.0
+    for k in (1, 2, 3):
+        a3[8 * k, 0] = 2.0 ** -9
+    x3 = torch.ones(1, 1, dtype=torch.bfloat16)
+    got3 = spmm_dedup_chunks(u3, rem3, ptr3, a3, x3, block_rows=8)
+    assert float(got3[0, 0]) == 1.0              # per-chunk rounding
+    assert float(torch.tensor(1 + 3 * 2.0 ** -9).to(torch.bfloat16)) != 1.0
+    assert (got3[1:] == 0).all()

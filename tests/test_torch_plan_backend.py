@@ -111,6 +111,74 @@ def test_aggregate_matches_reference(backend, traced_vals):
                                    err_msg=jb)
 
 
+def _bf16_close(got, want):
+    """torch's bf16 defaults, and each element within 2 bf16 ulps."""
+    from test_torch_gustavson_spmm import (BF16_ATOL, BF16_RTOL, BF16_ULPS,
+                                           bf16_ulps)
+    want = np.asarray(want, np.float32)
+    torch.testing.assert_close(got.float(), torch.from_numpy(want.copy()),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    assert bf16_ulps(got.float().numpy(), want).max() <= BF16_ULPS
+
+
+@pytest.mark.parametrize("width_cap", [128, 8])
+@pytest.mark.parametrize("traced_vals", [False, True])
+def test_cuda_bf16_stays_bf16_and_matches_pallas(traced_vals, width_cap):
+    """The ``cuda`` executor on bf16 features returns bf16, equal to the
+    reference's ``pallas`` on the same plan and bf16 x within torch's bf16
+    defaults and 2 ulps, and both within 5e-2 of the reference's f32
+    ``dense`` (``test_pallas_bf16_stays_bf16``'s bar)."""
+    s, r, w, valid, rng = _graph(seed=13)
+    tp, jp = _plans(s, r, 46, edge_weight=w, edge_valid=valid,
+                    width_cap=width_cap)
+    xf = rng.normal(size=(46, 16)).astype(np.float32)
+    x16 = torch.from_numpy(xf).to(torch.bfloat16)
+    vals = rng.normal(size=s.shape[0]).astype(np.float32) \
+        if traced_vals else None
+    tv = None if vals is None else torch.from_numpy(vals)
+    jv = None if vals is None else jnp.asarray(vals)
+    got = tsb.aggregate(tp, tv, x16, backend="cuda")
+    assert got.dtype == torch.bfloat16
+    want = jsb.aggregate(jp, jv, jnp.asarray(x16.float().numpy(),
+                                             jnp.bfloat16), backend="pallas")
+    assert want.dtype == jnp.bfloat16
+    _bf16_close(got, want.astype(jnp.float32))
+    ref = np.asarray(jsb.aggregate(jp, jv, jnp.asarray(xf),
+                                   backend="dense"))
+    for out in (got.float().numpy(), np.float32(want)):
+        np.testing.assert_allclose(out, ref, rtol=5e-2, atol=5e-2)
+
+
+def test_cuda_bf16_gradients_match_reference_vjp():
+    """dX (B1 on the transpose layout, bf16 cotangent, bf16 out) and the
+    edge values' gradient (dA in f32 from the f32 gather, through the tile
+    scatter) against the reference's ``pallas`` VJP on the same bf16 x."""
+    import jax
+    s, r, w, valid, rng = _graph(seed=14)
+    tp, jp = _plans(s, r, 46, edge_weight=w, edge_valid=valid, width_cap=8)
+    x16 = torch.from_numpy(rng.normal(size=(46, 12)).astype(
+        np.float32)).to(torch.bfloat16)
+    vals = rng.normal(size=s.shape[0]).astype(np.float32)
+    cot = rng.normal(size=(46, 12)).astype(np.float32)
+
+    tv = torch.from_numpy(vals).requires_grad_(True)
+    tx = x16.clone().requires_grad_(True)
+    y = tsb.aggregate(tp, tv, tx, backend="cuda")
+    (y.float() * torch.from_numpy(cot)).sum().backward()
+    assert y.dtype == tx.grad.dtype == torch.bfloat16
+    assert tv.grad.dtype == torch.float32
+
+    def loss(v, xx):
+        out = jsb.aggregate(jp, v, xx, backend="pallas")
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(cot))
+    gv, gx = jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(vals), jnp.asarray(x16.float().numpy(), jnp.bfloat16))
+    assert gx.dtype == jnp.bfloat16
+    _bf16_close(tx.grad, gx.astype(jnp.float32))
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(gv), rtol=1e-5,
+                               atol=TOL)
+
+
 def test_padding_edges_pointing_past_the_rows_drop():
     # COO padding convention: padding lanes point at row n_rows (a ghost
     # row outside the plan); JAX drops them, the port must too
