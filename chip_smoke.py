@@ -232,12 +232,44 @@ Phases, each of which raises (exit code 1) on any failure:
     host sampler with ``p_sampler_fault=0.1`` exactly the faulted requests
     fail as ``SamplerError`` and the rest equal replay; then the tracing
     cost as a reading: req/s with tracing off and on, in turns, the median
-    of 5 bursts each.
+    of 5 bursts each;
+18. the cluster tier — first B1 on the lane-stacked plan of 4 lanes
+    (``serve.compute.bucket_plan`` with ``n_lanes=4``: the bucket's plan
+    four times, block-diagonal, each lane aligned to whole 8-row blocks)
+    and B4 with a
+    row of feature scales a lane, at buckets 1 and 16 at fanouts (5, 3)
+    and D = 16 and 1433, each lane with its own weights, validity and x
+    (the lanes 4× apart in magnitude): bitwise equal to the four
+    single-lane calls lane by lane and run to run, against the plain
+    version (B4 bitwise, B1 ≤1e-5 relative), timed beside the four
+    single-lane calls, the plain version and ``torch.sparse.mm`` on the
+    stacked CSR, with the bound; then ``ClusterServer(n_lanes=4,
+    placement="stacked")`` on the Cora-scale graph (fanouts (5, 3), max
+    batch 16, host sampler) serving 1,024 single-seed requests (phase 4's
+    draw, longer) as one ``submit_many`` burst, counted: gcn-cora under
+    ``cuda`` and ``cuda_q8`` and gat-cora under ``cuda``, every request
+    settled once with a result, no step or lane plan built after warm-up,
+    one B1 (B4, all lane-scaled) launch an aggregation a round — a
+    single-lane step's count, whatever the lanes — and no sampler kernel,
+    64 requests held to offline replay (≤1e-5, ``Q8_E2E_TOL`` for int8),
+    the per-lane served spread recorded; the control plane on the same
+    world: 512 seeds that all route to lane 0 under γ₀ make the router
+    reseed, lane 1 killed at round 3 (``gnn_serve --chaos-kill-lane 1
+    --chaos-round 3``) loses nothing, re-routes its backlog once (equal to
+    replay) and is restored after ``restart_after``, and with every lane
+    stalled after the first round under ``slo=True`` the default SLOs shed
+    ``best_effort`` (a typed ``Overloaded`` carrying its class) while
+    ``interactive`` is still admitted; then readings: req/s, p50 and p99
+    of the 4-lane cluster, of one ``GNNServer`` at max batch 16 and of one
+    at max batch 64 (the seeds of a 4-lane round in one step) on the same
+    1,024 requests (host sampler) in turns, 3 bursts each, and one warm
+    bucket-16 round (fetch and stacked step) traced beside one
+    single-lane step.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
 12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
-forward and phase 17's servers) and read just
+forward and phases 17 and 18's servers) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -251,6 +283,7 @@ captured) and ``sampled_addmm`` run eagerly.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -358,6 +391,41 @@ def eager_ms(fn, iters: int = 50) -> float:
 # phase 2 — kernels
 # ---------------------------------------------------------------------------
 
+def spmm_bound(plan, d, y_numel, q8=False, x_scales=0):
+    """The least time of one B1 call (B4 with ``q8``) on ``plan``'s forward
+    layout at width ``d``: the larger of the bytes it must move over the
+    memory rate and its operations over the peak of their type.
+
+    Least bytes: only the live lanes u < remaining[k] of a chunk carry
+    data, so count those u_cols entries and those tile columns (f32: 4
+    bytes a row, int8: 1), not the padded (BR, W) tiles; each x row a live
+    lane names once (f32 or int8); remaining, block_ptr, the ``x_scales``
+    feature scales and (int8) the chunk scales, and y (f32) written once.
+    Least operations: 2 a nonzero coefficient a column.  Returns the
+    record's ``bound_ms``/``bound_by``/``bound_bytes``, the live-lane mask
+    and the live lane count."""
+    br = plan.block_rows
+    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
+    u_cols = plan.ell_u_cols.cpu().numpy()
+    live = np.arange(u_cols.shape[1]) < rem[:, None]
+    live_lanes = int(rem.sum())
+    x_rows = np.unique(u_cols[live]).size
+    if q8:
+        n_bytes = (live_lanes * (4 + br) + x_rows * d
+                   + 4 * (2 * rem.size + x_scales
+                          + plan.ell_block_ptr.numel() + y_numel))
+        tiles, peak = plan.ell_a_q8, INT8_OPS_PER_S
+    else:
+        n_bytes = 4 * (live_lanes * (1 + br) + rem.size
+                       + plan.ell_block_ptr.numel() + x_rows * d + y_numel)
+        tiles, peak = plan.ell_a, F32_FLOPS_PER_S
+    n_ops = 2 * int((tiles != 0).sum()) * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+    return (dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_bytes=n_bytes), live, live_lanes)
+
+
 def spmm_case(name, plan, d, rng):
     from repro_torch.kernels.gustavson_spmm import (spmm_dedup_chunks,
                                                     spmm_dedup_chunks_plain)
@@ -395,24 +463,9 @@ def spmm_case(name, plan, d, rng):
                                                           block_rows=br),
                           iters=50 if calls == 50 else 5),
         library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x), calls))
-    # least bytes: what the function must read once and write once.  Only
-    # the live lanes u < remaining[k] of a chunk carry data, so count those
-    # u_cols and those (BR,) tile columns, not the padded (BR, W) tiles;
-    # each x row that a live lane names, once; remaining, block_ptr and y
-    # whole.  Least operations: 2 flops per nonzero coefficient per column.
-    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
-    u_cols = plan.ell_u_cols.cpu().numpy()
-    live = np.arange(u_cols.shape[1]) < rem[:, None]
-    live_lanes = int(rem.sum())
-    x_rows = np.unique(u_cols[live]).size
-    n_bytes = 4 * (live_lanes * (1 + br) + rem.size
-                   + plan.ell_block_ptr.numel() + x_rows * d + y.numel())
-    padded_bytes = 4 * (sum(t.numel() for t in args) + y.numel())
-    n_flops = 2 * int((plan.ell_a != 0).sum()) * d
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, padded_bytes=padded_bytes,
+    bound, live, live_lanes = spmm_bound(plan, d, y.numel())
+    rec.update(bound, padded_bytes=4 * (sum(t.numel() for t in args)
+                                        + y.numel()),
                gathered_mb=4 * d * live_lanes / 1e6)
     # a reading, not a gate: one library gather of the same live x rows
     # (read and written once each), the floor of a gather-then-fold design
@@ -1446,26 +1499,10 @@ def spmm_q8_case(name, plan, d, rng):
                      "features (nearest library call: no int8 SpMM)",
         q8_executor_vs_dense=dev_dense, q8_bound=bound,
         library_err=lib_err)
-    # least bytes: each live lane's u_cols entry (4 B) and int8 tile column
-    # (block_rows B) once, each x row a live lane names once (D int8), the
-    # scales, remaining, block_ptr, and y (f32) written once.  Least
-    # operations: 2 int8 operations per nonzero coefficient per column.
-    rem = plan.ell_remaining.cpu().numpy().astype(np.int64)
-    u_cols = plan.ell_u_cols.cpu().numpy()
-    live = np.arange(u_cols.shape[1]) < rem[:, None]
-    live_lanes = int(rem.sum())
-    x_rows = np.unique(u_cols[live]).size
-    n_bytes = (live_lanes * (4 + br) + x_rows * d
-               + 4 * (2 * rem.size + x_scale.numel()
-                      + plan.ell_block_ptr.numel() + y.numel()))
-    padded_bytes = (sum(t.numel() * t.element_size() for t in args)
-                    + 4 * y.numel())
-    a_live = plan.ell_a_q8.reshape(rem.size, br, -1) != 0
-    n_ops = 2 * int(a_live.sum()) * d
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, padded_bytes=padded_bytes)
+    bound, live, _ = spmm_bound(plan, d, y.numel(), q8=True,
+                                x_scales=x_scale.numel())
+    rec.update(bound, padded_bytes=(sum(t.numel() * t.element_size()
+                                        for t in args) + 4 * y.numel()))
     live_cols = plan.ell_u_cols[torch.from_numpy(live).to(dev)].long()
     rec.update(bound_share=rec["bound_ms"] / rec["ms"],
                vs_library=rec["ms"] / rec["library_ms"],
@@ -3367,14 +3404,14 @@ TRACING_COST_RUNS = 5
 
 
 def ops_server(dev, params, indptr, indices, store, sampler="device",
-               **kw):
+               max_batch_seeds=16, **kw):
     """gcn-cora at full width under ``cuda`` on the Cora-scale graph, as
     phases 4-5 serve it, with the operations-plane options ``kw``."""
     from repro_torch.configs.gcn_cora import FULL
     from repro_torch.serve import GNNServer
     return GNNServer("gcn", FULL, params, indptr, indices, store,
                      fanouts=(5, 3), backend="cuda", sampler=sampler,
-                     max_batch_seeds=16, device=dev, **kw)
+                     max_batch_seeds=max_batch_seeds, device=dev, **kw)
 
 
 def ops_kernels():
@@ -3621,6 +3658,464 @@ def phase_ops(dev, params, indptr, indices, store, seeds):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18 — the cluster tier
+# ---------------------------------------------------------------------------
+
+CLUSTER_LANES = 4
+CLUSTER_REQUESTS = 1024
+CLUSTER_REPLAYED = 64             # requests replayed offline a server
+CLUSTER_AB_TURNS = 3              # cluster and single lanes, in turns
+CLUSTER_AB = ("cluster", "single", "single64")
+
+
+def lane_stacked_case(dev, backend, bucket, d, rng):
+    """B1 (``cuda``) or B4 (``cuda_q8``) on the lane-stacked plan of
+    ``CLUSTER_LANES`` lanes of a bucket at fanouts (5, 3), each lane
+    re-valued with its own seeded weights and validity and its own x (the
+    lanes 4× apart in magnitude, so one shared int8 scale would show):
+    against the lanes' single-lane calls (bitwise, lane by lane), its plain
+    version (B1 ≤1e-5 relative to x's largest value, B4 bitwise) and
+    itself run to run (bitwise), timed beside the single-lane calls, the
+    plain version and ``torch.sparse.mm`` on the stacked CSR (dequantized
+    for B4)."""
+    from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
+                                                    spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_plain,
+                                                    spmm_dedup_chunks_q8,
+                                                    spmm_dedup_chunks_q8_plain)
+    from repro_torch.serve import compute
+    from repro_torch.serve.buckets import build_bucket_structure
+    from repro_torch.sparse import quantize as qz
+    from repro_torch.sparse.plan import plan_with_values
+    name = f"{'B4' if backend == 'cuda_q8' else 'B1'} stacked{bucket}x" \
+           f"{CLUSTER_LANES} D={d}"
+    L = CLUSTER_LANES
+    struct = build_bucket_structure(bucket, (5, 3), with_loops=True)
+    pl = compute.bucket_plan(struct, backend, True, dev, L)
+    p1 = compute.bucket_plan(struct, backend, True, dev)
+    n, rows = struct.n_nodes, pl.lane_rows
+    x = torch.zeros(L * rows, d, device=dev)
+    lanes, ws, vs = [], [], []
+    for lane in range(L):
+        w = torch.from_numpy(rng.uniform(0.1, 1, struct.n_edges).astype(
+            np.float32)).to(dev)
+        v = torch.from_numpy(rng.random(struct.n_edges) < 0.8).to(dev)
+        xl = torch.from_numpy((rng.normal(size=(n, d)) * 4.0 ** lane)
+                              .astype(np.float32)).to(dev)
+        x[lane * rows:lane * rows + n] = xl
+        ws.append(w)
+        vs.append(v)
+        lanes.append((plan_with_values(p1, edge_weight=w, edge_valid=v), xl))
+    pl = plan_with_values(pl, edge_weight=torch.cat(ws),
+                          edge_valid=torch.cat(vs))
+    if backend == "cuda":
+        args = (pl.ell_u_cols, pl.ell_remaining, pl.ell_block_ptr, pl.ell_a,
+                x)
+
+        def call():
+            return spmm_dedup_chunks(*args, block_rows=8)
+
+        def plain():
+            return spmm_dedup_chunks_plain(*args, block_rows=8)
+
+        def single(p, xl):
+            return spmm_dedup_chunks(p.ell_u_cols, p.ell_remaining,
+                                     p.ell_block_ptr, p.ell_a, xl,
+                                     block_rows=8)
+        a_csr, x_lib = csr_of(pl, pl.base_vals), x
+    else:
+        qt = auto_d_tile(d)
+        x_q8, x_scale = qz.quantize_feature_tiles(x, qt, L, rows, n)
+        args = (pl.ell_u_cols, pl.ell_remaining, pl.ell_block_ptr,
+                pl.ell_a_q8, pl.ell_a_scale, x_q8, x_scale)
+        kw = dict(block_rows=8, q_tile=qt)
+
+        def call():
+            return spmm_dedup_chunks_q8(*args, **kw)
+
+        def plain():
+            return spmm_dedup_chunks_q8_plain(*args, **kw)
+
+        lane_q8 = {id(xl): qz.quantize_feature_tiles(xl, qt)
+                   for _, xl in lanes}
+
+        def single(p, xl):
+            q, sc = lane_q8[id(xl)]
+            return spmm_dedup_chunks_q8(p.ell_u_cols, p.ell_remaining,
+                                        p.ell_block_ptr, p.ell_a_q8,
+                                        p.ell_a_scale, q, sc, block_rows=8,
+                                        q_tile=qt)
+        a_csr = dequantized_csr(pl, pl.ell_a_q8, pl.ell_a_scale)
+        x_lib = x_q8.float() * torch.repeat_interleave(
+            x_scale, qt, dim=1)[:, :d].repeat_interleave(rows, dim=0)
+    y = call()
+    y_plain = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    err = float((y - y_plain).abs().max())
+    tol = 0.0 if backend == "cuda_q8" else \
+        KERNEL_TOL * max(1.0, float(x.abs().max()))
+    check(err <= tol, f"{name}: max|kernel-plain| {err:.3e} > {tol}")
+    check(torch.equal(call(), y), f"{name}: not bitwise equal run to run")
+    for lane, (p, xl) in enumerate(lanes):
+        check(torch.equal(y[lane * rows:lane * rows + n], single(p, xl)[:n]),
+              f"{name}: lane {lane} differs from its single-lane call")
+    lib_err = float((torch.sparse.mm(a_csr, x_lib) - y[:pl.n_rows]).abs()
+                    .max())
+    check(lib_err <= EXECUTOR_TOL * max(1.0, float(x_lib.abs().max())),
+          f"{name}: kernel vs torch.sparse.mm {lib_err:.3e}")
+    rec = dict(
+        shape=name, max_abs_err=err, run_to_run="bitwise",
+        per_lane="bitwise", ms=graph_ms(call),
+        single_lane_calls_ms=graph_ms(lambda: [single(p, xl)
+                                               for p, xl in lanes]),
+        plain_ms=eager_ms(plain, iters=10),
+        library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x_lib)))
+    bound, _, _ = spmm_bound(pl, d, y.numel(), q8=backend == "cuda_q8",
+                             x_scales=(x_scale.numel()
+                                       if backend == "cuda_q8" else 0))
+    rec.update(bound, bound_share=bound["bound_ms"] / rec["ms"],
+               vs_library=rec["ms"] / rec["library_ms"])
+    say(f"{name.split()[0]} {json.dumps(rec)}")
+    return rec
+
+
+def csr_of(plan, vals):
+    """``plan``'s matrix with edge values ``vals`` as a CSR tensor."""
+    return torch.sparse_coo_tensor(
+        torch.stack([plan.rows, plan.cols]), vals,
+        (plan.n_rows, plan.n_rows)).coalesce().to_sparse_csr()
+
+
+def cluster_server(dev, arch, cfg, params, indptr, indices, store,
+                   backend="cuda", **kw):
+    """``arch`` at ``cfg`` as a ``CLUSTER_LANES``-lane replicated cluster,
+    stacked placement, fanouts (5, 3), max batch 16, host sampler."""
+    from repro_torch.serve import ClusterServer
+    return ClusterServer(arch, cfg, params, indptr, indices, store,
+                         n_lanes=CLUSTER_LANES, mode="replicated",
+                         placement="stacked", fanouts=(5, 3),
+                         backend=backend, max_batch_seeds=16, seed=0,
+                         device=dev, **kw)
+
+
+def cluster_burst(server, seeds):
+    """Counts zeroed, ``seeds`` submitted as one burst of single-seed
+    requests (``submit_many``) and drained; the requests, the counts and
+    the wall s."""
+    kernels = ops_kernels() + (spmm_q8_kernel(),)
+    zero_counts(kernels)
+    q8 = spmm_q8_kernel()
+    q8.launches_lanes = 0
+    t0 = time.perf_counter()
+    reqs = server.submit_many([[int(s)] for s in seeds])
+    server.drain(timeout=300)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    counts["spmm_dedup_chunks_q8_lanes"] = q8.launches_lanes
+    return reqs, counts, dt
+
+
+def spmm_q8_kernel():
+    from repro_torch.kernels.gustavson_spmm import spmm_dedup_chunks_q8
+    return spmm_dedup_chunks_q8
+
+
+def served_once(reqs) -> bool:
+    return all(r.n_settles == 1 and r.error is None for r in reqs)
+
+
+def cluster_serve(dev, arch, cfg, params, indptr, indices, store, seeds,
+                  backend):
+    """One cluster serving ``seeds``, counted: every request settles once,
+    no step or plan is built after warm-up, one B1 (B4) launch an
+    aggregation a round whatever the lanes, no sampler kernel (the host
+    samples), ``CLUSTER_REPLAYED`` requests equal to offline replay; the
+    burst's garbage-collection pauses and lane deaths recorded."""
+    from repro_torch.serve import compute
+    spmm = {"cuda": "spmm_dedup_chunks",
+            "cuda_q8": "spmm_dedup_chunks_q8"}[backend]
+    per_step = aggregations_per_step(arch, cfg)
+    with cluster_server(dev, arch, cfg, params, indptr, indices, store,
+                        backend) as srv:
+        srv.warmup()
+        builds = srv.steps.builds
+        plan_builds = compute.bucket_plan_cache_info()["builds"]
+        srv.reset_stats()
+        # no collection first: a pause the burst meets is recorded as it is
+        with GcPauses() as gcp:
+            reqs, launches, dt = cluster_burst(srv, seeds)
+        st = srv.stats()
+        ls = srv.lane_stats()
+        check(served_once(reqs), f"cluster {arch} {backend}: a request did "
+                                 "not settle exactly once with a result")
+        check(srv.steps.builds == builds
+              and compute.bucket_plan_cache_info()["builds"] == plan_builds,
+              f"cluster {arch} {backend}: a step or plan built after "
+              "warm-up")
+        rounds = st["n_rounds"]
+        want = {spmm: per_step * rounds, "forest_sample": 0,
+                "hash_draws": 0}
+        if backend == "cuda_q8":
+            want["spmm_dedup_chunks"] = 0
+            want["spmm_dedup_chunks_q8_lanes"] = per_step * rounds
+        got = {k: launches[k] for k in want}
+        check(got == want, f"cluster {arch} {backend}: launches {got} for "
+                           f"{rounds} rounds, expected {want}")
+        sub = reqs[:CLUSTER_REPLAYED]
+        ref = np.concatenate([srv.offline_replay(r) for r in sub])
+    got_out = np.concatenate([r.result for r in reqs])
+    check(got_out.shape == (len(seeds), cfg.n_classes)
+          and np.isfinite(got_out).all(),
+          f"cluster {arch} {backend}: served results malformed")
+    err = float(np.abs(np.concatenate([r.result for r in sub]) - ref).max())
+    tol = serve_tol(arch, backend, ref)
+    check(err <= tol, f"cluster {arch} {backend}: served vs offline replay "
+                      f"{err:.3e} > {tol}")
+    rec = dict(arch=arch, backend=backend, lanes=CLUSTER_LANES,
+               requests=len(seeds), req_per_s=len(seeds) / dt,
+               p50_ms=st["p50_ms"], p99_ms=st["p99_ms"], rounds=rounds,
+               buckets=st["bucket_counts"], launches=launches,
+               launches_per_round=per_step, parity_max_abs=err,
+               parity_tol=tol, replayed=len(sub),
+               served_per_lane=ls["served"],
+               served_spread=ls["served_spread"], reseeds=st["reseeds"],
+               lane_deaths=st["lane_deaths"],
+               gc_pauses_n_ms=(gcp.n, gcp.ms))
+    say(f"cluster {json.dumps(rec)}")
+    return rec
+
+
+class GcPauses:
+    """The interpreter's garbage-collection pauses while in the block:
+    ``ms`` their sum and ``n`` their count (a stop-the-world pause stalls
+    every serving thread alike)."""
+
+    def __enter__(self):
+        self.ms, self.n, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.n += 1
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+
+def round_breakdown(srv, seeds, n_steps: int = 20) -> dict:
+    """One warm bucket-16 round of the cluster as its engine runs it (the
+    feature fetch and the lane-stacked step, 16 host-sampled trees a
+    lane), traced as ``step_breakdown`` traces a single-lane step."""
+    from repro_torch.serve.buckets import stack_trees
+    node_ids, hop_valid = [], []
+    for lane in range(CLUSTER_LANES):
+        trees = srv._sampler.sample_for(seeds[16 * lane:16 * (lane + 1)],
+                                        rid=lane)
+        ni, hv = stack_trees(trees, 16, srv.fanouts)
+        node_ids.append(ni)
+        hop_valid.append(hv)
+    node_ids, hop_valid = np.stack(node_ids), np.stack(hop_valid)
+    step = srv.steps.get((16,))
+    rec = trace_steps(lambda: step(srv.params, srv._gather(node_ids),
+                                   node_ids, hop_valid), n_steps,
+                      "spmm_dedup_chunks")
+    rec["spmm_ms_per_step"] = rec.pop("kernel_ms_per_step")
+    return rec
+
+
+def phase_cluster(dev, params, indptr, indices, store):
+    """Phase 18: the replicated cluster tier around gcn-cora and gat-cora
+    serving, then its control plane, then the readings."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.models.gnn import gat
+    from repro_torch.serve import (ChaosInjector, DRHMRouter, LaneFault,
+                                   Overloaded, utilization_spread)
+    out = {}
+    rng = np.random.default_rng(18)
+
+    # 1. kernels on the lane-stacked plans
+    out["kernels"] = [lane_stacked_case(dev, backend, bucket, d, rng)
+                      for backend in ("cuda", "cuda_q8")
+                      for bucket in (1, 16) for d in (16, 1433)]
+
+    # 2. the server: gcn-cora cuda and cuda_q8, gat-cora cuda
+    seeds = np.random.default_rng(2).integers(0, 2708, CLUSTER_REQUESTS)
+    gat_cfg = gat_cora.FULL
+    gat_params = gat.init_params(gat_cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+    out["serve"] = [
+        cluster_serve(dev, "gcn", FULL, params, indptr, indices, store,
+                      seeds, "cuda"),
+        cluster_serve(dev, "gcn", FULL, params, indptr, indices, store,
+                      seeds, "cuda_q8"),
+        cluster_serve(dev, "gat", gat_cfg, gat_params, indptr, indices,
+                      store, seeds, "cuda")]
+
+    # 3. control plane: a skewed stream reseeds
+    probe = DRHMRouter(CLUSTER_LANES, seed=0)
+    hot = np.array([i for i in range(2708) if probe.lane_of([i]) == 0])
+    hot_seeds = hot[np.random.default_rng(3).integers(0, hot.size, 512)]
+    with cluster_server(dev, "gcn", FULL, params, indptr, indices,
+                        store) as srv:
+        srv.warmup()
+        reqs, _, dt = cluster_burst(srv, hot_seeds)
+        info = srv.router.info()
+        check(served_once(reqs), "reseed drill: a request did not settle "
+                                 "once with a result")
+        check(info["reseeds"] >= 1, "reseed drill: a stream on one lane "
+                                    "did not reseed")
+        post = np.sum([np.asarray(c, float)
+                       for c in info["routed_per_epoch"][1:]], axis=0)
+        out["reseed"] = dict(
+            requests=len(reqs), reseeds=info["reseeds"],
+            routed_per_epoch=info["routed_per_epoch"],
+            spread_before=utilization_spread(info["routed_per_epoch"][0]),
+            spread_after=utilization_spread(post) if post.sum() else None,
+            served_per_lane=srv.lane_stats()["served"], req_per_s=len(reqs)
+            / dt)
+    say(f"cluster reseed {json.dumps(out['reseed'])}")
+
+    # 4. control plane: kill lane 1 at round 3, as gnn_serve
+    # --chaos-kill-lane 1 --chaos-round 3 does; it restarts after 0.5 s
+    chaos = ChaosInjector(seed=0, lane_faults=[LaneFault(lane=1,
+                                                         at_round=3)])
+    with cluster_server(dev, "gcn", FULL, params, indptr, indices, store,
+                        chaos=chaos, stall_timeout=0.15,
+                        restart_after=0.5) as srv:
+        srv.warmup()
+        t0 = time.perf_counter()
+        reqs, _, _ = cluster_burst(srv, seeds)
+        st = srv.stats()
+        check(served_once(reqs), "kill drill: a request was lost")
+        check(chaos.injected["kill"] == 1 and st["lane_deaths"] == 1
+              and st["reroutes"] > 0,
+              f"kill drill: kills {chaos.injected['kill']}, deaths "
+              f"{st['lane_deaths']}, reroutes {st['reroutes']}")
+        check(all(r.reroutes <= 1 for r in reqs),
+              "kill drill: a request re-routed twice")
+        deadline = time.monotonic() + 30
+        while srv.router.n_active < CLUSTER_LANES and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        restored_s = time.perf_counter() - t0
+        st = srv.stats()
+        check(srv.lane_states() == ["active"] * CLUSTER_LANES
+              and st["lane_restores"] == 1,
+              f"kill drill: lane states {srv.lane_states()}, restores "
+              f"{st['lane_restores']}")
+        rerouted = [r for r in reqs if r.reroutes][:16]
+        err = float(max(np.abs(r.result - srv.offline_replay(r)).max()
+                        for r in rerouted))
+        check(err <= SERVE_TOL, f"kill drill: re-routed vs replay {err:.3e}")
+        out["kill"] = dict(
+            requests=len(reqs), reroutes=st["reroutes"],
+            lane_deaths=st["lane_deaths"], lane_restores=st["lane_restores"],
+            restored_after_s=restored_s, parity_max_abs=err,
+            served_per_lane=srv.lane_stats()["served"])
+    say(f"cluster kill {json.dumps(out['kill'])}")
+
+    # 5. control plane: every lane wedged, interactive latencies blow the
+    # default 50 ms target, the SLO engine sheds best_effort first
+    stall = ChaosInjector(seed=0, lane_faults=[
+        LaneFault(lane=i, at_round=1, kind="stall", duration=0.4)
+        for i in range(CLUSTER_LANES)])
+    with cluster_server(dev, "gcn", FULL, params, indptr, indices, store,
+                        chaos=stall, stall_timeout=60, slo=True,
+                        slo_sustain_ticks=1) as srv:
+        srv.warmup()
+        accepted = srv.submit_many([[int(s)] for s in seeds[:256]])
+        deadline = time.monotonic() + 30
+        while not srv.slo.should_shed("best_effort") and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        refused = None
+        try:
+            srv.submit([1], cls="best_effort")
+        except Overloaded as exc:
+            refused = exc.cls
+        accepted.append(srv.submit([2], cls="interactive"))
+        srv.drain(timeout=120)
+        events = [e for e in srv.telemetry.events
+                  if e.get("event") == "shed_class" and e.get("on")]
+        check(refused == "best_effort" and served_once(accepted)
+              and events and events[0]["cls"] == "best_effort"
+              and not srv.slo.should_shed("interactive"),
+              f"SLO drill: refused {refused}, shed events {events[:2]}")
+        classes = srv.stats()["classes"]
+        out["slo"] = dict(
+            accepted=len(accepted), refused_class=refused,
+            shed_events=[e["cls"] for e in events],
+            interactive_p99_ms=classes["interactive"]["p99_ms"],
+            interactive_burn_fast=classes["interactive"]["burn_fast"])
+    say(f"cluster slo {json.dumps(out['slo'])}")
+
+    # 6. readings: the 4-lane cluster against one GNNServer at max batch
+    # 16 and one at 64 (a 4-lane round's seeds in one step: the batch
+    # alone, without the lanes) on the same requests, host sampler, in
+    # turns; then one round against one step (each burst after a full
+    # collection, its own collections' pauses recorded: the script's heap
+    # is large by now)
+    rates = {k: [] for k in CLUSTER_AB}
+    lat = {k: [] for k in CLUSTER_AB}
+    pauses = {k: [] for k in CLUSTER_AB}
+    events = []
+    servers = {
+        "single": ops_server(dev, params, indptr, indices, store,
+                             sampler="host"),
+        "single64": ops_server(dev, params, indptr, indices, store,
+                               sampler="host", max_batch_seeds=64),
+        "cluster": cluster_server(dev, "gcn", FULL, params, indptr, indices,
+                                  store)}
+    cluster, single = servers["cluster"], servers["single"]
+    try:
+        for srv in servers.values():
+            srv.warmup()
+        for turn in range(CLUSTER_AB_TURNS):
+            for name in CLUSTER_AB[turn:] + CLUSTER_AB[:turn]:
+                srv = servers[name]
+                srv.reset_stats()
+                gc.collect()
+                with GcPauses() as gcp:
+                    if name == "cluster":
+                        reqs, _, dt = cluster_burst(cluster, seeds)
+                    else:
+                        reqs, _, dt, _ = served_burst(srv, seeds)
+                st = srv.stats()
+                check(served_once(reqs) and st.get("lane_deaths", 0) == 0,
+                      f"{name} burst {turn}: a request was not served once "
+                      f"or a lane died ({st.get('lane_deaths')})")
+                rates[name].append(len(seeds) / dt)
+                lat[name].append((st["p50_ms"], st["p99_ms"]))
+                pauses[name].append((gcp.n, gcp.ms))
+                if name == "cluster":
+                    events.append(cluster.telemetry.event_counts())
+        out["vs_single_lane"] = dict(
+            req_per_s=rates, p50_p99_ms=lat, gc_pauses_n_ms=pauses,
+            cluster_events=events,
+            median_req_per_s={k: med(v) for k, v in rates.items()},
+            speedup=med(rates["cluster"]) / med(rates["single"]),
+            speedup_vs_batch64=med(rates["cluster"])
+            / med(rates["single64"]))
+        out["round"] = round_breakdown(cluster, seeds)
+        out["single_step"] = step_breakdown(single, seeds)
+    finally:
+        for srv in servers.values():
+            srv.close()
+    say(f"cluster readings {json.dumps({k: out[k] for k in ('vs_single_lane', 'round', 'single_step')})}")
+    out["launches"] = {k: sum(sv["launches"][k] for sv in out["serve"])
+                       for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8",
+                                 "spmm_dedup_chunks_q8_lanes")}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -3742,7 +4237,14 @@ def main() -> int:
     # metrics over HTTP, transient step faults and retries, sampler faults
     t17 = time.perf_counter()
     ops = phase_ops(dev, params, indptr, indices, store, seeds)
-    say(f"phase 17 took {time.perf_counter() - t17:.1f} s; the script "
+    say(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+
+    # phase 18 — the replicated cluster tier: B1 and the lane-scaled B4 on
+    # lane-stacked plans, 4-lane clusters serving gcn-cora and gat-cora, the
+    # reseed, kill and SLO drills, and the readings against one lane
+    t18 = time.perf_counter()
+    cluster = phase_cluster(dev, params, indptr, indices, store)
+    say(f"phase 18 took {time.perf_counter() - t18:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -3761,7 +4263,8 @@ def main() -> int:
                         + geom["launches"][k])
     for k in conv_serving:
         launches[k] += (conv_serving[k] + geom_serving[k]
-                        + ops["launches"].get(k, 0))
+                        + ops["launches"].get(k, 0)
+                        + cluster["launches"].get(k, 0))
     launches["spmm_dedup_chunks"] += \
         bf16_forward["launches"]["spmm_dedup_chunks"]
     runs = train["per_run"]
@@ -3802,9 +4305,15 @@ def main() -> int:
                  f"{bf16_forward['launches']['spmm_dedup_chunks']}; "
                  "phase 17's serving plane "
                  f"{ops['launches']['spmm_dedup_chunks']} (2 a dispatched "
-                 "step)"),
+                 "step); phase 18's 4-lane clusters "
+                 f"{cluster['launches']['spmm_dedup_chunks']} (one an "
+                 "aggregation a round for all lanes: 2 a gcn round, 9 a "
+                 "gat round)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
+             stacked=[{k: c[k] for k in ("shape", "single_lane_calls_ms")
+                       + keys} for c in cluster["kernels"]
+                      if c["shape"].startswith("B1")],
              backward=[{k: c[k] for k in ("shape",) + keys}
                        for c in train["backward"]],
              bf16=dict(
@@ -3873,9 +4382,20 @@ def main() -> int:
                  f"{conv['launches']['spmm_dedup_chunks_q8']} (gat 9 a "
                  "step, gin 3); phase 16's DimeNet over Â² "
                  f"{geom['launches']['spmm_dedup_chunks_q8']} (1 a cuda_q8 "
-                 "step, the Â² stage's forward)"),
+                 "step, the Â² stage's forward); phase 18's 4-lane int8 "
+                 f"cluster {cluster['launches']['spmm_dedup_chunks_q8']} "
+                 "(2 a round for all lanes, lane-scaled)"),
              max_abs_err=max(c["max_abs_err"]
                              for c in b4 + train["forward_q8"]),
+             lane_scaled=dict(
+                 launches=cluster["launches"]["spmm_dedup_chunks_q8_lanes"],
+                 launches_note="phase 18's 4-lane cuda_q8 cluster: x "
+                               "quantized lane by lane, a row of feature "
+                               "scales a lane",
+                 cases=[{k: c[k] for k in ("shape", "max_abs_err",
+                                           "single_lane_calls_ms") + keys}
+                        for c in cluster["kernels"]
+                        if c["shape"].startswith("B4")]),
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
         dict(name="spgemm_hashpad_q8", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"

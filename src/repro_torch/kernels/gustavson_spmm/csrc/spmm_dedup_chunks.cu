@@ -12,6 +12,11 @@
 // block_ptr[b+1]-1, consecutive.  The int8 kernel takes a_q8 (int8 tiles,
 // one f32 scale a_scale[k] per chunk) and x_q8 (int8, one f32 scale
 // x_scale[col / q_tile] per scale tile of q_tile columns) and writes f32.
+// A stack of serving lanes (the cluster's lane-stacked round: lane l owns
+// the l-th of scale_rows equal runs of output blocks and its chunks read
+// only its own rows of x) carries a row of feature scales per lane: block
+// b reads row b / (n_blocks / scale_rows).  One lane is one row, and the
+// arithmetic is the same.
 // The bf16 kernel takes the f32 tiles and a bf16 x and writes bf16 with the
 // reference's rounding (_fold on a bf16 landing buffer): each coefficient is
 // rounded to bf16 before its multiply, a chunk's sum is taken in f32 and
@@ -113,9 +118,11 @@ struct Args {
   const void* a;           // float or int8_t tiles
   const float* a_scale;    // int8 only
   const void* x;           // float, __nv_bfloat16 or int8_t
-  const float* x_scale;    // int8 only
+  const float* x_scale;    // int8 only: (scale_rows, ceil(d / q_tile))
   void* y;                 // float, or __nv_bfloat16 for a bf16 x
   int n_blocks, n_chunks, width, d, lanes, q_tile;
+  int scale_rows, blocks_per_scale_row;  // int8 only: serving lanes
+                                         // (the second from the first)
 };
 
 // One step of a group's walk: lanes off .. off+cnt-1 of chunk k; end_chunk
@@ -356,12 +363,18 @@ __global__ void __launch_bounds__(MAX_THREADS, RPT == ROWS && VEC == 4 ? 1
   const char* const xt =
       static_cast<const char*>(p.x) + (int64_t)v * VEC * sizeof(T);
   const int row_bytes = d * (int)sizeof(T);
-  float xs[VEC];  // int8: each column's feature scale
+  float xs[VEC];  // int8: each column's feature scale, from b's lane's row
+  const float* x_scale = nullptr;
+  if constexpr (Q8) {
+    // groups past the last block (the grid's tail) read the last row
+    const int row = min(b / p.blocks_per_scale_row, p.scale_rows - 1);
+    x_scale = p.x_scale + (int64_t)row * ((d + p.q_tile - 1) / p.q_tile);
+  }
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
     xs[e] = 0.f;
     if constexpr (Q8) {
-      if (ok) xs[e] = p.x_scale[(v * VEC + e) / p.q_tile];
+      if (ok) xs[e] = x_scale[(v * VEC + e) / p.q_tile];
     }
   }
 
@@ -617,7 +630,7 @@ extern "C" int spmm_dedup_chunks_launch(
     void* stream) {
   const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
                (const int32_t*)block_ptr, a, nullptr, x, nullptr, y,
-               n_blocks, n_chunks, width, d, lanes, 1};
+               n_blocks, n_chunks, width, d, lanes, 1, 1, 1};
   return dispatch<float>(p, vec, rows, groups, stream);
 }
 
@@ -630,22 +643,26 @@ extern "C" int spmm_dedup_chunks_bf16_launch(
     void* stream) {
   const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
                (const int32_t*)block_ptr, a, nullptr, x, nullptr, y,
-               n_blocks, n_chunks, width, d, lanes, 1};
+               n_blocks, n_chunks, width, d, lanes, 1, 1, 1};
   return dispatch<__nv_bfloat16>(p, vec, rows, groups, stream);
 }
 
 // As above with int8 tiles a_q8 and scales a_scale (n_chunks,) f32, int8
-// x_q8 (N, d) and x_scale (ceil(d / q_tile),) f32; vec bytes per load.
+// x_q8 (N, d) and x_scale (scale_rows, ceil(d / q_tile)) f32: a row of
+// feature scales per serving lane, the lanes' output blocks in equal runs
+// (scale_rows divides n_blocks; one lane: 1); vec bytes per load.
 extern "C" int spmm_dedup_chunks_q8_launch(
     const void* u_cols, const void* remaining, const void* block_ptr,
     const void* a_q8, const void* a_scale, const void* x_q8,
     const void* x_scale, void* y, int n_blocks, int n_chunks, int width,
     int d, int q_tile, int vec, int lanes, int rows, int groups,
-    void* stream) {
-  if (q_tile <= 0) return (int)cudaErrorInvalidValue;
+    int scale_rows, void* stream) {
+  if (q_tile <= 0 || scale_rows < 1 || n_blocks % scale_rows != 0)
+    return (int)cudaErrorInvalidValue;
   const Args p{(const int32_t*)u_cols, (const int32_t*)remaining,
                (const int32_t*)block_ptr, a_q8, (const float*)a_scale, x_q8,
                (const float*)x_scale, y, n_blocks, n_chunks, width,
-               d, lanes, q_tile};
+               d, lanes, q_tile, scale_rows,
+               n_blocks > 0 ? n_blocks / scale_rows : 1};
   return dispatch<int8_t>(p, vec, rows, groups, stream);
 }

@@ -42,7 +42,7 @@ LIBRARY = build.KernelLibrary(
                ("spmm_dedup_chunks_bf16_launch",
                 (_P,) * 6 + (_I,) * 8 + (_P,)),
                ("spmm_dedup_chunks_q8_launch",
-                (_P,) * 8 + (_I,) * 9 + (_P,))))
+                (_P,) * 8 + (_I,) * 10 + (_P,))))
 
 X_DTYPES = (torch.float32, torch.bfloat16)  # what spmm_dedup_chunks takes
 ROWS = 8                  # output rows per block the kernels fold (csrc)
@@ -326,6 +326,21 @@ spmm_dedup_chunks.launches_bf16 = 0     # the bf16 instantiation's share
 # int8: spmm_dedup_chunks_q8
 # ---------------------------------------------------------------------------
 
+def _lane_scales(x_scale: torch.Tensor,
+                 n_blocks: int) -> Tuple[torch.Tensor, int]:
+    """``x_scale`` as ``(lanes, d_tiles)`` and the output blocks of a lane:
+    a 1-D ``x_scale`` is one lane over every block; a 2-D one holds a row
+    of feature scales per serving lane, the lanes' blocks in equal runs."""
+    if x_scale.ndim == 1:
+        return x_scale[None], max(n_blocks, 1)
+    if (x_scale.ndim != 2 or x_scale.shape[0] < 1
+            or n_blocks % x_scale.shape[0]):
+        raise ValueError(
+            f"x_scale of shape {tuple(x_scale.shape)} does not split "
+            f"{n_blocks} output blocks into equal runs, one a lane")
+    return x_scale, max(n_blocks // x_scale.shape[0], 1)
+
+
 def spmm_dedup_chunks_q8_plain(u_cols: torch.Tensor, remaining: torch.Tensor,
                                block_ptr: torch.Tensor, a_q8: torch.Tensor,
                                a_scale: torch.Tensor, x_q8: torch.Tensor,
@@ -334,10 +349,14 @@ def spmm_dedup_chunks_q8_plain(u_cols: torch.Tensor, remaining: torch.Tensor,
     """Plain PyTorch version of the int8 kernel, in its fold order: per
     chunk the integer products summed exactly (f32 sums of int8·int8 stay
     below 2²⁴), folded into the block as ``fma(isum, a_scale[k]·
-    x_scale[col // q_tile], y)`` chunk after chunk (``fold_q8_in_order``).
-    Lanes ``u ≥ remaining[k]`` are not read."""
+    x_scale[lane][col // q_tile], y)`` chunk after chunk
+    (``fold_q8_in_order``), where a chunk's lane is its output block ÷
+    the blocks of a lane (one lane unless ``x_scale`` is 2-D).  Lanes
+    ``u ≥ remaining[k]`` are not read."""
     n_chunks, width = u_cols.shape
     d = x_q8.shape[1]
+    n_blocks = block_ptr.shape[0] - 1
+    scales, per_lane = _lane_scales(x_scale, n_blocks)
     lane = torch.arange(width, device=u_cols.device)
     live = lane[None, :] < remaining[:, None].to(torch.int64)
     idx = torch.where(live, u_cols.to(torch.int64), 0)
@@ -347,9 +366,12 @@ def spmm_dedup_chunks_q8_plain(u_cols: torch.Tensor, remaining: torch.Tensor,
     a3 = torch.where(live[:, None, :], a_q8.reshape(
         n_chunks, block_rows, width).to(torch.float32), 0.0)
     isum = torch.bmm(a3, land)
-    col_scale = torch.repeat_interleave(x_scale, q_tile)[:d]
-    scale = (a_scale[:, None] * col_scale[None, :])[:, None, :]
-    n_blocks = block_ptr.shape[0] - 1
+    out_block = torch.repeat_interleave(
+        torch.arange(n_blocks, device=u_cols.device),
+        (block_ptr[1:] - block_ptr[:-1]).to(torch.int64))
+    col_scale = torch.repeat_interleave(scales, q_tile, dim=1)[:, :d]
+    scale = (a_scale[:, None]
+             * col_scale.index_select(0, out_block // per_lane))[:, None, :]
     return fold_q8_in_order(isum, scale, block_ptr).reshape(
         n_blocks * block_rows, d)
 
@@ -365,15 +387,20 @@ def spmm_dedup_chunks_q8(u_cols: torch.Tensor, remaining: torch.Tensor,
     u_cols (n_chunks, width) int32; remaining (n_chunks,) int32; block_ptr
     (n_blocks+1,) int32; a_q8 (n_chunks·block_rows, width) int8 with
     a_scale (n_chunks,) f32; x_q8 (N, D) int8 with x_scale
-    (ceil(D/q_tile),) f32.  ``q_tile`` is the scale tile the features were
-    quantized with (default ``auto_d_tile(D)``).
+    (ceil(D/q_tile),) f32, or ``(lanes, ceil(D/q_tile))`` for a stack of
+    serving lanes that split the output blocks into equal runs, lane l's
+    chunks reading only lane l's rows and scales.  ``q_tile`` is the
+    scale tile the features were quantized with (default
+    ``auto_d_tile(D)``).
     """
     q_tile = auto_d_tile(x_q8.shape[1]) if q_tile is None else int(q_tile)
     _check(u_cols, remaining, block_ptr, a_q8, x_q8, block_rows, torch.int8,
            (torch.int8,), (("a_scale", a_scale), ("x_scale", x_scale)))
     d = x_q8.shape[1]
+    n_blocks = block_ptr.shape[0] - 1
     n_scales = -(-d // q_tile) if q_tile >= 1 else -1
-    if a_scale.shape != remaining.shape or x_scale.shape != (n_scales,):
+    scales, _ = _lane_scales(x_scale, n_blocks)
+    if a_scale.shape != remaining.shape or scales.shape[1] != n_scales:
         raise ValueError(f"a_scale has shape {tuple(a_scale.shape)} for "
                          f"{remaining.shape[0]} chunks and x_scale "
                          f"{tuple(x_scale.shape)} for D={d} in scale tiles "
@@ -386,7 +413,6 @@ def spmm_dedup_chunks_q8(u_cols: torch.Tensor, remaining: torch.Tensor,
     if x_q8.device.type != "cuda":
         raise ValueError(f"spmm_dedup_chunks_q8 runs on cuda or cpu, not "
                          f"{x_q8.device}")
-    n_blocks = block_ptr.shape[0] - 1
     n_chunks, width = u_cols.shape
     y = torch.empty((n_blocks * block_rows, d), dtype=torch.float32,
                     device=x_q8.device)
@@ -398,11 +424,13 @@ def spmm_dedup_chunks_q8(u_cols: torch.Tensor, remaining: torch.Tensor,
         err = lib.spmm_dedup_chunks_q8_launch(
             u_cols.data_ptr(), remaining.data_ptr(), block_ptr.data_ptr(),
             a_q8.data_ptr(), a_scale.data_ptr(), x_q8.data_ptr(),
-            x_scale.data_ptr(), y.data_ptr(), n_blocks, n_chunks, width, d,
-            q_tile, vec, lanes, rows, groups, stream)
+            scales.data_ptr(), y.data_ptr(), n_blocks, n_chunks, width, d,
+            q_tile, vec, lanes, rows, groups, scales.shape[0], stream)
     build.check_launch("spmm_dedup_chunks_q8", err)
     spmm_dedup_chunks_q8.launches += 1
+    spmm_dedup_chunks_q8.launches_lanes += scales.shape[0] > 1
     return y
 
 
 spmm_dedup_chunks_q8.launches = 0
+spmm_dedup_chunks_q8.launches_lanes = 0  # the lane-scaled launches' share

@@ -97,22 +97,31 @@ class _SpmmDedupQ8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u_cols, remaining, block_ptr, out_block, a, a_q8,
                 a_scale, t_u_cols, t_remaining, t_block_ptr, a_t, x,
-                block_rows, q_tile):
-        from repro_torch.sparse.quantize import quantize_feature_tiles
+                block_rows, q_tile, lanes):
         need = ctx.needs_input_grad
         _save(ctx, need[4], need[11], u_cols, remaining, out_block,
               (t_u_cols, t_remaining, t_block_ptr, a_t), x, block_rows)
-        x_q8, x_scale = quantize_feature_tiles(x, q_tile)
-        return spmm_dedup_chunks_q8(u_cols, remaining, block_ptr, a_q8,
-                                    a_scale, x_q8, x_scale,
-                                    block_rows=block_rows,
-                                    q_tile=q_tile).to(x.dtype)
+        return _q8_forward(u_cols, remaining, block_ptr, a_q8, a_scale, x,
+                           block_rows, q_tile, lanes)
 
     @staticmethod
     def backward(ctx, grad_y):
         da, dx = _backward(ctx, grad_y)
         return (None, None, None, None, da, None, None, None, None, None,
-                None, dx, None, None)
+                None, dx, None, None, None)
+
+
+def _q8_forward(u_cols, remaining, block_ptr, a_q8, a_scale, x, block_rows,
+                q_tile, lanes):
+    """X quantized per feature tile (per serving lane: ``lanes`` is
+    ``(lanes, lane_rows, lane_nodes)``), then B4, in ``x.dtype``."""
+    from repro_torch.sparse.quantize import quantize_feature_tiles
+    n_lanes, lane_rows, lane_nodes = lanes
+    x_q8, x_scale = quantize_feature_tiles(x, q_tile, n_lanes, lane_rows,
+                                           lane_nodes)
+    return spmm_dedup_chunks_q8(
+        u_cols, remaining, block_ptr, a_q8, a_scale, x_q8, x_scale,
+        block_rows=block_rows, q_tile=q_tile).to(x.dtype)
 
 
 def _wants_grad(a, x) -> bool:
@@ -139,23 +148,22 @@ def spmm_dedup_grad(u_cols, remaining, block_ptr, out_block, a, t_u_cols,
 
 def spmm_dedup_grad_q8(u_cols, remaining, block_ptr, out_block, a, t_u_cols,
                        t_remaining, t_block_ptr, a_t, x, *, a_q8, a_scale,
-                       block_rows: int,
-                       q_tile: Optional[int] = None) -> torch.Tensor:
+                       block_rows: int, q_tile: Optional[int] = None,
+                       lanes: tuple = (1, None, None)) -> torch.Tensor:
     """Differentiable int8 y ≈ A·x (straight-through gradients), returned
     in ``x.dtype`` as the reference's ``y.astype(x.dtype)``.
 
     ``a_q8``/``a_scale`` are the int8 forward tiles (baked at plan time,
     or quantized from ``a`` by the caller); X quantizes here per feature
     tile of ``q_tile`` columns (default ``auto_d_tile(D)``, the kernel's
-    own scale tile)."""
+    own scale tile), and lane by lane where ``lanes`` = ``(lanes,
+    lane_rows, lane_nodes)`` (an ``AggregationPlan``'s) holds several
+    serving lanes."""
     q_tile = auto_d_tile(x.shape[1]) if q_tile is None else int(q_tile)
     if not _wants_grad(a, x):
-        from repro_torch.sparse.quantize import quantize_feature_tiles
-        x_q8, x_scale = quantize_feature_tiles(x, q_tile)
-        return spmm_dedup_chunks_q8(u_cols, remaining, block_ptr, a_q8,
-                                    a_scale, x_q8, x_scale,
-                                    block_rows=block_rows,
-                                    q_tile=q_tile).to(x.dtype)
+        return _q8_forward(u_cols, remaining, block_ptr, a_q8, a_scale, x,
+                           block_rows, q_tile, lanes)
     return _SpmmDedupQ8.apply(u_cols, remaining, block_ptr, out_block, a,
                               a_q8, a_scale, t_u_cols, t_remaining,
-                              t_block_ptr, a_t, x, block_rows, q_tile)
+                              t_block_ptr, a_t, x, block_rows, q_tile,
+                              lanes)

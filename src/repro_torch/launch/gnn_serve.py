@@ -1,10 +1,23 @@
-"""GNN inference serving driver, single lane — port of the single-lane path
-of ``repro.launch.gnn_serve``.
+"""GNN inference serving driver — port of ``repro.launch.gnn_serve``
+(single lane, and the replicated cluster tier).
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --backend cuda \\
       --sampler device --requests 100 --max-batch 16 --fanouts 5,3
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --arch sage ...
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --arch dimenet ...
+
+  # scale-out: 4 replica lanes with DRHM request routing, each round one
+  # lane-stacked dispatch
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --replicas 4 \\
+      [--chaos-kill-lane 1 --chaos-round 3] [--slo] [--metrics-port 0]
+
+With ``--replicas`` > 1 it stands up a ``ClusterServer`` (the conv
+family, host sampling, as the reference's cluster does), fires the trace
+as one bulk ``submit_many``, and reports per-lane utilization, reseeds and
+the control plane's counts; it exits 1 on a delivery violation, on a
+request lost under ``--chaos-kill-lane``, or when replay parity fails.
+``--shard`` and ``--placement mesh`` need the distributed executor
+(``ROADMAP.md`` A7) and raise.
 
 Serves one arch (``--arch gcn|gat|sage|gin|schnet|dimenet``).  Stands up
 a ``GNNServer`` over a synthetic power-law resident graph (node features
@@ -29,7 +42,8 @@ import torch
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import dimenet, gat, gcn, gin, sage, schnet
-from repro_torch.serve import FeatureStore, GNNServer, offline_replay
+from repro_torch.serve import (ClusterServer, FeatureStore, GNNServer,
+                               offline_replay)
 from repro_torch.serve.compute import GEOM_ARCHS
 from repro_torch.sparse.graph import coo_to_csr
 from repro_torch.sparse.plan import ALL_BACKENDS
@@ -90,6 +104,104 @@ def build_world(n_nodes: int, n_edges: int, d_in: int, seed: int = 0,
     return cfg, params, indptr, indices, store
 
 
+def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
+                store) -> int:
+    """The scale-out path: N replica lanes, DRHM-routed, under the
+    supervised control plane."""
+    rng = np.random.default_rng(args.seed + 2)
+    traces = [rng.integers(0, args.nodes, max(args.seeds_per_request, 1))
+              for _ in range(args.requests)]
+    mode = "sharded" if args.shard else "replicated"
+    chaos = None
+    if args.chaos_kill_lane is not None:
+        from repro_torch.serve import ChaosInjector, LaneFault
+        chaos = ChaosInjector(seed=args.seed, lane_faults=[
+            LaneFault(lane=args.chaos_kill_lane, at_round=args.chaos_round)])
+    server = ClusterServer(args.arch, cfg, params, indptr, indices, store,
+                           n_lanes=args.replicas, mode=mode,
+                           placement=args.placement, fanouts=fanouts,
+                           backend=args.backend,
+                           max_batch_seeds=args.max_batch,
+                           max_wait_ms=args.max_wait_ms,
+                           n_workers=args.workers, seed=args.seed,
+                           chaos=chaos,
+                           telemetry_jsonl=args.telemetry_jsonl,
+                           stall_timeout=args.stall_timeout,
+                           restart_after=args.restart_after,
+                           shed_queue_hwm=args.shed_hwm,
+                           scale_min_lanes=args.scale_min_lanes,
+                           slo=True if args.slo else None,
+                           metrics_port=args.metrics_port, device=device)
+    with server:
+        if args.metrics_port is not None:
+            print(f"[gnn-serve] metrics exposition at "
+                  f"{server._metrics_server.url}")
+        server.warmup()
+        warm_builds = server.steps.builds
+        server.reset_stats()
+        t0 = time.perf_counter()
+        reqs = server.submit_many(traces, deadline_ms=args.deadline_ms,
+                                  cls=args.request_class)
+        server.drain()
+        dt = time.perf_counter() - t0
+        st = server.stats()
+        ls = server.lane_stats()
+        print(f"[gnn-serve] {args.arch}/{args.backend} {mode} "
+              f"x{args.replicas} ({args.placement}) on {device}: "
+              f"{args.requests} requests in {dt:.2f}s "
+              f"({args.requests / dt:.1f} req/s)  "
+              f"p50={st['p50_ms']:.1f}ms p99={st['p99_ms']:.1f}ms  "
+              f"rounds={st['n_rounds']} reseeds={st['reseeds']} "
+              f"recompiles(post-warmup)={server.steps.builds - warm_builds}")
+        print(f"[gnn-serve] per-lane served={ls['served']} "
+              f"spread={ls['served_spread']:.2f}x mean "
+              f"states={ls['states']}")
+        if (st["failed"] or st["timeouts"] or st["lane_deaths"]
+                or chaos is not None):
+            print(f"[gnn-serve] control plane: deaths={st['lane_deaths']} "
+                  f"restores={st['lane_restores']} "
+                  f"reroutes={st['reroutes']} retries={st['retries']} "
+                  f"timeouts={st['timeouts']} shed={st['shed']} "
+                  f"failed={st['failed']}")
+        if args.slo:
+            for cls, c in st.get("classes", {}).items():
+                print(f"[gnn-serve] slo {cls:<12} n={c['n']:<6} "
+                      f"viol={c['violations']:<6} "
+                      f"burn(fast/slow)={c['burn_fast']:.2f}/"
+                      f"{c['burn_slow']:.2f} p99={c['p99_ms']:.1f}ms"
+                      + ("  SHED" if c["shed"] else ""))
+        served_once = sum(1 for r in reqs
+                          if r.n_settles == 1 and r.error is None)
+        settled = sum(1 for r in reqs if r.done)
+        if settled != len(reqs):
+            print(f"[gnn-serve] DELIVERY VIOLATION: "
+                  f"{len(reqs) - settled} request(s) never settled")
+            return 1
+        if chaos is not None and served_once != len(reqs):
+            print(f"[gnn-serve] chaos run lost "
+                  f"{len(reqs) - served_once} request(s)")
+            return 1
+        if not args.skip_offline:
+            live = [r for r in reqs if r.error is None
+                    and r.params_version in (None, server.params_version)]
+            sub = live[:min(32, len(live))]
+            if not sub:
+                print("[gnn-serve] offline replay skipped (no request "
+                      "settled on the live version)")
+            else:
+                ref = np.concatenate([server.offline_replay(r)
+                                      for r in sub])
+                got = np.concatenate([r.result for r in sub])
+                dev = float(np.abs(got - ref).max())
+                tol = parity_tol(args.backend, args.arch)
+                print(f"[gnn-serve] offline replay parity max|Δ| {dev:.2e} "
+                      f"({'OK' if dev <= tol else 'FAIL'}, {len(sub)} "
+                      f"live-version request(s))")
+                if dev > tol:
+                    return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gcn", choices=list(MODELS))
@@ -102,18 +214,75 @@ def main(argv=None) -> int:
     ap.add_argument("--d-in", type=int, default=32)
     ap.add_argument("--fanouts", default="5,3")
     ap.add_argument("--max-batch", type=int, default=16)
+    ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--skip-offline", action="store_true")
+    # scale-out tier — the cluster path only
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serving lanes; >1 stands up the DRHM-routed "
+                         "cluster tier (conv archs, host sampler)")
+    ap.add_argument("--shard", action="store_true",
+                    help="shard the resident feature table over the lanes: "
+                         "needs the distributed executor (ROADMAP.md A7) "
+                         "and raises")
+    ap.add_argument("--placement", default="stacked",
+                    choices=["stacked", "mesh"],
+                    help="lane compute placement: one lane-stacked "
+                         "dispatch a round (stacked); mesh needs "
+                         "ROADMAP.md A7 and raises")
+    ap.add_argument("--seeds-per-request", type=int, default=1)
+    ap.add_argument("--telemetry-jsonl", default=None, metavar="PATH",
+                    help="append per-lane telemetry samples/events as JSON "
+                         "lines (the flight recorder)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline; queued requests past it "
+                         "fail typed (DeadlineExceeded)")
+    ap.add_argument("--stall-timeout", type=float, default=1.0,
+                    help="seconds of stale lane heartbeat (with queued "
+                         "work) before the supervisor declares it dead")
+    ap.add_argument("--restart-after", type=float, default=2.0,
+                    help="seconds after a lane death before the supervisor "
+                         "restarts it through a shadow warm-up")
+    ap.add_argument("--shed-hwm", type=float, default=None,
+                    help="total queued requests beyond which sustained "
+                         "growth sheds new submissions (typed Overloaded)")
+    ap.add_argument("--scale-min-lanes", type=int, default=None,
+                    help="enable telemetry-driven elastic lane parking "
+                         "down to this floor")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve the /metrics exposition from a background "
+                         "HTTP thread on this port (0 = ephemeral)")
+    ap.add_argument("--slo", action="store_true",
+                    help="per-class SLO burn-rate shedding (best_effort "
+                         "sheds before batch, interactive never)")
+    ap.add_argument("--request-class", default="interactive",
+                    choices=["interactive", "batch", "best_effort"],
+                    help="request class the generated traffic carries")
+    ap.add_argument("--chaos-kill-lane", type=int, default=None,
+                    metavar="LANE",
+                    help="chaos: kill this lane mid-stream; the run then "
+                         "requires zero lost requests")
+    ap.add_argument("--chaos-round", type=int, default=3,
+                    help="dispatch round the --chaos-kill-lane fault "
+                         "triggers at")
     args = ap.parse_args(argv)
+    if (args.replicas > 1 or args.shard) and args.sampler != "host":
+        ap.error("the cluster tier samples on the host (--sampler host)")
 
     device = resolve_device(args.device)
     fanouts = tuple(int(f) for f in args.fanouts.split(","))
     cfg, params, indptr, indices, store = build_world(
         args.nodes, args.edges, args.d_in, args.seed, device, args.arch)
+    if args.replicas > 1 or args.shard:
+        return run_cluster(args, device, fanouts, cfg, params, indptr,
+                           indices, store)
     seeds = np.random.default_rng(args.seed + 2).integers(0, args.nodes,
                                                           args.requests)
     server = GNNServer(args.arch, cfg, params, indptr, indices, store,
                        fanouts=fanouts, backend=args.backend,
                        sampler=args.sampler, max_batch_seeds=args.max_batch,
+                       max_wait_ms=args.max_wait_ms, n_workers=args.workers,
                        seed=args.seed, device=device)
     with server:
         server.warmup()

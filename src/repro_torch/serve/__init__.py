@@ -1,4 +1,5 @@
-"""GNN inference serving engine, single lane (port of ``repro.serve``).
+"""GNN inference serving engine (port of ``repro.serve``): a single-lane
+server and the replicated cluster tier.
 
 * request plane — ``batcher.DynamicBatcher`` (deadline/size triggers,
   skip-ahead FIFO packing);
@@ -7,6 +8,10 @@
   into power-of-two shape buckets;
 * compute plane — one step per (arch, bucket, backend) through the backend
   registry, LRU-cached with an explicit rebuild counter;
+* scale-out     — ``cluster.ClusterServer``: DRHM-routed replica lanes
+  (``cluster.DRHMRouter``), each round one lane-stacked dispatch
+  (``compute.build_lane_infer_step``), supervised lanes, load shedding
+  and per-class SLO burn-rate shedding (``slo``);
 * control plane — typed failures (``errors``), deterministic fault
   injection (``chaos``) with the engine's retry path, and
   ``telemetry.TelemetryHub`` (counters, events, a sampled time-series and
@@ -24,8 +29,11 @@ from repro_torch.serve.buckets import (BucketStructure, bucket_for,
                                        build_bucket_structure, stack_trees)
 from repro_torch.serve.chaos import (ChaosInjector, InjectedSamplerFault,
                                      LaneFault)
+from repro_torch.serve.cluster import (ClusterServer, DRHMRouter,
+                                       utilization_spread)
 from repro_torch.serve.compute import (FeatureStore, StepCache,
-                                       build_infer_step)
+                                       build_infer_step,
+                                       build_lane_infer_step)
 from repro_torch.serve.device_sampler import (DeviceSamplerPlane,
                                               pack_trees,
                                               sample_forest_device,
@@ -40,6 +48,8 @@ from repro_torch.serve.errors import (DeadlineExceeded, DrainTimeout,
 from repro_torch.serve.metrics import (LatencyHistogram, MetricsRegistry,
                                        parse_exposition)
 from repro_torch.serve.scheduler import LaneSlotPools, SlotPool, pack_fifo
+from repro_torch.serve.slo import (CLASSES, DEFAULT_SLOS, SHED_ORDER,
+                                   ClassSLO, SLOEngine)
 from repro_torch.serve.telemetry import TelemetryHub, percentiles_ms
 from repro_torch.serve.tracing import (SCHEMA_VERSION, TERMINAL_SPANS,
                                        Tracer, verify_trace, verify_traces)
@@ -48,7 +58,9 @@ __all__ = [
     "DynamicBatcher", "ServeRequest",
     "BucketStructure", "bucket_for", "build_bucket_structure", "stack_trees",
     "ChaosInjector", "InjectedSamplerFault", "LaneFault",
+    "ClusterServer", "DRHMRouter", "utilization_spread",
     "FeatureStore", "StepCache", "build_infer_step",
+    "build_lane_infer_step",
     "DeviceSamplerPlane", "pack_trees", "sample_forest_device",
     "tree_key_mix",
     "GNNServer", "SamplerPool", "offline_inference", "offline_replay",
@@ -57,6 +69,7 @@ __all__ = [
     "ServerClosed",
     "LatencyHistogram", "MetricsRegistry", "parse_exposition",
     "LaneSlotPools", "SlotPool", "pack_fifo",
+    "CLASSES", "DEFAULT_SLOS", "SHED_ORDER", "ClassSLO", "SLOEngine",
     "TelemetryHub", "percentiles_ms",
     "SCHEMA_VERSION", "TERMINAL_SPANS", "Tracer",
     "verify_trace", "verify_traces",

@@ -38,12 +38,19 @@ class ServeRequest:
     t_ready: float = 0.0              # sampling finished, joined the queue
     t_done: float = 0.0               # result materialized
     deadline: Optional[float] = None  # absolute clock time; None = none
+    lane: Optional[int] = None        # serving lane (cluster routing)
+    cls: str = "interactive"          # request class (serve.slo): SLO
+    #                                   objective + shed precedence
     attempts: int = 0                 # dispatch attempts (transient retries)
+    reroutes: int = 0                 # lane re-assignments (failover)
     trees: Optional[list] = None      # per-seed SampledSubgraph (host plane)
     tkm: Optional[np.ndarray] = None  # (k,) int64 tree-key counter terms
     #                                   (device sampling plane)
     result: Optional[np.ndarray] = None  # (k, d_out) seed outputs
     error: Optional[BaseException] = None
+    params_version: Optional[int] = None  # weight version the dispatch ran
+    #                                   on (cluster)
+    graph_epoch: Optional[int] = None  # resident-graph epoch sampled on
     n_settles: int = 0                # terminal transitions taken (≤1)
     _event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False)
@@ -118,6 +125,10 @@ class DynamicBatcher:
         self.n_submitted = 0
         self.n_batches = 0
         self.n_expired = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._pending)
 
     def submit(self, req: ServeRequest):
         """Enqueue a sampled request (called by the data plane)."""

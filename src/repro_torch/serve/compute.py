@@ -11,6 +11,11 @@ PyTorch runs eagerly, so a "build" is the host plan packing plus the
 closure; ``StepCache.builds`` still counts cache misses, and steady-state
 serving must hold it constant after warm-up.
 
+The cluster tier's lane step (``build_lane_infer_step``) runs one round
+of ``L`` lanes as ONE model forward over a block-diagonal stack of the
+bucket plan (``bucket_plan`` with ``n_lanes``): one B1 (``cuda``) or B4
+(``cuda_q8``) launch a layer for all lanes.
+
 All six GNNs serve through here.  The conv family (``gcn`` sym-normed with
 self loops; the unweighted ``sage``, ``gin`` and ``gat``, whose edge
 validity flows in through ``plan_with_values``) returns per-seed logits;
@@ -23,6 +28,7 @@ without a molecule boundary.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -110,19 +116,23 @@ class StepCache:
         self._cache: Dict[tuple, Callable] = {}
         self.builds = 0
         self.hits = 0
+        # a cluster's engine thread and its monitor (a lane's shadow
+        # warm-up) may ask at once
+        self._lock = threading.RLock()
 
     def get(self, key: tuple):
-        if key in self._cache:
-            self.hits += 1
-            fn = self._cache.pop(key)
+        with self._lock:
+            if key in self._cache:
+                self.hits += 1
+                fn = self._cache.pop(key)
+                self._cache[key] = fn
+                return fn
+            self.builds += 1
+            fn = self._builder(key)
             self._cache[key] = fn
+            while len(self._cache) > self.maxsize:
+                self._cache.pop(next(iter(self._cache)))
             return fn
-        self.builds += 1
-        fn = self._builder(key)
-        self._cache[key] = fn
-        while len(self._cache) > self.maxsize:
-            self._cache.pop(next(iter(self._cache)))
-        return fn
 
     def info(self) -> dict:
         return {"builds": self.builds, "hits": self.hits,
@@ -133,37 +143,69 @@ class StepCache:
 # Bucket plans — one host packing per (structure, backend, device)
 # ---------------------------------------------------------------------------
 
+def lane_rows_for(n_nodes: int, n_lanes: int, block_rows: int = 8) -> int:
+    """Rows a lane takes in a stack of ``n_lanes``: its ``n_nodes`` rounded
+    up to whole output blocks, so every block (and every chunk of the
+    dedup layout) lies in one lane; one lane takes ``n_nodes``."""
+    if n_lanes == 1:
+        return n_nodes
+    return -(-n_nodes // block_rows) * block_rows
+
+
 def _build_bucket_plan(key: tuple):
     from repro_torch.serve.buckets import build_bucket_structure
-    n_seeds, fanouts, with_loops, backend, need_ell, device = key
+    n_seeds, fanouts, with_loops, backend, need_ell, n_lanes, device = key
     struct = build_bucket_structure(n_seeds, fanouts, with_loops=with_loops)
     backends = ["dense", "chunked"]
     if backend in ("cuda", "cuda_q8") and need_ell:
         backends.append(backend)
-    return make_plan(struct.senders, struct.receivers, struct.n_nodes,
-                     backends=tuple(backends), device=device)
+    rows = lane_rows_for(struct.n_nodes, n_lanes)
+    off = np.repeat(np.arange(n_lanes, dtype=np.int64) * rows,
+                    struct.n_edges)
+    return make_plan(np.tile(struct.senders, n_lanes) + off,
+                     np.tile(struct.receivers, n_lanes) + off,
+                     n_lanes * rows, backends=tuple(backends),
+                     lanes=n_lanes, lane_rows=rows,
+                     lane_nodes=struct.n_nodes, device=device)
 
 
-_BUCKET_PLANS = StepCache(_build_bucket_plan, maxsize=32)
+_BUCKET_PLANS = StepCache(_build_bucket_plan, maxsize=64)
 
 
 def bucket_plan(struct: BucketStructure, backend: str, need_ell: bool,
-                device: torch.device):
+                device: torch.device, n_lanes: int = 1):
     """Host aggregation plan for a bucket's static edge structure on
     ``device``, all edges valid (per-request validity flows in via
     ``plan_with_values``).  ``need_ell``: the arch aggregates scalar edge
     values through ``aggregate``, which on ``cuda``/``cuda_q8`` reads the
     dedup-chunk layout; the geometric family only ``accumulate``s vector
     messages (the chunked schedule on every executor), so its plans hold
-    the COO section alone."""
+    the COO section alone.
+
+    ``n_lanes`` > 1 stacks the bucket block-diagonally for a cluster
+    round: lane l's nodes sit at rows ``[l·lane_rows, l·lane_rows + n)``
+    (``lane_rows_for``), its edges are the bucket's shifted by
+    ``l·lane_rows``, edge order lane by lane.  With the lanes aligned to
+    whole output blocks, each lane's dedup chunks are the single-lane
+    plan's, shifted, so each lane's aggregation is the single-lane plan's
+    bit for bit (and int8 quantizes lane by lane, with the plan's
+    ``lanes``).  One cache for every lane count, keyed by it."""
     return _BUCKET_PLANS.get((struct.n_seeds, struct.fanouts,
                               struct.with_loops, backend, bool(need_ell),
-                              device))
+                              int(n_lanes), device))
 
 
 def bucket_plan_cache_info() -> dict:
     """Process-wide bucket-plan cache counters (builds/hits/size)."""
     return _BUCKET_PLANS.info()
+
+
+def dispatch_annotation(label: str):
+    """Opt-in ``torch.profiler`` annotation around a lane dispatch: a
+    context manager that names the dispatch window in a profiler trace.
+    Never on by default: the annotation itself costs a record per
+    round."""
+    return torch.profiler.record_function(label)
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +220,6 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
     family's energies).  ``node_ids``/``hop_valid`` may be numpy arrays or
     tensors; everything else (structure, plans, store) is closed over."""
     arch = _arch_key(arch_id)
-    if arch == "gcn" and not struct.with_loops:
-        raise ValueError("gcn serving needs with_loops=True structure "
-                         "(A + I normalization)")
     if arch in CONV_ARCHS and store.x is None:
         raise ValueError(f"{arch} serving needs FeatureStore.x")
     if arch in GEOM_ARCHS and (store.species is None or store.pos is None):
@@ -188,7 +227,19 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
     dev = store.device
     n = struct.n_nodes
     k = struct.n_seeds
-    plan0 = bucket_plan(struct, backend, arch in CONV_ARCHS, dev)
+
+    if arch in CONV_ARCHS:
+        # one lane of the cluster's round: fetch, then the lane body
+        body = _lane_body(arch_id, cfg, struct, backend)
+        fetch = build_fetch_step(store)
+
+        def step(params, node_ids, hop_valid):
+            node_ids = host_to_device(node_ids, dev)[None]
+            hop_valid = host_to_device(hop_valid, dev)[None]
+            return body(params, fetch(node_ids), node_ids, hop_valid)[0]
+        return step
+
+    plan0 = bucket_plan(struct, backend, False, dev)
 
     def edge_validity(node_ids, hop_valid):
         if struct.with_loops:
@@ -198,56 +249,32 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
     def t(a):
         return torch.from_numpy(a.astype(np.int64)).to(dev)
 
-    if arch == "gcn":
-        from repro_torch.models.gnn import gcn as m
-        senders, receivers = t(struct.senders), t(struct.receivers)
+    # the geometric family
+    import importlib
+    m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+    graph_ids = torch.arange(n, device=dev)
+    # dimenet's triplet plan, all triplets valid: per request only its
+    # validity changes (the reference builds the same COO plan inline
+    # each step; kept here, its sums' orders are built once)
+    t_in, t_out = t(struct.t_in), t(struct.t_out)
+    pt0 = edge_plan(t_in, t_out, struct.n_edges)
 
-        def forward(params, node_ids, ev):
-            x = store.x.index_select(0, store.row_index(node_ids))
-            # symmetric normalization on the sampled subgraph: in-degree
-            # over valid edges, self loops included
-            deg = torch.zeros(n, device=dev).index_add_(
-                0, receivers, ev.to(torch.float32))
-            dinv = torch.rsqrt(deg.clamp_min(1.0))
-            pl = plan_with_values(plan0, edge_weight=dinv[senders]
-                                  * dinv[receivers], edge_valid=ev)
-            return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
-    elif arch in CONV_ARCHS:
-        # the unweighted conv family: one shared closure, the model module
-        # is the only thing that differs (validity flows in as plan values)
-        import importlib
-        m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
-
-        def forward(params, node_ids, ev):
-            x = store.x.index_select(0, store.row_index(node_ids))
-            pl = plan_with_values(plan0, edge_valid=ev)
-            return m.forward(params, cfg, x, backend=backend, plan=pl)[:k]
-    else:
-        import importlib
-        m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
-        graph_ids = torch.arange(n, device=dev)
-        # dimenet's triplet plan, all triplets valid: per request only its
-        # validity changes (the reference builds the same COO plan inline
-        # each step; kept here, its sums' orders are built once)
-        t_in, t_out = t(struct.t_in), t(struct.t_out)
-        pt0 = edge_plan(t_in, t_out, struct.n_edges)
-
-        def forward(params, node_ids, ev):
-            idx = store.row_index(node_ids)
-            species = store.species.index_select(0, idx)
-            pos = store.pos.index_select(0, idx)
-            pl = plan_with_values(plan0, edge_valid=ev)
-            if arch == "schnet":
-                e = m.forward(params, cfg, species, pos, graph_ids=graph_ids,
-                              n_graphs=n, backend=backend, plan=pl)
-            else:
-                tv = ev.index_select(0, t_in) & ev.index_select(0, t_out)
-                e = m.forward(params, cfg, species, pos,
-                              graph_ids=graph_ids, n_graphs=n,
-                              backend=backend, plan=pl,
-                              triplet_plan=plan_with_values(pt0,
-                                                            edge_valid=tv))
-            return e[:k, None]
+    def forward(params, node_ids, ev):
+        idx = store.row_index(node_ids)
+        species = store.species.index_select(0, idx)
+        pos = store.pos.index_select(0, idx)
+        pl = plan_with_values(plan0, edge_valid=ev)
+        if arch == "schnet":
+            e = m.forward(params, cfg, species, pos, graph_ids=graph_ids,
+                          n_graphs=n, backend=backend, plan=pl)
+        else:
+            tv = ev.index_select(0, t_in) & ev.index_select(0, t_out)
+            e = m.forward(params, cfg, species, pos,
+                          graph_ids=graph_ids, n_graphs=n,
+                          backend=backend, plan=pl,
+                          triplet_plan=plan_with_values(pt0,
+                                                        edge_valid=tv))
+        return e[:k, None]
 
     def step(params, node_ids, hop_valid):
         node_ids = host_to_device(node_ids, dev)
@@ -257,3 +284,104 @@ def build_infer_step(arch_id: str, cfg, store: FeatureStore,
                            edge_validity(node_ids, hop_valid))
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Cluster steps — lane-stacked variants for the scale-out tier
+# ---------------------------------------------------------------------------
+#
+# The cluster splits feature *fetch* from the model *step*: the fetch
+# gathers every lane's rows off the resident table, the step runs the
+# lanes' round.  The reference maps one lane's body over the lanes
+# (``jax.vmap``) into one dispatch; the port's kernels take no batch axis,
+# so a round is one forward over the block-diagonal stack of the lanes'
+# bucket plans instead, which launches each aggregation kernel once for
+# all lanes.
+
+def _lane_body(arch_id: str, cfg, struct: BucketStructure,
+               backend: str) -> Callable:
+    """``body(params, x, node_ids, hop_valid) -> (L, k, d_out)`` — one
+    round of ``L`` lanes with features already fetched: ``x (L, n, d)``,
+    ``node_ids (L, n)``, ``hop_valid (L, E)`` (numpy or tensors).  Conv
+    family only: the geometric family's species/pos stores stay
+    single-lane, as in the reference."""
+    arch = _arch_key(arch_id)
+    if arch not in CONV_ARCHS:
+        raise ValueError(f"cluster serving covers the conv family "
+                         f"{CONV_ARCHS}; {arch!r} is single-device only")
+    if arch == "gcn" and not struct.with_loops:
+        raise ValueError("gcn serving needs with_loops=True structure "
+                         "(A + I normalization)")
+    import importlib
+    m = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+    n = struct.n_nodes
+    k = struct.n_seeds
+
+    def body(params, x, node_ids, hop_valid):
+        dev = x.device
+        node_ids = host_to_device(node_ids, dev)
+        hop_valid = host_to_device(hop_valid, dev)
+        n_lanes = node_ids.shape[0]
+        plan0 = bucket_plan(struct, backend, True, dev, n_lanes)
+        rows = plan0.lane_rows or n
+        if struct.with_loops:
+            ev = torch.cat([hop_valid, node_ids >= 0], dim=1)
+        else:
+            ev = hop_valid
+        ev = ev.reshape(-1)
+        if rows != n:               # each lane padded to whole blocks
+            x = torch.nn.functional.pad(x, (0, 0, 0, rows - n))
+        xs = x.reshape(n_lanes * rows, x.shape[-1])
+        with torch.no_grad():
+            if arch == "gcn":
+                # symmetric normalization on each lane's sampled subgraph:
+                # in-degree over valid edges, self loops included
+                deg = torch.zeros(n_lanes * rows, device=dev).index_add_(
+                    0, plan0.rows, ev.to(torch.float32))
+                dinv = torch.rsqrt(deg.clamp_min(1.0))
+                pl = plan_with_values(
+                    plan0, edge_weight=dinv[plan0.cols] * dinv[plan0.rows],
+                    edge_valid=ev)
+            else:
+                pl = plan_with_values(plan0, edge_valid=ev)
+            out = m.forward(params, cfg, xs, backend=backend, plan=pl)
+        return out.reshape(n_lanes, rows, -1)[:, :k]
+
+    return body
+
+
+def build_lane_infer_step(arch_id: str, cfg, struct: BucketStructure,
+                          backend: str = "dense", *,
+                          placement: str = "stacked") -> Callable:
+    """``step(params, x, node_ids, hop_valid) -> (L, k, d_out)`` over
+    lane-stacked inputs ``x (L, n, d)`` / ``node_ids (L, n)`` /
+    ``hop_valid (L, E)`` on ``x``'s device.
+
+    ``placement="stacked"`` runs the lanes as ONE forward over the
+    block-diagonal stack of their bucket plans (``bucket_plan`` with
+    ``n_lanes``, built on first use per lane count): per-dispatch
+    overhead is paid once per round, not once per lane.  ``placement="mesh"`` (the lanes on a
+    mesh of devices) needs the distributed executor of ``ROADMAP.md`` A7
+    and raises."""
+    if placement == "mesh":
+        raise NotImplementedError(
+            "placement='mesh' (one lane a device) needs the distributed "
+            "executor, ROADMAP.md A7; use placement='stacked'")
+    if placement != "stacked":
+        raise ValueError(f"unknown placement {placement!r}; "
+                         "have ('stacked', 'mesh')")
+    return _lane_body(arch_id, cfg, struct, backend)
+
+
+def build_fetch_step(store: FeatureStore) -> Callable:
+    """Replicated-residency feature fetch: ``(node_ids (L, n)) -> x (L, n,
+    d)`` straight off the resident table on the store's device (ghost row
+    for padding lanes)."""
+    dev = store.device
+
+    def fetch(node_ids):
+        node_ids = host_to_device(node_ids, dev)
+        rows = store.row_index(node_ids).reshape(-1)
+        return store.x.index_select(0, rows).reshape(
+            node_ids.shape + (store.x.shape[1],))
+    return fetch

@@ -79,9 +79,10 @@ def default_tree_keys(rid: int, n: int) -> np.ndarray:
 
 
 class SamplerPool:
-    """Data-plane worker pool: samples each submitted request's fanout trees
-    on daemon threads, draining whatever else is queued into one vectorized
-    forest pass (counter-based draws make grouped sampling identical to
+    """Data-plane worker pool shared by the single-lane server and the
+    cluster tier: samples each submitted request's fanout trees on daemon
+    threads, draining whatever else is queued into one vectorized forest
+    pass (counter-based draws make grouped sampling identical to
     per-request sampling), then hands the request to ``on_ready``.  A
     failing request is isolated and reported through ``on_error``.
     ``fault_hook`` (chaos) is called with each request before sampling; a
@@ -91,37 +92,87 @@ class SamplerPool:
                  fanouts: Sequence[int], key: int, *,
                  on_ready, on_error, n_workers: int = 2,
                  group_cap: int = 64, fault_hook=None):
-        self.indptr = np.asarray(indptr)
-        self.indices = np.asarray(indices)
+        # the resident CSR lives in ONE tuple so a graph swap is a single
+        # reference flip: a worker snapshots it once per group and never
+        # sees a torn (new indptr, old indices) pair
+        self._graph = (np.asarray(indptr), np.asarray(indices), 0)
         self.fanouts = tuple(int(f) for f in fanouts)
         self.key = key
         self.on_ready = on_ready
         self.on_error = on_error
         self.fault_hook = fault_hook
         self.group_cap = int(group_cap)
-        self._q: "queue.Queue[Optional[ServeRequest]]" = queue.Queue()
+        self._q: "queue.Queue" = queue.Queue()
         self._workers = [threading.Thread(target=self._worker, daemon=True,
                                           name=f"gnn-serve-sampler-{i}")
                          for i in range(max(int(n_workers), 1))]
         for w in self._workers:
             w.start()
 
+    @property
+    def indptr(self) -> np.ndarray:
+        return self._graph[0]
+
+    @indptr.setter
+    def indptr(self, value):
+        self._graph = (value,) + self._graph[1:]
+
+    @property
+    def indices(self) -> np.ndarray:
+        return self._graph[1]
+
+    @indices.setter
+    def indices(self, value):
+        self._graph = (self._graph[0], value, self._graph[2])
+
+    @property
+    def graph_epoch(self) -> int:
+        return self._graph[2]
+
+    def set_graph(self, indptr: np.ndarray, indices: np.ndarray,
+                  epoch: Optional[int] = None) -> int:
+        """Swap the resident CSR in one reference flip.  Groups already
+        snapshotted keep sampling the old arrays; every later group sees
+        the new graph whole.  Returns the new graph epoch."""
+        epoch = self._graph[2] + 1 if epoch is None else int(epoch)
+        self._graph = (np.asarray(indptr), np.asarray(indices), epoch)
+        return epoch
+
     def submit(self, req: ServeRequest):
         self._q.put(req)
+
+    def submit_block(self, reqs: Sequence[ServeRequest]):
+        """Enqueue a pre-formed block as ONE queue item: a worker folds the
+        whole block into one vectorized forest pass (the bulk-ingest path,
+        where per-item queue overhead would dominate a burst)."""
+        if reqs:
+            self._q.put(list(reqs))
+
+    def sample_for(self, seeds, rid: int) -> list:
+        """The pool's sampling, re-runnable offline (parity anchor)."""
+        seeds = np.atleast_1d(np.asarray(seeds, np.int64))
+        indptr, indices, _ = self._graph
+        return sampler.sample_forest(indptr, indices, seeds, self.fanouts,
+                                     key=self.key,
+                                     tree_keys=default_tree_keys(
+                                         rid, seeds.shape[0]))
 
     def _sample_group(self, group):
         if self.fault_hook is not None:
             for r in group:
                 self.fault_hook(r)
+        # one snapshot per group: every request in it samples one epoch
+        indptr, indices, epoch = self._graph
         seeds_all = np.concatenate([r.seeds for r in group])
         keys = np.concatenate([default_tree_keys(r.rid, r.n_seeds)
                                for r in group])
-        trees = sampler.sample_forest(self.indptr, self.indices, seeds_all,
+        trees = sampler.sample_forest(indptr, indices, seeds_all,
                                       self.fanouts, key=self.key,
                                       tree_keys=keys)
         i = 0
         for req in group:                     # assign everything first so a
             req.trees = trees[i:i + req.n_seeds]  # failure submits nothing
+            req.graph_epoch = epoch
             i += req.n_seeds
         for req in group:
             self.on_ready(req)
@@ -136,10 +187,10 @@ class SamplerPool:
 
     def _worker(self):
         while True:
-            req = self._q.get()
-            if req is None:
+            item = self._q.get()
+            if item is None:
                 return
-            group = [req]
+            group = list(item) if isinstance(item, list) else [item]
             while len(group) < self.group_cap:
                 try:
                     nxt = self._q.get_nowait()
@@ -148,7 +199,10 @@ class SamplerPool:
                 if nxt is None:           # shutdown sentinel: hand it back
                     self._q.put(None)
                     break
-                group.append(nxt)
+                if isinstance(nxt, list):
+                    group.extend(nxt)
+                else:
+                    group.append(nxt)
             try:
                 self._sample_group(group)
             except Exception:  # noqa: BLE001 — isolate the bad request(s);
@@ -169,7 +223,9 @@ class SamplerPool:
                 item = self._q.get_nowait()
             except queue.Empty:
                 break
-            if item is not None:
+            if isinstance(item, list):
+                leftovers.extend(item)
+            elif item is not None:
                 leftovers.append(item)
         if leftovers:
             self._sample_isolated(leftovers)

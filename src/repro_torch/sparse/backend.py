@@ -287,22 +287,30 @@ def _cuda_q8_aggregate(plan, vals, x):
                 "run under torch.no_grad()")
         dt = dt or auto_d_tile(x.q8.shape[1])
         d_tiles = -(-x.q8.shape[1] // dt)
-        if x.scale.shape[0] != d_tiles:
+        if x.scale.shape[-1] != d_tiles:
             raise ValueError(
-                f"QuantizedFeatures carries {x.scale.shape[0]} feature-tile "
+                f"QuantizedFeatures carries {x.scale.shape[-1]} feature-tile "
                 f"scales but the plan's kernel uses d_tile={dt} "
                 f"({d_tiles} tiles) — re-quantize with the plan's d_tile")
-        y = spmm_dedup_chunks_q8(plan.ell_u_cols, plan.ell_remaining,
-                                 plan.ell_block_ptr, a_q8, a_scale,
-                                 x.q8.contiguous(), x.scale,
-                                 block_rows=plan.block_rows, q_tile=dt)
+        if x.scale.shape[:-1] != ((plan.lanes,) if plan.lanes > 1 else ()):
+            raise ValueError(
+                f"QuantizedFeatures carries scales of shape "
+                f"{tuple(x.scale.shape)} for a plan of {plan.lanes} lanes — "
+                "quantize lane by lane (quantize_feature_tiles' lanes)")
+        y = spmm_dedup_chunks_q8(
+            plan.ell_u_cols, plan.ell_remaining, plan.ell_block_ptr, a_q8,
+            a_scale, x.q8.contiguous(), x.scale, block_rows=plan.block_rows,
+            q_tile=dt)
         return y[: plan.n_rows]
-    # X quantizes per feature tile inside the op, with the kernel's tile
+    # X quantizes per feature tile inside the op, with the kernel's tile,
+    # lane by lane on a plan of stacked serving lanes
     y = spmm_dedup_grad_q8(plan.ell_u_cols, plan.ell_remaining,
                            plan.ell_block_ptr, plan.ell_out_block, a,
                            *_transpose_operands(plan, vals, x),
                            x.contiguous(), a_q8=a_q8, a_scale=a_scale,
-                           block_rows=plan.block_rows, q_tile=dt)
+                           block_rows=plan.block_rows, q_tile=dt,
+                           lanes=(plan.lanes, plan.lane_rows,
+                                  plan.lane_nodes))
     return y[: plan.n_rows]
 
 

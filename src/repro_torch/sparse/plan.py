@@ -53,6 +53,14 @@ class AggregationPlan:
     n_blocks: int = 0                # forward output blocks
     n_t_blocks: int = 0              # transpose output blocks
     ell_d_tile: Optional[int] = None  # int8 feature scale tile (None → auto)
+    # serving lanes stacked block-diagonally (``serve.compute.bucket_plan``
+    # with ``n_lanes``): lane l owns rows [l·lane_rows, (l+1)·lane_rows),
+    # its nodes the first ``lane_nodes`` of them, and no edge crosses
+    # lanes.  ``cuda_q8`` quantizes x lane by lane (one row of feature
+    # scales a lane).  Defaults: one lane over every row.
+    lanes: int = 1
+    lane_rows: Optional[int] = None   # None → n_rows
+    lane_nodes: Optional[int] = None  # None → lane_rows
 
     # --- COO section (always present) ---
     rows: Optional[torch.Tensor] = None       # (E,) int64 — receivers
@@ -198,6 +206,8 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
               backends: Sequence[str] = ("dense", "chunked"),
               chunk: int = 8192, block_rows: int = 8, width_cap: int = 128,
               width_multiple: int = 16, d_tile: Optional[int] = None,
+              lanes: int = 1, lane_rows: Optional[int] = None,
+              lane_nodes: Optional[int] = None,
               device: DeviceLike = None) -> AggregationPlan:
     """Host-side plan: precompute every layout in ``backends`` once and
     place it on ``device`` (default ``cuda``).
@@ -205,7 +215,11 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     Only valid edges enter the dedup-chunk layouts; invalid (padding)
     edges get an out-of-bounds scatter slot, so values on padding lanes are
     dropped by construction.  ``d_tile`` is the int8 feature scale tile
-    of ``cuda_q8`` (``None``: ``auto_d_tile(D)`` per call).
+    of ``cuda_q8`` (``None``: ``auto_d_tile(D)`` per call).  ``lanes`` >
+    1 declares a block-diagonal stack of serving lanes (the plan's
+    ``lanes``/``lane_rows``/``lane_nodes``): ``n_rows`` must be ``lanes ·
+    lane_rows``, ``lane_rows`` a multiple of ``block_rows`` (so every
+    output block lies in one lane) and no edge may cross lanes.
     """
     for b in backends:
         if b not in ALL_BACKENDS:
@@ -213,6 +227,18 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     dev = resolve_device(device)
     s = np.asarray(senders, np.int32)
     r = np.asarray(receivers, np.int32)
+    if lanes > 1:
+        lane_rows = int(lane_rows)
+        lane_nodes = lane_rows if lane_nodes is None else int(lane_nodes)
+        if (lanes * lane_rows != int(n_rows) or lane_rows % block_rows
+                or not 0 < lane_nodes <= lane_rows):
+            raise ValueError(
+                f"{lanes} lanes of {lane_rows} rows ({lane_nodes} nodes "
+                f"each) do not tile {n_rows} rows in blocks of "
+                f"{block_rows}")
+        if (s.astype(np.int64) // lane_rows
+                != r.astype(np.int64) // lane_rows).any():
+            raise ValueError("an edge crosses serving lanes")
     e = s.shape[0]
     valid = (np.ones(e, bool) if edge_valid is None
              else np.asarray(edge_valid, bool))
@@ -227,6 +253,9 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     kw = dict(n_rows=int(n_rows), chunk=chunk,
               rows=t(r.astype(np.int64)), cols=t(s.astype(np.int64)),
               valid=t(valid), base_vals=t(base))
+    if lanes > 1:
+        kw.update(lanes=int(lanes), lane_rows=lane_rows,
+                  lane_nodes=lane_nodes)
 
     if "cuda" in backends or "cuda_q8" in backends:
         from repro_torch.sparse.graph import pack_dedup_chunks

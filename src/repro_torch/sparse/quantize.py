@@ -33,7 +33,7 @@ concrete values are recorded at plan-build time only (``record_q8_stats``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,22 +116,41 @@ def quantize_chunk_entries(vals: torch.Tensor, chunk: torch.Tensor,
     return _round_clip(vals / scale[chunk.to(torch.int64)]), scale
 
 
-def quantize_feature_tiles(x: torch.Tensor, d_tile: int
+def quantize_feature_tiles(x: torch.Tensor, d_tile: int, lanes: int = 1,
+                           lane_rows: Optional[int] = None,
+                           lane_nodes: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-feature-tile symmetric int8 quantization of ``x (N, D)``.
 
     One scale per ``d_tile``-wide column block.  Returns ``(x_q8 (N, D)
-    int8, scale (ceil(D/d_tile),) f32)``."""
+    int8, scale (ceil(D/d_tile),) f32)``.
+
+    With ``lanes`` > 1, ``x`` is a stack of serving lanes of ``lane_rows``
+    rows each (an ``AggregationPlan``'s lanes): every lane gets its own
+    scales from its first ``lane_nodes`` rows (default all), as the
+    reference quantizes each lane of its vmapped step alone, and ``scale``
+    is ``(lanes, ceil(D/d_tile))``.  The padding rows past ``lane_nodes``
+    quantize with their lane's scales."""
     x = x.to(torch.float32)
     n, d = x.shape
     d_tile = int(d_tile)
     pad = (-d) % d_tile
     xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
     d_tiles = (d + pad) // d_tile
-    blocks = xp.reshape(n, d_tiles, d_tile)
-    scale = _safe_scale(blocks.abs().amax(dim=(0, 2)))
-    per_col = torch.repeat_interleave(scale, d_tile)[:d]
-    return _round_clip(x / per_col[None, :]), scale
+    if lanes == 1:
+        blocks = xp.reshape(n, d_tiles, d_tile)
+        scale = _safe_scale(blocks.abs().amax(dim=(0, 2)))
+        per_col = torch.repeat_interleave(scale, d_tile)[:d]
+        return _round_clip(x / per_col[None, :]), scale
+    lane_rows = int(lane_rows)
+    live = lane_rows if lane_nodes is None else int(lane_nodes)
+    if lanes * lane_rows != n:
+        raise ValueError(f"{lanes} lanes of {lane_rows} rows for {n} rows")
+    blocks = xp.reshape(lanes, lane_rows, d_tiles, d_tile)[:, :live]
+    scale = _safe_scale(blocks.abs().amax(dim=(1, 3)))
+    per_col = torch.repeat_interleave(scale, d_tile, dim=1)[:, :d]
+    q8 = _round_clip(x.reshape(lanes, lane_rows, d) / per_col[:, None, :])
+    return q8.reshape(n, d), scale
 
 
 def record_q8_stats(scale: torch.Tensor) -> None:

@@ -1476,3 +1476,131 @@ def test_dlrm_training_step_bitwise_run_to_run(cuda):
         assert torch.equal(u, v)
     for u, w in zip(a[:2], cpu[:2]):
         assert abs(float(u) - float(w)) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the cluster's lane-stacked round: B1 on the stacked plan, lane-scaled B4
+# ---------------------------------------------------------------------------
+
+def _lane_case(cuda, backend, n_lanes, d, bucket=4, seed=0):
+    """A stack of ``n_lanes`` bucket plans re-valued with each lane's own
+    weights and validity, its x with the lanes at very different
+    magnitudes, and each lane's single-lane plan and x."""
+    from repro_torch.serve import compute as tcompute
+    from repro_torch.serve.buckets import build_bucket_structure
+    from repro_torch.sparse.plan import plan_with_values
+    struct = build_bucket_structure(bucket, (5, 3), with_loops=True)
+    pl = tcompute.bucket_plan(struct, backend, True, cuda, n_lanes)
+    p1 = tcompute.bucket_plan(struct, backend, True, cuda)
+    rng = np.random.default_rng(seed)
+    n, rows = struct.n_nodes, pl.lane_rows or struct.n_nodes
+    lanes = []
+    x = torch.zeros(n_lanes * rows, d, device=cuda)
+    for lane in range(n_lanes):
+        w = torch.from_numpy(rng.uniform(0.1, 1, struct.n_edges).astype(
+            np.float32)).to(cuda)
+        v = torch.from_numpy(rng.random(struct.n_edges) < 0.8).to(cuda)
+        xl = torch.from_numpy((rng.normal(size=(n, d)) * 4.0 ** lane).astype(
+            np.float32)).to(cuda)
+        x[lane * rows:lane * rows + n] = xl
+        lanes.append((plan_with_values(p1, edge_weight=w, edge_valid=v), xl,
+                      w, v))
+    pl = plan_with_values(pl, edge_weight=torch.cat([c[2] for c in lanes]),
+                          edge_valid=torch.cat([c[3] for c in lanes]))
+    return pl, x, lanes, n, rows
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2, 4])
+@pytest.mark.parametrize("d", [7, 16, 1433])
+def test_stacked_b1_plan_bitwise_per_lane(cuda, n_lanes, d):
+    pl, x, lanes, n, rows = _lane_case(cuda, "cuda", n_lanes, d)
+    args = (pl.ell_u_cols, pl.ell_remaining, pl.ell_block_ptr, pl.ell_a, x)
+    y = spmm_dedup_chunks(*args, block_rows=8)
+    torch.cuda.synchronize()
+    assert float((y - spmm_dedup_chunks_plain(*args, block_rows=8)).abs()
+                 .max()) <= 1e-5 * max(1.0, float(x.abs().max()))
+    assert torch.equal(y, spmm_dedup_chunks(*args, block_rows=8))
+    for lane, (p1, xl, _, _) in enumerate(lanes):
+        y1 = spmm_dedup_chunks(p1.ell_u_cols, p1.ell_remaining,
+                               p1.ell_block_ptr, p1.ell_a, xl, block_rows=8)
+        assert torch.equal(y[lane * rows:lane * rows + n], y1[:n]), lane
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2, 4])
+@pytest.mark.parametrize("d", [7, 16, 1433])
+def test_lane_scaled_b4_bitwise_plain_and_per_lane(cuda, n_lanes, d):
+    pl, x, lanes, n, rows = _lane_case(cuda, "cuda_q8", n_lanes, d)
+    qt = auto_d_tile(d)
+    x_q8, x_scale = qz.quantize_feature_tiles(x, qt, n_lanes, rows, n)
+    args = (pl.ell_u_cols, pl.ell_remaining, pl.ell_block_ptr, pl.ell_a_q8,
+            pl.ell_a_scale, x_q8, x_scale)
+    before = (spmm_dedup_chunks_q8.launches,
+              spmm_dedup_chunks_q8.launches_lanes)
+    y = spmm_dedup_chunks_q8(*args, block_rows=8, q_tile=qt)
+    assert (spmm_dedup_chunks_q8.launches,
+            spmm_dedup_chunks_q8.launches_lanes) == (
+        before[0] + 1, before[1] + (n_lanes > 1))
+    assert torch.equal(y, spmm_dedup_chunks_q8_plain(*args, block_rows=8,
+                                                     q_tile=qt))
+    assert torch.equal(y, spmm_dedup_chunks_q8(*args, block_rows=8,
+                                               q_tile=qt))
+    for lane, (p1, xl, _, _) in enumerate(lanes):
+        q, s = qz.quantize_feature_tiles(xl, qt)
+        y1 = spmm_dedup_chunks_q8(p1.ell_u_cols, p1.ell_remaining,
+                                  p1.ell_block_ptr, p1.ell_a_q8,
+                                  p1.ell_a_scale, q, s, block_rows=8,
+                                  q_tile=qt)
+        assert torch.equal(y[lane * rows:lane * rows + n], y1[:n]), lane
+    # the executor on the stacked plan quantizes lane by lane the same way
+    got = sb.aggregate(pl, None, x, backend="cuda_q8")
+    assert torch.equal(got, y[:pl.n_rows])
+
+
+@pytest.mark.parametrize("d", [7, 16, 600])
+def test_b4_one_lane_path_unchanged(cuda, d):
+    """One row of lane scales over every block is the 1-D call, bit for
+    bit, and both equal the plain version."""
+    u, rem, ptr, a, sa, x, sx = _q8_args(300, 2000, d, seed=d,
+                                         width_cap=128, dev=cuda)
+    qt = auto_d_tile(d)
+    want = spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x, sx, block_rows=8)
+    got = spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x, sx[None].contiguous(),
+                               block_rows=8)
+    assert torch.equal(got, want)
+    assert torch.equal(want, spmm_dedup_chunks_q8_plain(
+        u, rem, ptr, a, sa, x, sx, block_rows=8, q_tile=qt))
+    # three rows of scales do not split its 38 blocks into equal runs
+    assert (ptr.shape[0] - 1) % 3
+    with pytest.raises(ValueError, match="equal runs"):
+        spmm_dedup_chunks_q8(u, rem, ptr, a, sa, x,
+                             sx[None].repeat(3, 1).contiguous(),
+                             block_rows=8)
+
+
+@pytest.mark.parametrize("backend,kernel", [("cuda", "spmm_dedup_chunks"),
+                                            ("cuda_q8",
+                                             "spmm_dedup_chunks_q8")])
+def test_lane_step_launches_one_kernel_a_layer_for_all_lanes(cuda, backend,
+                                                             kernel):
+    from repro_torch.launch.gnn_serve import build_world
+    from repro_torch.serve import compute as tcompute
+    from repro_torch.serve.buckets import build_bucket_structure
+    cfg, params, indptr, indices, store = build_world(256, 1024, 16, 0,
+                                                      cuda)
+    struct = build_bucket_structure(4, (3, 2), with_loops=True)
+    step = tcompute.build_lane_infer_step("gcn", cfg, struct,
+                                          backend=backend)
+    fetch = tcompute.build_fetch_step(store)
+    counter = {"spmm_dedup_chunks": spmm_dedup_chunks,
+               "spmm_dedup_chunks_q8": spmm_dedup_chunks_q8}[kernel]
+    for n_lanes in (1, 4):
+        node_ids = np.random.default_rng(n_lanes).integers(
+            -1, 256, (n_lanes, struct.n_nodes))
+        hop_valid = node_ids[:, :struct.n_hop_edges] >= 0
+        x = fetch(node_ids)
+        step(params, x, node_ids, hop_valid)          # builds the plan
+        before = counter.launches
+        out = step(params, x, node_ids, hop_valid)
+        torch.cuda.synchronize()
+        assert out.shape == (n_lanes, 4, cfg.n_classes)
+        assert counter.launches - before == cfg.n_layers
