@@ -264,12 +264,51 @@ Phases, each of which raises (exit code 1) on any failure:
     at max batch 64 (the seeds of a 4-lane round in one step) on the same
     1,024 requests (host sampler) in turns, 3 bursts each, and one warm
     bucket-16 round (fetch and stacked step) traced beside one
-    single-lane step.
+    single-lane step;
+19. live mutation — first ``sparse.delta.DeltaGraphState`` over Cora's
+    graph (sym-normed, self loops), the reference's ``delta_repack``
+    world (4,096 nodes, 60,000 edges, seed 0) and phase 6's Pubmed-scale
+    graph: 6 epochs of 48 inserts and 16 deletes, after each flush both
+    layouts bitwise the cold pack's and the incremental plan on the card
+    equal to the cold ``plan_from_graph`` on every field (the port's
+    ``*_block_ptr``, tile-scatter layers and int8 bake included); then B1
+    and B4 on the last incremental plan (Cora D = 16 and 1433, D = 64,
+    Pubmed D = 500) bitwise the cold plan's call and against their plain
+    versions (B1 ≤1e-5, B4 bitwise), timed beside the cold plan's call, the
+    plain version and ``torch.sparse.mm`` on the mutated CSR, with the
+    bound; the incremental and cold re-pack's host seconds
+    (``delta_repack_speedup``, the reference's bench gates ≥3× at
+    4,096/60,000); gcn-cora at full width through the incremental Cora
+    plan on ``cuda`` and ``cuda_q8``, bitwise the cold plan's forward;
+    then the mutation drill on ``cuda`` and ``cuda_q8``: a 4-lane
+    ``ClusterServer`` (phase 18's) traced, with ``/metrics`` on an
+    ephemeral port and the flight recorder in a temporary directory, 3
+    cycles of 256 requests, ``hot_swap`` onto checkpoint k (the weights ×
+    (1 + 0.01k), the port's store) while they are in flight, 96 inserts
+    and 24 deletes of original edges through a ``GraphStream``
+    (``parity_every=1``) and its flush, 256 more requests; counted: every
+    request settled once on one version in [0, 3], old versions drained,
+    every flush parity-proven, ≥2 graph epochs served, no step or plan
+    built, 2 B1 (B4) launches a round and a shadow warm-up, every
+    blackout finite, 3 ``params_swap`` and 3 ``graph_flush`` events
+    recorded, 64 requests on the last version and epoch equal to offline
+    replay (≤1e-5, ``Q8_E2E_TOL`` for int8) and up to 16 of each version
+    replayed on their own trees with that version's weights; on ``cuda``
+    the abort paths (a torn checkpoint, a tree of the wrong shape, an
+    absent edge's delete), each leaving the version and graph as they
+    were with a following burst of 64 equal to replay, and 64 feature
+    rows re-homed, then 64 requests replayed on the patched store;
+    NeuraScope's check and summary on each recorder and its HTML report
+    (byte size printed); readings: validate, warm and blackout a swap,
+    repack and staleness a flush (and a restore and a flush on the idle
+    server), how long the engine left ready requests waiting inside the
+    swaps and the mutation windows, req/s and p50/p99 under mutation.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
 12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
-forward and phases 17 and 18's servers) and read just
+forward, phases 17 and 18's servers, phase 19's forwards and drills) and
+read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -282,16 +321,20 @@ captured) and ``sampled_addmm`` run eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -4116,6 +4159,493 @@ def phase_cluster(dev, params, indptr, indices, store):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19 — live mutation
+# ---------------------------------------------------------------------------
+
+DELTA_EPOCHS = 6                  # cluster_bench.bench_delta_repack's batch
+DELTA_INSERTS, DELTA_DELETES = 48, 16
+LIVE_SWAPS = 3
+LIVE_BURST = 256                  # requests before and after each flip
+LIVE_STREAM = (96, 24)            # inserts, deletes of original edges a cycle
+LIVE_ABORT_BURST = 64
+
+
+def delta_worlds():
+    """(name, senders, receivers, nodes, weights, widths, mutation rng) of
+    phase 19's graphs: Cora's graph as phase 2's cora_full plan holds it
+    (sym-normed, self loops), the reference's ``delta_repack`` world
+    (``benchmarks/cluster_bench.py:756``: 4,096 nodes, 60,000 unit edges,
+    its mutations drawn from the same generator) and phase 6's
+    Pubmed-scale graph with seeded weights."""
+    from repro_torch.data.synthetic import cora_like, powerlaw_graph
+    from repro_torch.sparse.graph import sym_norm_weights
+    s, r, _, _, _ = cora_like(seed=0)
+    s2, r2, wn = sym_norm_weights(s, r, 2708)
+    rng = np.random.default_rng(0)
+    s4 = rng.integers(0, 4096, 60_000)
+    r4 = rng.integers(0, 4096, 60_000)
+    sp, rp = powerlaw_graph(19717, 88648 + 2000, alpha=1.6, seed=0)
+    return [("cora", s2, r2, 2708, wn, (16, 1433),
+             np.random.default_rng(19)),
+            ("n4096_e60000", s4, r4, 4096, None, (64,), rng),
+            ("pubmed_scale", sp[:88648], rp[:88648], 19717,
+             np.random.default_rng(2).uniform(0.1, 1.0, 88648).astype(
+                 np.float32), (500,), np.random.default_rng(20))]
+
+
+def delta_kernel_case(name, inc, cold, d, rng, q8):
+    """B1 (B4 with ``q8``) on the incremental plan at width ``d``: bitwise
+    the cold plan's call, against its plain version (B1 ≤1e-5, B4
+    bitwise), timed beside the cold plan's call, the plain version and
+    ``torch.sparse.mm`` on the mutated CSR (dequantized for B4)."""
+    from repro_torch.kernels.gustavson_spmm import (auto_d_tile,
+                                                    spmm_dedup_chunks,
+                                                    spmm_dedup_chunks_plain,
+                                                    spmm_dedup_chunks_q8,
+                                                    spmm_dedup_chunks_q8_plain)
+    from repro_torch.sparse import quantize as qz
+    n = inc.n_rows
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(
+        inc.device)
+    label = f"{'B4' if q8 else 'B1'} delta {name} D={d}"
+    if q8:
+        qt = auto_d_tile(d)
+        x_q8, x_scale = qz.quantize_feature_tiles(x, qt)
+
+        def call(p, kernel=spmm_dedup_chunks_q8):
+            return kernel(p.ell_u_cols, p.ell_remaining, p.ell_block_ptr,
+                          p.ell_a_q8, p.ell_a_scale, x_q8, x_scale,
+                          block_rows=8, q_tile=qt)
+        a_csr = dequantized_csr(inc, inc.ell_a_q8, inc.ell_a_scale)
+        x_lib = x_q8.float() * torch.repeat_interleave(x_scale, qt)[:d]
+        tol = 0.0
+    else:
+        def call(p, kernel=spmm_dedup_chunks):
+            return kernel(p.ell_u_cols, p.ell_remaining, p.ell_block_ptr,
+                          p.ell_a, x, block_rows=8)
+        a_csr, x_lib, tol = csr_of(inc, inc.base_vals), x, KERNEL_TOL
+    plain = functools.partial(call, kernel=(spmm_dedup_chunks_q8_plain if q8
+                                            else spmm_dedup_chunks_plain))
+    y = call(inc)
+    y_cold = call(cold)
+    y_plain = plain(inc)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+    check(torch.equal(y, y_cold), f"{label}: the incremental plan's output "
+                                  "is not the cold plan's bitwise")
+    err = float((y - y_plain).abs().max())
+    check(err <= tol, f"{label}: max|kernel-plain| {err:.3e} > {tol}")
+    del y_plain
+    lib_err = float((torch.sparse.mm(a_csr, x_lib)[:n] - y[:n]).abs().max())
+    check(lib_err <= EXECUTOR_TOL * max(1.0, float(x_lib.abs().max())),
+          f"{label}: kernel vs torch.sparse.mm {lib_err:.3e}")
+    rec = dict(shape=label, max_abs_err=err, vs_cold="bitwise",
+               ms=graph_ms(lambda: call(inc)),
+               cold_ms=graph_ms(lambda: call(cold)),
+               plain_ms=eager_ms(lambda: plain(inc), iters=10),
+               library_ms=graph_ms(lambda: torch.sparse.mm(a_csr, x_lib)))
+    bound, _, _ = spmm_bound(inc, d, y.numel(), q8=q8,
+                             x_scales=x_scale.numel() if q8 else 0)
+    rec.update(bound, bound_share=bound["bound_ms"] / rec["ms"])
+    say(f"{label.split()[0]} {json.dumps(rec)}")
+    return rec
+
+
+def delta_case(dev, name, s, r, n, w, dims, rng):
+    """``DeltaGraphState`` over one graph: ``DELTA_EPOCHS`` epochs of
+    ``DELTA_INSERTS`` inserts and ``DELTA_DELETES`` deletes, each flush's
+    two layouts bitwise the cold pack's and the whole plan on the card
+    (every field, the port's own included) equal to the cold plan's; then
+    B1 and B4 on the last incremental plan, and the host seconds of the
+    incremental re-pack against the cold one (``delta_repack_speedup``,
+    timed as the reference's bench times them)."""
+    from repro_torch.sparse.delta import (DeltaGraphError, DeltaGraphState,
+                                          chunks_match, plans_match)
+    backends = ("dense", "cuda", "cuda_q8")
+    d = DeltaGraphState(s, r, n, weights=w)
+    inc_s = cold_s = flush_s = 0.0
+    dirty = clean = 0
+    for _ in range(DELTA_EPOCHS):
+        for _ in range(DELTA_INSERTS):
+            d.insert_edge(int(rng.integers(0, n)), int(rng.integers(0, n)))
+        for _ in range(DELTA_DELETES):
+            k = int(rng.integers(0, d.n_edges))
+            try:
+                d.delete_edge(int(d._s[k]), int(d._r[k]))
+            except DeltaGraphError:
+                pass               # every copy of that edge already booked
+        t0 = time.perf_counter()
+        res = d.flush()
+        flush_s += time.perf_counter() - t0
+        dirty += res.dirty_blocks
+        clean += res.clean_blocks
+        t0 = time.perf_counter()
+        inc = d.repack()
+        inc_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = d.cold_repack()
+        cold_s += time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(d.csr(), cold[2])),
+              f"delta {name} epoch {res.epoch}: the CSR differs from the "
+              f"cold sort")
+        for side, a, b in zip(("forward", "transpose"), inc, cold[:2]):
+            ok, detail = chunks_match(a, b, tol=0.0)
+            check(ok, f"delta {name} epoch {res.epoch}: the {side} layout "
+                      f"differs from the cold pack ({detail})")
+        ok, detail = plans_match(d.plan(backends=backends, device=dev),
+                                 d.cold_plan(backends=backends, device=dev),
+                                 tol=0.0)
+        check(ok, f"delta {name} epoch {res.epoch}: the plan differs from "
+                  f"the cold plan ({detail})")
+    t0 = time.perf_counter()
+    p_inc = d.plan(backends=backends, device=dev)
+    torch.cuda.synchronize()
+    inc_plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_cold = d.cold_plan(backends=backends, device=dev)
+    torch.cuda.synchronize()
+    cold_plan_s = time.perf_counter() - t0
+    kernels = [delta_kernel_case(name, p_inc, p_cold, dd, rng, q8)
+               for q8 in (False, True) for dd in dims]
+    rec = dict(graph=name, n_nodes=n, n_edges=d.n_edges,
+               epochs=DELTA_EPOCHS, dirty_blocks=dirty, clean_blocks=clean,
+               plan_fields_held=len(detail), flush_s=flush_s,
+               incremental_repack_s=inc_s, cold_repack_s=cold_s,
+               delta_repack_speedup=cold_s / inc_s,
+               incremental_plan_s=inc_plan_s, cold_plan_s=cold_plan_s)
+    say(f"delta {json.dumps(rec)}")
+    return rec, kernels, p_inc, p_cold
+
+
+def replay_on_version(srv, reqs, params, tol) -> float:
+    """Largest |result − replay| of ``reqs`` through the single-lane
+    offline step with ``params``, each on the trees it was served on (no
+    re-sampling, so requests of an old epoch replay too)."""
+    from repro_torch.serve.buckets import stack_trees
+    step = srv._offline_steps.get((1,))
+    err = 0.0
+    for r in reqs:
+        out = np.concatenate([
+            step(params, *stack_trees([t], 1, srv.fanouts)).cpu().numpy()
+            for t in r.trees])
+        err = max(err, float(np.abs(out - r.result).max()))
+    check(err <= tol, f"replay on the request's own version {err:.3e} > "
+                      f"{tol}")
+    return err
+
+
+def pending_gaps_ms(srv, windows):
+    """How long the engine left ready work waiting, from the span records:
+    for each round, its dispatch minus the later of the previous round's
+    dispatch and the earliest ``queue_wait`` start among its requests (the
+    batcher's own ``max_wait_ms`` included).  Returns the median over the
+    rounds and, for each server-clock window (lo, hi), the largest such
+    wait that overlaps it (0 where no request waited inside it)."""
+    t0 = srv.tracer.t0
+    rounds = {}
+    for rec in srv.tracer.traces():
+        spans = {s["name"]: s for s in rec["spans"]}
+        if "dispatch" in spans and "queue_wait" in spans:
+            d = spans["dispatch"]
+            ready, end = rounds.get(d["round"], (float("inf"), d["t1"]))
+            rounds[d["round"]] = (min(ready, spans["queue_wait"]["t0"]), end)
+    waits, prev = [], None
+    for _, (ready, end) in sorted(rounds.items()):
+        lo = ready if prev is None else max(ready, prev)
+        waits.append((lo + t0, end + t0))
+        prev = end
+    inside = [max([b - a for a, b in waits if b >= lo and a <= hi],
+                  default=0.0) * 1e3 for lo, hi in windows]
+    return med([b - a for a, b in waits]) * 1e3, inside
+
+
+def live_drill(dev, params, indptr, indices, store, backend, tmp, seeds,
+               aborts):
+    """The mutation drill at full width on ``backend``: 3 hot-swaps from
+    perturbed checkpoints, each under a burst in flight, and an edge
+    stream flushed (parity-proven) after each, with the flight recorder
+    and /metrics on; then (``aborts``) the abort paths and feature rows on
+    the same server; then NeuraScope on the recorder."""
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.launch import neurascope
+    from repro_torch.launch.gnn_serve import (live_replayable, parity_tol,
+                                              perturbed)
+    from repro_torch.serve import GraphStream, compute, hot_swap
+    from repro_torch.serve.live import _csr_to_coo
+    name = f"live drill {backend}"
+    spmm = {"cuda": "spmm_dedup_chunks",
+            "cuda_q8": "spmm_dedup_chunks_q8"}[backend]
+    tol = parity_tol(backend)
+    ckpt = os.path.join(tmp, f"ckpt_{backend}")
+    versions = [params] + [perturbed(params, k)
+                           for k in range(1, LIVE_SWAPS + 1)]
+    for k in range(1, LIVE_SWAPS + 1):
+        ckpt_store.save(ckpt, k, versions[k], {"cycle": k})
+    flight = os.path.join(tmp, f"flight_{backend}.jsonl")
+    rng = np.random.default_rng(25)
+    s0, r0 = _csr_to_coo(indptr, indices)
+    dels = rng.choice(s0.size, LIVE_SWAPS * LIVE_STREAM[1], replace=False)
+    seeds = iter(np.resize(seeds, 2 * LIVE_SWAPS * LIVE_BURST))
+    with cluster_server(dev, "gcn", FULL, params, indptr, indices, store,
+                        backend, tracing=True, metrics_port=0,
+                        telemetry_jsonl=flight) as srv:
+        srv.warmup()
+        builds = srv.steps.builds
+        plan_builds = compute.bucket_plan_cache_info()["builds"]
+        srv.reset_stats()
+        stream = GraphStream(srv, parity_every=1, max_pending=384)
+        kernels = ops_kernels() + (spmm_q8_kernel(),)
+        zero_counts(kernels)
+        reqs, swaps, windows, scrape = [], [], [], None
+        t0 = time.perf_counter()
+        for k in range(1, LIVE_SWAPS + 1):
+            reqs += srv.submit_many([[int(next(seeds))]
+                                     for _ in range(LIVE_BURST)])
+            swaps.append(hot_swap(srv, ckpt, step=k))
+            if scrape is None:
+                scrape = neurascope.scrape_panels(srv._metrics_server.url)
+            t_mut = srv.clock()
+            for _ in range(LIVE_STREAM[0]):
+                stream.insert(int(rng.integers(0, 2708)),
+                              int(rng.integers(0, 2708)))
+            for j in dels[(k - 1) * LIVE_STREAM[1]:k * LIVE_STREAM[1]]:
+                stream.delete(int(s0[j]), int(r0[j]))
+            stream.flush()
+            windows.append((t_mut, srv.clock()))
+            reqs += srv.submit_many([[int(next(seeds))]
+                                     for _ in range(LIVE_BURST)])
+        srv.drain(timeout=300)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        st = srv.stats()
+        flushes = stream.flushes
+        rounds = st["n_rounds"]
+        check(served_once(reqs), f"{name}: a request did not settle exactly "
+                                 "once with a result")
+        check(all(r.params_version in range(LIVE_SWAPS + 1) for r in reqs),
+              f"{name}: a request without one version in [0, 3]")
+        check(srv.retired_versions() == [] and srv.params_version
+              == LIVE_SWAPS and all(w.drained_old for w in swaps),
+              f"{name}: retired {srv.retired_versions()}, version "
+              f"{srv.params_version}")
+        check(len(flushes) == LIVE_SWAPS
+              and all(f.parity_ok is True for f in flushes),
+              f"{name}: flush parity {[f.parity_ok for f in flushes]}")
+        epochs = sorted({r.graph_epoch for r in reqs})
+        check(len(epochs) >= 2, f"{name}: graph epochs served {epochs}")
+        check(srv.steps.builds == builds
+              and compute.bucket_plan_cache_info()["builds"] == plan_builds,
+              f"{name}: a step or plan built during the swaps and flushes")
+        # 2 a round; each swap's shadow warm-up is one dummy round too
+        want = {spmm: 2 * (rounds + LIVE_SWAPS), "forest_sample": 0,
+                "hash_draws": 0}
+        if backend == "cuda_q8":
+            want["spmm_dedup_chunks"] = 0
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{name}: launches {got} for {rounds} rounds "
+                           f"and {LIVE_SWAPS} warm-ups, expected {want}")
+        check(all(math.isfinite(w.blackout_ms) for w in swaps),
+              f"{name}: a flip saw no traffic "
+              f"({[w.blackout_ms for w in swaps]})")
+        live = live_replayable(reqs, srv, flushes)[:CLUSTER_REPLAYED]
+        check(bool(live), f"{name}: no request on the live version and "
+                          "epoch")
+        err = float(max(np.abs(r.result - srv.offline_replay(r)).max()
+                        for r in live))
+        check(err <= tol, f"{name}: replay {err:.3e} > {tol}")
+        own = {v: replay_on_version(
+            srv, [r for r in reqs if r.params_version == v][:16],
+            versions[v], tol) for v in sorted({r.params_version
+                                               for r in reqs})}
+        check(scrape is not None and len(scrape["lanes"]) == CLUSTER_LANES,
+              f"{name}: the /metrics scrape shows lanes "
+              f"{sorted(scrape['lanes']) if scrape else None}")
+        wait, warm_wait = pending_gaps_ms(
+            srv, [(w.t_flip - w.validate_s - w.warm_s, w.t_flip)
+                  for w in swaps])
+        mutation_wait = pending_gaps_ms(srv, windows)[1]
+        bl = [w.blackout_ms for w in swaps]
+        out = dict(
+            backend=backend, requests=len(reqs), req_per_s=len(reqs) / dt,
+            p50_ms=st["p50_ms"], p99_ms=st["p99_ms"], rounds=rounds,
+            launches={spmm: launches[spmm], "warmup_rounds": LIVE_SWAPS},
+            versions_served=sorted({r.params_version for r in reqs}),
+            epochs_served=epochs, replayed=len(live), replay_max_abs=err,
+            own_version_replay=own,
+            validate_s=[w.validate_s for w in swaps],
+            warm_s=[w.warm_s for w in swaps], blackout_ms=bl,
+            blackout_ms_median=med(bl), blackout_ms_max=max(bl),
+            repack_s=[f.repack_s for f in flushes],
+            staleness_s=[f.staleness_s for f in flushes],
+            flushes=[dict(epoch=f.epoch, inserted=f.inserted,
+                          deleted=f.deleted, dirty=f.dirty_blocks,
+                          clean=f.clean_blocks, n_edges=f.n_edges)
+                     for f in flushes],
+            pending_wait_ms_median=wait, swap_pending_wait_ms=warm_wait,
+            mutation_pending_wait_ms=mutation_wait,
+            scraped_lanes=len(scrape["lanes"]))
+        if aborts:
+            out["aborts"] = live_aborts(srv, stream, ckpt, params, tol)
+        n_flushes = len(stream.flushes)        # the aborts' idle one too
+    recs, meta = neurascope.load_flight(flight)
+    events = [e.get("event") for e in recs["event"]]
+    check(events.count("params_swap") == LIVE_SWAPS
+          and events.count("graph_flush") == n_flushes,
+          f"{name}: flight recorder events params_swap "
+          f"{events.count('params_swap')}, graph_flush "
+          f"{events.count('graph_flush')} for {n_flushes} flushes")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        n_bad = neurascope.check(recs, meta)
+        neurascope.summarize(recs, meta)
+    check(n_bad == 0, f"{name}: neurascope check: {buf.getvalue()[:2000]}")
+    report = os.path.join(tmp, f"neurascope_{backend}.html")
+    with open(report, "w") as f:
+        f.write(neurascope.render_html(recs, meta, []))
+    out["neurascope"] = dict(records=sum(len(v) for v in recs.values()),
+                             traces=len(recs["trace"]),
+                             html_bytes=os.path.getsize(report),
+                             summary=buf.getvalue().splitlines()[1:4])
+    say(f"live {json.dumps(out)}")
+    return out
+
+
+def live_aborts(srv, stream, ckpt, params, tol):
+    """The abort paths on a live server — a torn checkpoint, a tree of the
+    wrong shape, deleting an absent edge — each leaving the version and
+    the graph as they were, with a following burst served and equal to
+    replay; then 64 feature rows re-homed and 64 requests replayed against
+    the patched store."""
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.serve import GraphMutationError, HotSwapError, hot_swap
+    rng = np.random.default_rng(26)
+    out = {}
+
+    def state():
+        return dict(version=srv.params_version, indptr=srv.indptr.copy(),
+                    indices=srv.indices.copy(), epoch=stream.delta.epoch,
+                    pending=stream.pending, retired=srv.retired_versions())
+
+    def after(what, before):
+        now = state()
+        changed = [k for k, v in before.items()
+                   if not (np.array_equal(v, now[k])
+                           if isinstance(v, np.ndarray) else v == now[k])]
+        check(not changed, f"abort {what}: the server changed ({changed})")
+        reqs = srv.submit_many([[int(s)] for s in
+                                rng.integers(0, 2708, LIVE_ABORT_BURST)])
+        srv.drain(timeout=120)
+        err = float(max(np.abs(r.result - srv.offline_replay(r)).max()
+                        for r in reqs))
+        check(served_once(reqs) and err <= tol,
+              f"abort {what}: replay {err:.3e} > {tol}")
+        out[what] = err
+
+    before = state()
+    torn = os.path.join(ckpt, "step_000004")
+    shutil.copytree(os.path.join(ckpt, "step_000003"), torn)
+    os.remove(os.path.join(torn, "COMMIT"))
+    stage = None
+    try:
+        hot_swap(srv, ckpt, step=4)
+    except HotSwapError as exc:
+        stage = exc.stage
+    check(stage == "validate", f"torn checkpoint: HotSwapError stage {stage}")
+    after("torn_checkpoint", before)
+    before = state()
+    ckpt_store.save(ckpt, 5, {k: {n: torch.zeros(3, 3) for n in v}
+                              for k, v in params.items()})
+    stage = None
+    try:
+        hot_swap(srv, ckpt, step=5)
+    except HotSwapError as exc:
+        stage = exc.stage
+    check(stage == "validate", f"wrong-shape tree: HotSwapError stage "
+                               f"{stage}")
+    after("wrong_shape", before)
+    before = state()
+    row = int(np.argmax(np.diff(srv.indptr)))
+    have = set(srv.indices[srv.indptr[row]:srv.indptr[row + 1]].tolist())
+    absent = next(s for s in range(2708) if s not in have)
+    raised = False
+    try:
+        stream.delete(absent, row)
+    except GraphMutationError:
+        raised = True
+    check(raised, "deleting an absent edge did not raise "
+                  "GraphMutationError")
+    after("absent_edge", before)
+    rows = np.sort(rng.choice(2708, 64, replace=False))
+    new = rng.normal(size=(64, srv.store.x.shape[1])).astype(np.float32)
+    stream.update_features(rows, new)
+    check(torch.equal(srv.store.x[torch.from_numpy(rows).to(srv.device)]
+                      .cpu(), torch.from_numpy(new)),
+          "feature rows not re-homed")
+    reqs = srv.submit_many([[int(s)] for s in rows])
+    srv.drain(timeout=120)
+    err = float(max(np.abs(r.result - srv.offline_replay(r)).max()
+                    for r in reqs))
+    check(served_once(reqs) and err <= tol,
+          f"feature rows: replay {err:.3e} > {tol}")
+    out["feature_rows"] = err
+    # the same work on the idle server: a checkpoint's restore and a flush
+    # of one cycle's mutations, against their times under traffic
+    t0 = time.perf_counter()
+    ckpt_store.restore(ckpt, 3, like_tree=srv.params)
+    out["idle_validate_s"] = time.perf_counter() - t0
+    for _ in range(sum(LIVE_STREAM)):
+        stream.insert(int(rng.integers(0, 2708)), int(rng.integers(0, 2708)))
+    out["idle_repack_s"] = stream.flush().repack_s
+    return out
+
+
+def phase_live(dev, params, indptr, indices, store, x_table):
+    """Phase 19: incremental plans and B1/B4 on them, a full-width gcn-cora
+    forward on the mutated graph, the mutation drill on ``cuda`` and
+    ``cuda_q8`` (abort paths and feature rows on ``cuda``) and NeuraScope
+    on each drill's recorder."""
+    from repro_torch.configs.gcn_cora import FULL
+    from repro_torch.models.gnn import gcn
+    out = {"delta": [], "kernels": []}
+    for name, s, r, n, w, dims, rng in delta_worlds():
+        rec, kernels, p_inc, p_cold = delta_case(dev, name, s, r, n, w, dims,
+                                                 rng)
+        out["delta"].append(rec)
+        out["kernels"] += kernels
+        if name == "cora":
+            plans = (p_inc, p_cold)
+    x = torch.from_numpy(x_table).to(dev)
+    kernels = conv_kernels()
+    zero_counts(kernels)
+    for backend in ("cuda", "cuda_q8"):
+        with torch.no_grad():
+            y_inc, y_cold = (gcn.forward(params, FULL, x, backend=backend,
+                                         plan=p) for p in plans)
+        check(tuple(y_inc.shape) == (2709, FULL.n_classes)
+              and bool(torch.isfinite(y_inc).all()),
+              f"mutated forward {backend}: malformed")
+        check(torch.equal(y_inc, y_cold), f"mutated forward {backend}: the "
+              "incremental plan's forward is not the cold plan's bitwise")
+    fwd = read_counts(kernels)
+    # two forwards a backend, two aggregations each; cuda_q8 runs B4 alone
+    check(fwd["spmm_dedup_chunks"] == 4 and fwd["spmm_dedup_chunks_q8"] == 4,
+          f"mutated forward launches {fwd}")
+    out["forward"] = dict(cuda="bitwise", cuda_q8="bitwise", launches=fwd)
+    say(f"live forward {json.dumps(out['forward'])}")
+    seeds = np.random.default_rng(2).integers(0, 2708, CLUSTER_REQUESTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["drill"] = [live_drill(dev, params, indptr, indices, store,
+                                   backend, tmp, seeds, backend == "cuda")
+                        for backend in ("cuda", "cuda_q8")]
+    out["launches"] = {
+        k: fwd[k] + sum(dr["launches"].get(k, 0) for dr in out["drill"])
+        for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8")}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -4244,7 +4774,13 @@ def main() -> int:
     # reseed, kill and SLO drills, and the readings against one lane
     t18 = time.perf_counter()
     cluster = phase_cluster(dev, params, indptr, indices, store)
-    say(f"phase 18 took {time.perf_counter() - t18:.1f} s; the script "
+    say(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    # phase 19 — live mutation: incremental plans under B1 and B4, the
+    # mutated graph's forward, hot swaps and a graph stream under traffic
+    t19 = time.perf_counter()
+    live = phase_live(dev, params, indptr, indices, store, x_table)
+    say(f"phase 19 took {time.perf_counter() - t19:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -4264,7 +4800,8 @@ def main() -> int:
     for k in conv_serving:
         launches[k] += (conv_serving[k] + geom_serving[k]
                         + ops["launches"].get(k, 0)
-                        + cluster["launches"].get(k, 0))
+                        + cluster["launches"].get(k, 0)
+                        + live["launches"].get(k, 0))
     launches["spmm_dedup_chunks"] += \
         bf16_forward["launches"]["spmm_dedup_chunks"]
     runs = train["per_run"]
@@ -4308,12 +4845,18 @@ def main() -> int:
                  "step); phase 18's 4-lane clusters "
                  f"{cluster['launches']['spmm_dedup_chunks']} (one an "
                  "aggregation a round for all lanes: 2 a gcn round, 9 a "
-                 "gat round)"),
+                 "gat round); phase 19's mutated-graph forwards and live "
+                 f"drill {live['launches']['spmm_dedup_chunks']} (2 a "
+                 "round, each swap's shadow warm-up a round)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
              stacked=[{k: c[k] for k in ("shape", "single_lane_calls_ms")
                        + keys} for c in cluster["kernels"]
                       if c["shape"].startswith("B1")],
+             incremental=[{k: c[k] for k in ("shape", "max_abs_err",
+                                             "cold_ms") + keys}
+                          for c in live["kernels"]
+                          if c["shape"].startswith("B1")],
              backward=[{k: c[k] for k in ("shape",) + keys}
                        for c in train["backward"]],
              bf16=dict(
@@ -4384,7 +4927,9 @@ def main() -> int:
                  f"{geom['launches']['spmm_dedup_chunks_q8']} (1 a cuda_q8 "
                  "step, the Â² stage's forward); phase 18's 4-lane int8 "
                  f"cluster {cluster['launches']['spmm_dedup_chunks_q8']} "
-                 "(2 a round for all lanes, lane-scaled)"),
+                 "(2 a round for all lanes, lane-scaled); phase 19's "
+                 "mutated-graph forwards and int8 live drill "
+                 f"{live['launches']['spmm_dedup_chunks_q8']}"),
              max_abs_err=max(c["max_abs_err"]
                              for c in b4 + train["forward_q8"]),
              lane_scaled=dict(
@@ -4396,6 +4941,10 @@ def main() -> int:
                                            "single_lane_calls_ms") + keys}
                         for c in cluster["kernels"]
                         if c["shape"].startswith("B4")]),
+             incremental=[{k: c[k] for k in ("shape", "max_abs_err",
+                                             "cold_ms") + keys}
+                          for c in live["kernels"]
+                          if c["shape"].startswith("B4")],
              shape=main_b4["shape"], **{k: main_b4[k] for k in keys}),
         dict(name="spgemm_hashpad_q8", route="cuda",
              source="src/repro_torch/kernels/spgemm_pad/csrc/"

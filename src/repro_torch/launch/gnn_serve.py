@@ -11,11 +11,22 @@
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --replicas 4 \\
       [--chaos-kill-lane 1 --chaos-round 3] [--slo] [--metrics-port 0]
 
+  # live mutation mid-burst: 3 weight hot-swaps from perturbed
+  # checkpoints and 256 streamed edge inserts, each flush parity-proven
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --replicas 4 \\
+      --swap-versions 3 --mutate-edges 256
+
 With ``--replicas`` > 1 it stands up a ``ClusterServer`` (the conv
 family, host sampling, as the reference's cluster does), fires the trace
 as one bulk ``submit_many``, and reports per-lane utilization, reseeds and
 the control plane's counts; it exits 1 on a delivery violation, on a
 request lost under ``--chaos-kill-lane``, or when replay parity fails.
+``--swap-versions``/``--mutate-edges`` split the burst around the live
+mutation plane (``serve.live``): hot-swaps from perturbed checkpoints
+and a streamed edge insert stream, each flush proven against a cold
+re-pack; it exits 1 when a flush fails parity or an old version does not
+drain, and replays only requests settled on the live version and the
+last graph epoch.
 ``--shard`` and ``--placement mesh`` need the distributed executor
 (``ROADMAP.md`` A7) and raise.
 
@@ -39,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import dimenet, gat, gcn, gin, sage, schnet
@@ -104,6 +116,69 @@ def build_world(n_nodes: int, n_edges: int, d_in: int, seed: int = 0,
     return cfg, params, indptr, indices, store
 
 
+def perturbed(params, k: int):
+    """``params`` with every float leaf scaled by 1 + 0.01·k (integer
+    leaves as they are): checkpoint ``k`` of the hot-swap drill."""
+    leaves, structure = tree.flatten(params)
+    return tree.unflatten(structure, [
+        a * (1.0 + 0.01 * k) if torch.is_tensor(a) and a.is_floating_point()
+        else a for a in leaves])
+
+
+def _run_live_mutation(server, params, args):
+    """Drive the live-mutation plane mid-burst: ``--swap-versions``
+    hot-swaps from perturbed checkpoints (saved to ``--ckpt-dir`` or a
+    temporary directory) interleaved with a ``--mutate-edges`` insert
+    stream, each flush parity-proven before install.
+
+    A smoke test of the plane, as the reference's launcher is: the first
+    half of the burst usually settles before a flip, so a swap mostly
+    finds nothing in flight, reports a NaN blackout and waits out
+    ``hot_swap``'s ``wait_for_dispatch``, and the printed req/s counts
+    those waits.  ``chip_smoke.py``'s phase 19 drill submits each cycle's
+    traffic before its swap and is the under-traffic measurement."""
+    import contextlib
+    import tempfile
+
+    from repro_torch.checkpoint import store as ckpt_store
+    from repro_torch.serve import GraphStream, hot_swap
+    rng = np.random.default_rng(args.seed + 7)
+    swaps, stream = [], None
+    with contextlib.ExitStack() as stack:
+        ckpt_dir = args.ckpt_dir or stack.enter_context(
+            tempfile.TemporaryDirectory())
+        for k in range(1, args.swap_versions + 1):
+            ckpt_store.save(ckpt_dir, k, perturbed(params, k), {"cycle": k})
+        if args.mutate_edges:
+            stream = GraphStream(server,
+                                 max_pending=args.mutation_flush_every,
+                                 parity_every=1)
+        cycles = max(args.swap_versions, 1 if args.mutate_edges else 0)
+        per_cycle = -(-args.mutate_edges // cycles) if cycles else 0
+        for k in range(1, cycles + 1):
+            if k <= args.swap_versions:
+                swaps.append(hot_swap(server, ckpt_dir, step=k))
+            for _ in range(min(per_cycle,
+                               args.mutate_edges - (k - 1) * per_cycle)):
+                stream.insert(int(rng.integers(0, args.nodes)),
+                              int(rng.integers(0, args.nodes)))
+            if stream is not None and stream.pending:
+                stream.flush()
+    return swaps, (stream.flushes if stream else [])
+
+
+def live_replayable(reqs, server, flushes) -> list:
+    """The settled requests offline replay can reproduce: served on the
+    live weight version and, after a graph flush, sampled on the last
+    graph epoch (``offline_replay`` re-samples on the current graph, so a
+    request sampled before a flush would be replayed on another
+    adjacency)."""
+    epoch = flushes[-1].epoch if flushes else None
+    return [r for r in reqs if r.error is None
+            and r.params_version in (None, server.params_version)
+            and (epoch is None or r.graph_epoch == epoch)]
+
+
 def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
                 store) -> int:
     """The scale-out path: N replica lanes, DRHM-routed, under the
@@ -140,8 +215,18 @@ def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
         warm_builds = server.steps.builds
         server.reset_stats()
         t0 = time.perf_counter()
-        reqs = server.submit_many(traces, deadline_ms=args.deadline_ms,
+        # live mutation splits the burst around its window: traffic is in
+        # flight at every flip, and some requests settle on the last
+        # version and epoch (the replay check below reads those)
+        live = bool(args.swap_versions or args.mutate_edges)
+        half = len(traces) // 2 if live else len(traces)
+        reqs = server.submit_many(traces[:half], deadline_ms=args.deadline_ms,
                                   cls=args.request_class)
+        swaps, flushes = (_run_live_mutation(server, params, args) if live
+                          else ([], []))
+        reqs += server.submit_many(traces[half:],
+                                   deadline_ms=args.deadline_ms,
+                                   cls=args.request_class)
         server.drain()
         dt = time.perf_counter() - t0
         st = server.stats()
@@ -156,6 +241,21 @@ def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
         print(f"[gnn-serve] per-lane served={ls['served']} "
               f"spread={ls['served_spread']:.2f}x mean "
               f"states={ls['states']}")
+        if swaps or flushes:
+            bl = [w.blackout_ms for w in swaps
+                  if w.blackout_ms == w.blackout_ms]        # drop NaN
+            ins = sum(f.inserted for f in flushes)
+            dels = sum(f.deleted for f in flushes)
+            parity = all(f.parity_ok for f in flushes)
+            drained = server.retired_versions() == []
+            print(f"[gnn-serve] live mutation: {len(swaps)} swap(s) -> "
+                  f"v{server.params_version}"
+                  + (f" blackout_max={max(bl):.1f}ms" if bl else "")
+                  + f"  graph +{ins}/-{dels} over {len(flushes)} "
+                    f"flush(es) parity={'OK' if parity else 'FAIL'} "
+                    f"drained={'OK' if drained else 'FAIL'}")
+            if not parity or not drained:
+                return 1
         if (st["failed"] or st["timeouts"] or st["lane_deaths"]
                 or chaos is not None):
             print(f"[gnn-serve] control plane: deaths={st['lane_deaths']} "
@@ -182,12 +282,10 @@ def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
                   f"{len(reqs) - served_once} request(s)")
             return 1
         if not args.skip_offline:
-            live = [r for r in reqs if r.error is None
-                    and r.params_version in (None, server.params_version)]
-            sub = live[:min(32, len(live))]
+            sub = live_replayable(reqs, server, flushes)[:32]
             if not sub:
                 print("[gnn-serve] offline replay skipped (no request "
-                      "settled on the live version)")
+                      "settled on the live version/epoch)")
             else:
                 ref = np.concatenate([server.offline_replay(r)
                                       for r in sub])
@@ -266,6 +364,22 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos-round", type=int, default=3,
                     help="dispatch round the --chaos-kill-lane fault "
                          "triggers at")
+    ap.add_argument("--swap-versions", type=int, default=0, metavar="N",
+                    help="live mutation (cluster path): hot-swap N "
+                         "perturbed weight versions mid-burst through the "
+                         "checkpoint store, printing the blackout and "
+                         "requiring old versions to drain")
+    ap.add_argument("--ckpt-dir", default=None, metavar="PATH",
+                    help="checkpoint directory --swap-versions writes to "
+                         "and swaps from (default: a temporary directory)")
+    ap.add_argument("--mutate-edges", type=int, default=0, metavar="N",
+                    help="live mutation (cluster path): stream N random "
+                         "edge inserts mid-burst, each flush proven "
+                         "against a cold re-pack")
+    ap.add_argument("--mutation-flush-every", type=int, default=64,
+                    metavar="N",
+                    help="bounded-staleness window: the mutation stream "
+                         "flushes every N buffered edges")
     args = ap.parse_args(argv)
     if (args.replicas > 1 or args.shard) and args.sampler != "host":
         ap.error("the cluster tier samples on the host (--sampler host)")

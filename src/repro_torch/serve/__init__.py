@@ -12,6 +12,9 @@ server and the replicated cluster tier.
   (``cluster.DRHMRouter``), each round one lane-stacked dispatch
   (``compute.build_lane_infer_step``), supervised lanes, load shedding
   and per-class SLO burn-rate shedding (``slo``);
+* live mutation — weight hot-swap from the checkpoint store and
+  streaming edge updates over incrementally re-packed layouts
+  (``live``, over ``sparse.delta``);
 * control plane — typed failures (``errors``), deterministic fault
   injection (``chaos``) with the engine's retry path, and
   ``telemetry.TelemetryHub`` (counters, events, a sampled time-series and
@@ -41,10 +44,13 @@ from repro_torch.serve.device_sampler import (DeviceSamplerPlane,
 from repro_torch.serve.engine import (GNNServer, SamplerPool,
                                       offline_inference, offline_replay)
 from repro_torch.serve.errors import (DeadlineExceeded, DrainTimeout,
+                                      GraphMutationError, HotSwapError,
                                       LaneFailure, Overloaded,
                                       RetriesExhausted, SamplerError,
                                       ServeError, ServerClosed,
                                       TransientStepError)
+from repro_torch.serve.live import FlushReport, GraphStream, SwapReport, \
+    hot_swap
 from repro_torch.serve.metrics import (LatencyHistogram, MetricsRegistry,
                                        parse_exposition)
 from repro_torch.serve.scheduler import LaneSlotPools, SlotPool, pack_fifo
@@ -66,7 +72,8 @@ __all__ = [
     "GNNServer", "SamplerPool", "offline_inference", "offline_replay",
     "ServeError", "SamplerError", "DeadlineExceeded", "DrainTimeout",
     "TransientStepError", "RetriesExhausted", "Overloaded", "LaneFailure",
-    "ServerClosed",
+    "ServerClosed", "HotSwapError", "GraphMutationError",
+    "FlushReport", "GraphStream", "SwapReport", "hot_swap",
     "LatencyHistogram", "MetricsRegistry", "parse_exposition",
     "LaneSlotPools", "SlotPool", "pack_fifo",
     "CLASSES", "DEFAULT_SLOS", "SHED_ORDER", "ClassSLO", "SLOEngine",

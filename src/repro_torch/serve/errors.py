@@ -1,5 +1,5 @@
 """Typed failure vocabulary of the serving engine (stdlib copy of
-``repro.serve.errors`` without the live-mutation errors).
+``repro.serve.errors``).
 
 Every way a request can fail is a distinct exception type carrying the
 request id; all extend ``ServeError`` (a ``RuntimeError``), and the
@@ -95,6 +95,26 @@ class LaneFailure(ServeError):
         super().__init__(f"lane {lane} failed ({reason})", rid=rid)
         self.lane = lane
         self.reason = reason
+
+
+class HotSwapError(ServeError):
+    """A live weight hot-swap aborted before the flip (no committed step,
+    a checkpoint that failed validation, or a shadow warm-up that raised):
+    the serving version is unchanged and traffic never saw the candidate
+    weights."""
+
+    def __init__(self, stage: str, cause: BaseException):
+        super().__init__(f"hot swap aborted at {stage}: {cause!r}")
+        self.stage = stage
+        self.__cause__ = cause
+
+
+class GraphMutationError(ServeError, ValueError):
+    """A streaming graph mutation was rejected (an out-of-range node,
+    deleting an absent edge, a node count that changed, or an incremental
+    re-pack that failed parity against the cold pack): the resident graph
+    is unchanged.  It is a ``ValueError`` too, as the delta state's own
+    ``DeltaGraphError`` it wraps is."""
 
 
 class ServerClosed(ServeError):

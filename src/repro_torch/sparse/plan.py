@@ -200,6 +200,51 @@ def edge_plan(senders, receivers, n_rows: int, edge_weight=None,
                            base_vals=_values(valid, edge_weight))
 
 
+def ell_sections(fwd, tr, n_edges: int, vidx: np.ndarray,
+                 backends: Sequence[str], d_tile: Optional[int],
+                 dev: torch.device) -> dict:
+    """The plan's dedup-chunk fields from the packed forward and transpose
+    layouts (``graph.DedupChunks`` over the valid edges ``vidx`` of
+    ``n_edges``), on ``dev``: the chunk tables, each output block's chunk
+    range, the per-edge slots (the dropped cell for invalid edges), the
+    order of the tile scatters and, when ``backends`` names ``cuda_q8``,
+    the baked int8 forward tiles.  ``make_plan`` and the incremental
+    ``sparse.delta.DeltaGraphState.plan`` both build them here."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    kw = dict(block_rows=fwd.block_rows, n_blocks=fwd.n_blocks,
+              n_t_blocks=tr.n_blocks, ell_d_tile=d_tile,
+              ell_block_ptr=t(block_ptr_from_first(fwd.first, fwd.n_blocks)),
+              ell_t_block_ptr=t(block_ptr_from_first(tr.first,
+                                                     tr.n_blocks)))
+    for pre, ch in (("ell_", fwd), ("ell_t_", tr)):
+        slots = np.full(n_edges, ch.a.size, np.int64)
+        slots[vidx] = ch.slots
+        kw.update({pre + "u_cols": t(ch.u_cols),
+                   pre + "remaining": t(ch.remaining),
+                   pre + "out_block": t(ch.out_block),
+                   pre + "first": t(ch.first),
+                   pre + "a": t(ch.a),
+                   pre + "slots": t(slots)})
+        dup = scatter_order(slots, ch.a.size)
+        if dup is not None:
+            kw.update({pre + "first_slots": t(dup[0]),
+                       pre + "dup_edges": t(dup[1]),
+                       pre + "dup_slots": t(dup[2]),
+                       pre + "dup_bounds": dup[3]})
+    if "cuda_q8" in backends:
+        # bake the int8 tiles for the default-values path; given edge
+        # values re-quantize (plan_with_values / the executor)
+        from repro_torch.sparse.quantize import (quantize_chunk_tiles,
+                                                 record_q8_stats)
+        a_q8, a_scale = quantize_chunk_tiles(kw["ell_a"],
+                                             fwd.u_cols.shape[0])
+        record_q8_stats(a_scale)
+        kw.update(ell_a_q8=a_q8, ell_a_scale=a_scale)
+    return kw
+
+
 def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
               edge_weight: Optional[np.ndarray] = None,
               edge_valid: Optional[np.ndarray] = None, *,
@@ -274,36 +319,7 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
         record_value("plan.n_chunks", fwd.u_cols.shape[0])
         record_value("plan.hub_splits",
                      int(fwd.u_cols.shape[0] - np.unique(fwd.out_block).size))
-        kw.update(block_rows=block_rows, n_blocks=fwd.n_blocks,
-                  n_t_blocks=tr.n_blocks, ell_d_tile=d_tile,
-                  ell_block_ptr=t(block_ptr_from_first(fwd.first,
-                                                       fwd.n_blocks)),
-                  ell_t_block_ptr=t(block_ptr_from_first(tr.first,
-                                                         tr.n_blocks)))
-        for pre, ch in (("ell_", fwd), ("ell_t_", tr)):
-            slots = np.full(e, ch.a.size, np.int64)
-            slots[vidx] = ch.slots
-            kw.update({pre + "u_cols": t(ch.u_cols),
-                       pre + "remaining": t(ch.remaining),
-                       pre + "out_block": t(ch.out_block),
-                       pre + "first": t(ch.first),
-                       pre + "a": t(ch.a),
-                       pre + "slots": t(slots)})
-            dup = scatter_order(slots, ch.a.size)
-            if dup is not None:
-                kw.update({pre + "first_slots": t(dup[0]),
-                           pre + "dup_edges": t(dup[1]),
-                           pre + "dup_slots": t(dup[2]),
-                           pre + "dup_bounds": dup[3]})
-        if "cuda_q8" in backends:
-            # bake the int8 tiles for the default-values path; given edge
-            # values re-quantize (plan_with_values / the executor)
-            from repro_torch.sparse.quantize import (quantize_chunk_tiles,
-                                                     record_q8_stats)
-            a_q8, a_scale = quantize_chunk_tiles(kw["ell_a"],
-                                                 fwd.u_cols.shape[0])
-            record_q8_stats(a_scale)
-            kw.update(ell_a_q8=a_q8, ell_a_scale=a_scale)
+        kw.update(ell_sections(fwd, tr, e, vidx, backends, d_tile, dev))
     return AggregationPlan(**kw)
 
 

@@ -1604,3 +1604,78 @@ def test_lane_step_launches_one_kernel_a_layer_for_all_lanes(cuda, backend,
         torch.cuda.synchronize()
         assert out.shape == (n_lanes, 4, cfg.n_classes)
         assert counter.launches - before == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# Incremental plans (sparse.delta) on the card
+# ---------------------------------------------------------------------------
+
+def _mutated_delta(n, e, seed, width_cap=128, epochs=3):
+    from repro_torch.sparse.delta import DeltaGraphError, DeltaGraphState
+    rng = np.random.default_rng(seed)
+    d = DeltaGraphState(rng.integers(0, n, e), rng.integers(0, n, e), n,
+                        weights=rng.uniform(0.1, 1, e).astype(np.float32),
+                        width_cap=width_cap)
+    for _ in range(epochs):
+        for _ in range(48):
+            d.insert_edge(int(rng.integers(0, n)), int(rng.integers(0, n)),
+                          float(rng.uniform(0.1, 1)))
+        for _ in range(16):
+            k = int(rng.integers(0, d.n_edges))
+            try:
+                d.delete_edge(int(d._s[k]), int(d._r[k]))
+            except DeltaGraphError:
+                pass
+        d.flush()
+    return d
+
+
+@pytest.mark.parametrize("n,e,d,width_cap", [(300, 2000, 16, 128),
+                                             (300, 2000, 600, 128),
+                                             (64, 900, 33, 8)])
+def test_incremental_plan_b1_b4_equal_cold_plan(cuda, n, e, d, width_cap):
+    from repro_torch.sparse.delta import plans_match
+    dl = _mutated_delta(n, e, seed=n + d, width_cap=width_cap)
+    backends = ("dense", "cuda", "cuda_q8")
+    inc = dl.plan(backends=backends, device=cuda)
+    cold = dl.cold_plan(backends=backends, device=cuda)
+    ok, detail = plans_match(inc, cold, tol=0.0)
+    assert ok, detail
+    x = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(inc.n_rows, d)).astype(np.float32)).to(cuda)
+
+    def b1(p):
+        return spmm_dedup_chunks(p.ell_u_cols, p.ell_remaining,
+                                 p.ell_block_ptr, p.ell_a, x, block_rows=8)
+    qt = auto_d_tile(d)
+    x_q8, x_scale = qz.quantize_feature_tiles(x, qt)
+
+    def b4(p):
+        return spmm_dedup_chunks_q8(p.ell_u_cols, p.ell_remaining,
+                                    p.ell_block_ptr, p.ell_a_q8,
+                                    p.ell_a_scale, x_q8, x_scale,
+                                    block_rows=8, q_tile=qt)
+    assert torch.equal(b1(inc), b1(cold))
+    assert torch.equal(b4(inc), b4(cold))
+    want = spmm_dedup_chunks_plain(inc.ell_u_cols, inc.ell_remaining,
+                                   inc.ell_block_ptr, inc.ell_a, x,
+                                   block_rows=8)
+    assert float((b1(inc) - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_q8"])
+def test_incremental_plan_gcn_forward_equals_cold(cuda, backend):
+    from repro_torch.configs.gcn_cora import GCNConfig
+    from repro_torch.models.gnn import gcn
+    dl = _mutated_delta(500, 3000, seed=7)
+    cfg = GCNConfig(d_in=32, d_hidden=16, n_classes=7)
+    params = gcn.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(501, 32)).astype(np.float32)).to(cuda)
+    backends = ("dense", "cuda", "cuda_q8")
+    ys = [gcn.forward(params, cfg, x, backend=backend, plan=p)
+          for p in (dl.plan(backends=backends, device=cuda),
+                    dl.cold_plan(backends=backends, device=cuda))]
+    assert ys[0].device.type == "cuda"
+    assert torch.equal(ys[0], ys[1])
