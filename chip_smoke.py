@@ -302,13 +302,41 @@ Phases, each of which raises (exit code 1) on any failure:
     (byte size printed); readings: validate, warm and blackout a swap,
     repack and staleness a flush (and a restore and a flush on the idle
     server), how long the engine left ready requests waiting inside the
-    swaps and the mutation windows, req/s and p50/p99 under mutation.
+    swaps and the mutation windows, req/s and p50/p99 under mutation;
+20. the LM family — qwen3-0.6b at FULL (28 layers, d_model 1024, 16 heads
+    and 8 kv heads of 128, vocab 151,936, tied embeddings, bf16) with its
+    parameters drawn on the card: the prefill at B = 1, S = 4096 with B8
+    (``attention="flash"``), counted (28 launches), against the blocked
+    attention on the same inputs (last-token logits within ``LM_BF16_REL``
+    of their largest magnitude; a flash and a blocked forward's logits
+    within ``LM_BF16_REL`` at every one of the 4,096 positions and their
+    top-1 tokens agreeing at ≥ ``LM_BF16_TOP1`` of them), and in f32 at
+    FULL widths with the depth cut to 4 (≤ ``LM_F32_REL``);
+    ``launch/serve.build_engine``'s ``ContinuousBatcher`` serving 16
+    requests (prompts 64–512, 32–64 new tokens) on 8 slots, every one
+    finished, 28 B8 a prefill, each served prefill's logits and cache
+    within ``LM_BF16_REL`` of a blocked prefill of the same prompt, each
+    served token's logit in a teacher-forced blocked forward within
+    ``LM_SERVE_SLACK`` of its position's maximum (equality with offline
+    decode a reading, beside where one request's tokens part at batch 1
+    and 8), and the reduced qwen3 in f32 token for token equal to offline
+    decode, its served prefills within ``LM_F32_REL`` of blocked ones;
+    8 training steps
+    at B = 2, S = 2048 through ``build_lm_step`` and ``train.loop.run``
+    (AdamW, f32 moments, lr 1e-3, one repeated batch), the loss falling
+    from within 0.5 of ln V, the run resumed from its step-4 commit (~6 GB
+    of bf16 parameters and f32 moments) bitwise the unbroken run; step 1
+    at FULL widths, depth 2, f32, B = 1, S = 256 on the card against the
+    CPU (loss ≤1e-4 relative, gradients rtol 1e-3, atol 1e-4); readings:
+    prefill wall and device ms, tokens/s, B8's share and ms a call against
+    its bound, an 8-slot decode step, the training step traced and its
+    peak memory.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
 12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
-forward, phases 17 and 18's servers, phase 19's forwards and drills) and
-read just
+forward, phases 17 and 18's servers, phase 19's forwards and drills,
+phase 20's prefills, forward and servers) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -4404,7 +4432,10 @@ def live_drill(dev, params, indptr, indices, store, backend, tmp, seeds,
             reqs += srv.submit_many([[int(next(seeds))]
                                      for _ in range(LIVE_BURST)])
             swaps.append(hot_swap(srv, ckpt, step=k))
-            if scrape is None:
+            # the lane gauges come from the telemetry monitor's ticks, whose
+            # first may not have run this soon after warm-up: scrape again
+            # in a later cycle until one shows the lanes
+            if scrape is None or not scrape["lanes"]:
                 scrape = neurascope.scrape_panels(srv._metrics_server.url)
             t_mut = srv.clock()
             for _ in range(LIVE_STREAM[0]):
@@ -4646,6 +4677,585 @@ def phase_live(dev, params, indptr, indices, store, x_table):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20 — the LM family: qwen3-0.6b at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-0.6b"
+LM_PREFILL = (1, 4096)             # train_4k's length, batch cut from 256
+LM_F32_LAYERS = 4                  # the f32 flash-vs-blocked depth
+LM_SERVE = dict(requests=16, slots=8, prompt=(64, 512), gen=(32, 64))
+LM_REDUCED_SERVE = dict(requests=16, slots=8, prompt=(8, 40), gen=(5, 20))
+LM_TRAIN = dict(batch=2, seq=2048, steps=8, ckpt_every=4, lr=1e-3)
+LM_CPU_CHECK = dict(layers=2, batch=1, seq=256)
+# bars.  bf16 flash vs blocked: the two round P to bf16 after other
+# running maxima (B8's 128-key tiles, the blocked attention's 1024-key
+# chunks), one bf16 ulp (2⁻⁷) in some outputs a layer, carried through 28
+# layers: logits within 5% of their largest magnitude, at the last token
+# and at every position of a forward, and the same top-1 token at 85% of
+# a forward's positions (an H100 reads 2.6% and 95.3%).  f32 at depth 4:
+# B8's own bar is 2e-5 a call.
+LM_BF16_REL = 5e-2
+LM_BF16_TOP1 = 0.85
+LM_F32_REL = 1e-4
+# a served token's logit in a teacher-forced forward lies within twice the
+# flash-vs-blocked bar of that position's maximum
+LM_SERVE_SLACK = 2 * LM_BF16_REL
+LM_LOSS_RTOL = 1e-4
+LM_FIRST_LOSS_TOL = 0.5            # ln V ± this at random initialization
+
+
+def lm_config(**changes):
+    """qwen3-0.6b's FULL config (repro configs/qwen3_0_6b.py) with
+    ``changes``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(LM_ARCH), **changes)
+
+
+def lm_params(cfg, dev, seed=0):
+    from repro_torch.models.lm import transformer as T
+    return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+
+
+def lm_tokens(dev, b, s, vocab, seed):
+    from repro_torch.data.synthetic import token_batch
+    return torch.from_numpy(token_batch(b, s, vocab, seed=seed)).to(dev)
+
+
+def lm_b8_bound_ms(cfg, b, s) -> float:
+    """B8's least time for one layer's causal attention at (b, s): q·k and
+    p·v over the causal pairs, 2·BH·d·S(S+1) flops at the bf16 peak (its
+    bytes take less: 4·BH·S·d·2 B at 3.35 TB/s)."""
+    bh, d = b * cfg.n_heads, cfg.head_dim
+    n_flops = 2 * bh * d * s * (s + 1)
+    n_bytes = 4 * bh * s * d * 2
+    return max(n_flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def lm_prefill_checks(dev, cfg, params) -> dict:
+    """FULL bf16 prefill at S = 4096 with B8 (counted: n_layers launches)
+    against the blocked attention on the same inputs; the top-1 token at
+    every position of a flash and a blocked forward; then the f32 check at
+    FULL widths with the depth cut to ``LM_F32_LAYERS``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import transformer as T
+    b, s = LM_PREFILL
+    toks = lm_tokens(dev, b, s, cfg.vocab, seed=20)
+    rec = dict(shape=f"{LM_ARCH} prefill B={b} S={s} bf16")
+    with torch.no_grad():
+        flash_attention.launches = 0
+        logits, cache = T.prefill(params, cfg, toks, attention="flash")
+        torch.cuda.synchronize()
+        rec["launches"] = flash_attention.launches
+        check(rec["launches"] == cfg.n_layers,
+              f"lm prefill: {rec['launches']} B8 launches, expected "
+              f"{cfg.n_layers}")
+        kv = cache["sub0"]["k"]
+        check(tuple(logits.shape) == (b, cfg.vocab)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all())
+              and tuple(kv.shape) == (cfg.n_super, b, s, cfg.n_kv_heads,
+                                      cfg.head_dim)
+              and kv.dtype == cfg.adt, "lm prefill: malformed output")
+        want, want_cache = T.prefill(params, cfg, toks, attention="blocked")
+        rec["last_logits_rel"] = rel_err(logits, want)
+        rec["cache_rel"] = max(rel_err(cache["sub0"][n],
+                                       want_cache["sub0"][n])
+                               for n in ("k", "v"))
+        check(rec["last_logits_rel"] <= LM_BF16_REL,
+              f"lm prefill bf16: flash vs blocked "
+              f"{rec['last_logits_rel']:.3e} of max|logits| > "
+              f"{LM_BF16_REL}")
+        del cache, want_cache
+        flash_attention.launches = 0
+        h = T.forward(params, cfg, toks, attention="flash")
+        torch.cuda.synchronize()
+        rec["forward_launches"] = flash_attention.launches
+        check(rec["forward_launches"] == cfg.n_layers,
+              f"lm forward: {rec['forward_launches']} B8 launches")
+        hb = T.forward(params, cfg, toks, attention="blocked")
+        w = T.unembed_matrix(params, cfg)
+        lf, lb = (h[0] @ w).float(), (hb[0] @ w).float()
+        del h, hb
+        rec["top1_agreement"] = float(
+            (lf.argmax(-1) == lb.argmax(-1)).float().mean())
+        rec["all_positions_rel"] = float(
+            ((lf - lb).abs().amax(-1) / lb.abs().amax(-1)).max())
+        del lf, lb
+        check(rec["top1_agreement"] >= LM_BF16_TOP1
+              and rec["all_positions_rel"] <= LM_BF16_REL,
+              f"lm forward bf16: top-1 agreement {rec['top1_agreement']} "
+              f"(bar {LM_BF16_TOP1}), logits at every position within "
+              f"{rec['all_positions_rel']:.3e} of max|logits| (bar "
+              f"{LM_BF16_REL})")
+    torch.cuda.empty_cache()
+    cfg32 = lm_config(n_layers=LM_F32_LAYERS, param_dtype="float32",
+                      act_dtype="float32")
+    p32 = lm_params(cfg32, dev, seed=1)
+    with torch.no_grad():
+        flash_attention.launches = 0
+        got, _ = T.prefill(p32, cfg32, toks, attention="flash")
+        torch.cuda.synchronize()
+        rec["f32_launches"] = flash_attention.launches
+        want, _ = T.prefill(p32, cfg32, toks, attention="blocked")
+    scale = max(1.0, float(want.abs().max()))
+    rec["f32_rel"] = float((got - want).abs().max()) / scale
+    check(rec["f32_launches"] == LM_F32_LAYERS
+          and rec["f32_rel"] <= LM_F32_REL,
+          f"lm prefill f32 depth {LM_F32_LAYERS}: {rec['f32_launches']} "
+          f"launches, flash vs blocked {rec['f32_rel']:.3e}")
+    del p32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_requests(cfg, spec, seed):
+    """``spec["requests"]`` requests with prompt and generation lengths
+    drawn from ``spec``'s ranges, prompts from ``token_batch``."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.train.serving import Request
+    rng = np.random.default_rng(seed)
+    plen = rng.integers(spec["prompt"][0], spec["prompt"][1] + 1,
+                        spec["requests"])
+    glen = rng.integers(spec["gen"][0], spec["gen"][1] + 1, spec["requests"])
+    return [Request(rid=i, prompt=token_batch(1, int(p), cfg.vocab,
+                                              seed=seed + i)[0],
+                    max_new=int(g)) for i, (p, g) in enumerate(zip(plen,
+                                                                   glen))]
+
+
+def lm_offline(params, cfg, req, s_max, dev, served=None):
+    """One request decoded alone: prefill, its KV at the front of a fresh
+    one-row cache, then ``decode_step`` a token at a time; with ``served``
+    (the tokens a batcher gave it) it stops at the first token that
+    differs, as the rest can no longer be equal."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    with torch.no_grad():
+        logits, kv = T.prefill(params, cfg, torch.from_numpy(
+            req.prompt[None]).to(dev))
+        cache = T.init_cache(cfg, 1, s_max, device=dev)
+        p = req.prompt.shape[0]
+        for dst, src in zip(tree.leaves(cache), tree.leaves(kv)):
+            dst[:, :, :p] = src
+        toks = [int(torch.argmax(logits[0]))]
+        for pos in range(p, p + req.max_new - 1):
+            if served is not None and toks[-1] != served[len(toks) - 1]:
+                break
+            logits, cache = T.decode_step(
+                params, cfg, torch.tensor([[toks[-1]]], dtype=torch.int32,
+                                          device=dev), cache, pos)
+            toks.append(int(torch.argmax(logits[0])))
+    return toks
+
+
+def lm_serve(dev, cfg, params, spec, seed):
+    """``ContinuousBatcher`` through ``launch/serve.build_engine`` (B8
+    prefill, ragged decode): every request served, counted (n_layers B8 a
+    request), and each served prefill (its prompt, logits and KV) kept for
+    ``lm_served_prefills``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import build_engine
+    reqs = lm_requests(cfg, spec, seed)
+    s_max = spec["prompt"][1] + spec["gen"][1] + 1
+    eng = build_engine(params, cfg, spec["slots"], s_max)
+    served, prefill = [], eng.prefill_fn
+
+    def kept_prefill(tokens):
+        out = prefill(tokens)
+        served.append((tokens, *out))
+        return out
+    eng.prefill_fn = kept_prefill
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.active or eng.queue:
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    n_tok = sum(len(r.out) for r in reqs)
+    check(all(r.done and len(r.out) == r.max_new for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"lm serve {cfg.name}: a request did not finish whole")
+    check(launches == cfg.n_layers * len(reqs),
+          f"lm serve {cfg.name}: {launches} B8 launches for {len(reqs)} "
+          f"prefills of {cfg.n_layers} layers")
+    return reqs, s_max, served, dict(
+        requests=len(reqs), slots=spec["slots"], engine_steps=steps,
+        tokens=n_tok, wall_s=wall, tok_s=n_tok / wall, launches=launches)
+
+
+def lm_served_prefills(cfg, params, served, bar) -> dict:
+    """Each served (B8) prefill against a blocked prefill of the same
+    prompt: last-token logits and every cache leaf, relative to their
+    largest magnitude, within ``bar``; and, a reading, how many equal a
+    second B8 prefill of the prompt bit for bit."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    logits_rel = cache_rel = 0.0
+    rerun_bitwise = 0
+    with torch.no_grad():
+        for tokens, logits, kv in served:
+            want, want_kv = T.prefill(params, cfg, tokens,
+                                      attention="blocked")
+            logits_rel = max(logits_rel, rel_err(logits, want))
+            cache_rel = max(cache_rel, max(
+                rel_err(a, b) for a, b in zip(tree.leaves(kv),
+                                              tree.leaves(want_kv))))
+            again, again_kv = T.prefill(params, cfg, tokens)
+            rerun_bitwise += bool(torch.equal(again, logits) and all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(kv),
+                                                  tree.leaves(again_kv))))
+    check(logits_rel <= bar and cache_rel <= bar,
+          f"lm serve {cfg.name}: a served prefill's logits {logits_rel:.3e}"
+          f", cache {cache_rel:.3e} of their largest magnitude from a "
+          f"blocked prefill (bar {bar})")
+    return dict(prefill_logits_rel=logits_rel, prefill_cache_rel=cache_rel,
+                prefill_rerun_bitwise=rerun_bitwise,
+                prefill_lengths=sorted(int(t.shape[1]) for t, *_ in served))
+
+
+def lm_teacher_forced(dev, cfg, params, reqs) -> float:
+    """The largest, over every served token, of (the position's maximum
+    logit − the served token's) ÷ the position's largest |logit|, in a
+    blocked forward over prompt + output: the served tokens, from B8
+    prefills, held against the plain attention."""
+    from repro_torch.models.lm import transformer as T
+    worst = 0.0
+    w = T.unembed_matrix(params, cfg)
+    with torch.no_grad():
+        for r in reqs:
+            seq = np.concatenate([r.prompt, np.asarray(r.out[:-1],
+                                                       np.int32)])
+            h = T.forward(params, cfg, torch.from_numpy(seq[None]).to(dev),
+                          attention="blocked")
+            p = r.prompt.shape[0]
+            rows = (h[0, p - 1:] @ w).float()
+            served = torch.tensor(r.out, device=dev)[:, None]
+            gap = rows.amax(-1) - rows.gather(1, served)[:, 0]
+            worst = max(worst, float((gap / rows.abs().amax(-1)).max()))
+    return worst
+
+
+def lm_batch_rounding(dev, cfg, params, reqs, s_max, steps=32) -> dict:
+    """Where served and offline bf16 decode part (a reading): ``reqs[0]``
+    greedily decoded from its prefill through ``decode_step`` at batch 1
+    (offline), ``decode_step_ragged`` at batch 1, as row 0 of 8 copies of
+    itself, and as row 0 of a batch with ``reqs[1:8]`` in the other rows,
+    each at its own position (a served batch).  For each variant against
+    ``decode_step_ragged`` at batch 1: the largest logit gap at the first
+    decode step and the first step whose token differs (None: none in
+    ``steps``); and the unembedding GEMM's row 0 at 8 rows against the
+    same row alone."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    pre = []
+    with torch.no_grad():
+        for r in reqs[:8]:
+            logits, kv = T.prefill(params, cfg, torch.from_numpy(
+                r.prompt[None]).to(dev))
+            pre.append((r.prompt.shape[0], kv, int(torch.argmax(logits[0]))))
+        # every write inside the cache
+        steps = min(steps, s_max - 1 - max(p for p, _, _ in pre))
+
+        def greedy(rows, ragged):
+            cache = T.init_cache(cfg, len(rows), s_max, device=dev)
+            for j, k in enumerate(rows):
+                p, kv, _ = pre[k]
+                for dst, src in zip(tree.leaves(cache), tree.leaves(kv)):
+                    dst[:, j:j + 1, :p] = src
+            start = torch.tensor([pre[k][0] for k in rows], dtype=torch.int32,
+                                 device=dev)
+            toks = torch.tensor([[pre[k][2]] for k in rows],
+                                dtype=torch.int32, device=dev)
+            out, first_logits = [], None
+            for i in range(steps):
+                if ragged:
+                    lg, cache = T.decode_step_ragged(params, cfg, toks, cache,
+                                                     start + i)
+                else:
+                    lg, cache = T.decode_step(params, cfg, toks, cache,
+                                              pre[0][0] + i)
+                if first_logits is None:
+                    first_logits = lg[0].float().clone()
+                toks = torch.argmax(lg, -1, keepdim=True).to(torch.int32)
+                out.append(int(toks[0, 0]))
+            return out, first_logits
+
+        def parting(a, b):
+            differ = [i for i, (x, y) in enumerate(zip(a[0], b[0])) if x != y]
+            return dict(first_step_logits_max_abs=float(
+                (a[1] - b[1]).abs().max()),
+                first_differing_step=differ[0] if differ else None)
+        solo = greedy([0], True)
+        rec = dict(request=reqs[0].rid, prompt=pre[0][0], steps=steps,
+                   fixed1=parting(greedy([0], False), solo),
+                   copies8=parting(greedy([0] * 8, True), solo),
+                   mixed8=parting(greedy(list(range(len(pre))), True), solo))
+        x = torch.randn(8, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(25)
+                        ).to(cfg.adt)
+        w = T.unembed_matrix(params, cfg)
+        row8, row1 = (x @ w)[0], (x[:1] @ w)[0]
+    rec.update(gemm_row_equal=bool(torch.equal(row8, row1)),
+               gemm_row_max_abs=float((row8.float() - row1.float())
+                                      .abs().max()))
+    return rec
+
+
+def lm_serving(dev, cfg, params) -> dict:
+    """FULL bf16 serving on 8 slots (every request finished, each served
+    prefill held against a blocked one, the served tokens held
+    teacher-forced, offline equality a reading beside where batch 1 and
+    batch 8 part), then the reduced qwen3 in f32 held token for token
+    against offline decode."""
+    from repro_torch.configs import registry
+    reqs, s_max, served, rec = lm_serve(dev, cfg, params, LM_SERVE,
+                                        seed=200)
+    rec.update(lm_served_prefills(cfg, params, served, LM_BF16_REL))
+    del served
+    rec["teacher_forced_gap"] = lm_teacher_forced(dev, cfg, params, reqs)
+    check(rec["teacher_forced_gap"] <= LM_SERVE_SLACK,
+          f"lm serve: a served token's logit {rec['teacher_forced_gap']:.3e}"
+          f" of the row's max|logit| below the maximum > {LM_SERVE_SLACK}")
+    t0 = time.perf_counter()
+    agree = [lm_offline(params, cfg, r, s_max, dev, served=r.out)
+             for r in reqs]
+    rec["equal_offline"] = sum(a == r.out for a, r in zip(agree, reqs))
+    # tokens served before the first that offline decode does not give
+    rec["offline_agreeing_prefix"] = [
+        len(a) - (a != r.out[:len(a)]) for a, r in zip(agree, reqs)]
+    rec["offline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the request whose tokens part from offline decode first, in row 0
+    first = int(np.argmin(rec["offline_agreeing_prefix"]))
+    rec["batch_rounding"] = lm_batch_rounding(
+        dev, cfg, params, [reqs[first]] + reqs[:first] + reqs[first + 1:],
+        s_max)
+    rec["batch_rounding_s"] = time.perf_counter() - t0
+    small = registry.get_config(LM_ARCH, reduced=True)
+    sp = lm_params(small, dev, seed=3)
+    sreqs, s_smax, served, srec = lm_serve(dev, small, sp, LM_REDUCED_SERVE,
+                                           seed=300)
+    srec.update(lm_served_prefills(small, sp, served, LM_F32_REL))
+    del served
+    srec["equal_offline"] = sum(
+        r.out == lm_offline(sp, small, r, s_smax, dev) for r in sreqs)
+    check(srec["equal_offline"] == len(sreqs),
+          f"lm serve reduced f32: {srec['equal_offline']} of {len(sreqs)} "
+          "requests equal offline decode")
+    rec["reduced_f32"] = srec
+    return rec
+
+
+def lm_train_job(dev, cfg, ckpt_dir, seed=0):
+    """qwen3 FULL through ``build_lm_step`` and ``train.loop.run``: AdamW
+    (f32 moments) at ``LM_TRAIN``'s lr on one repeated token batch,
+    committing every ``ckpt_every`` steps."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    params = lm_params(cfg, dev, seed)
+    step = build_lm_step(cfg, LMShape("train", "train", s, b),
+                         adamw.AdamWConfig(lr=LM_TRAIN["lr"]))
+    batch = {"tokens": lm_tokens(dev, b, s, cfg.vocab, seed=21)}
+
+    def batches():
+        while True:
+            yield batch
+    state = loop.TrainState(params=params, opt_state=adamw.init_state(params))
+    return loop.run(state, step, batches(), loop.TrainLoopConfig(
+        n_steps=LM_TRAIN["steps"], ckpt_every=LM_TRAIN["ckpt_every"],
+        ckpt_dir=str(ckpt_dir), keep_ckpts=2, log_every=10 ** 9),
+        log=lambda *_: None)
+
+
+def lm_loss_and_grads(params, cfg, tokens):
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    leaves, structure = tree.flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss = T.loss_fn(tree.unflatten(structure, live), cfg, tokens)
+    return float(loss.detach()), torch.autograd.grad(loss, live)
+
+
+def lm_training(dev, cfg) -> dict:
+    """FULL bf16 training, 8 steps: the loss falls from near ln V, a run
+    resumed from its step-4 commit is bitwise the unbroken run; then step
+    1 on the card against the CPU at FULL widths, depth 2, f32."""
+    from repro_torch.checkpoint import store
+    rec = dict(batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"],
+               steps=LM_TRAIN["steps"])
+    k = LM_TRAIN["ckpt_every"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = lm_train_job(dev, cfg, tmp / "run")
+        rec["run_s"] = time.perf_counter() - t0
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        state, hist = run
+        losses = hist["loss"]
+        rec["losses"] = losses
+        rec["ln_vocab"] = math.log(cfg.vocab)
+        check(all(math.isfinite(v) for v in losses) and hist["retries"] == 0
+              and losses[-1] < losses[0]
+              and abs(losses[0] - rec["ln_vocab"]) <= LM_FIRST_LOSS_TOL,
+              f"lm train: losses {losses} (ln V {rec['ln_vocab']:.4f})")
+        check(store.committed_steps(tmp / "run") == [k, LM_TRAIN["steps"]],
+              f"lm train: commits {store.committed_steps(tmp / 'run')}")
+        rec["commit_bytes"] = sum(
+            f.stat().st_size for f in (tmp / "run" / f"step_{k:06d}")
+            .iterdir())
+        rec["step_wall_ms_loop"] = statistics.median(hist["step_s"]) * 1e3
+        shutil.rmtree(tmp / "run" / f"step_{LM_TRAIN['steps']:06d}")
+        t0 = time.perf_counter()
+        resumed = lm_train_job(dev, cfg, tmp / "run")
+        rec["resumed_s"] = time.perf_counter() - t0
+        check(len(resumed[1]["loss"]) == LM_TRAIN["steps"] - k
+              and same_run(resumed, run),
+              f"lm train: the run resumed at step {k} does not reproduce "
+              "the unbroken run bitwise")
+        del resumed, run, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec.update(lm_train_breakdown(dev, cfg))
+    rec["breakdown_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # step 1 on the card against the CPU: FULL widths, depth cut, f32
+    c = LM_CPU_CHECK
+    cfg32 = lm_config(n_layers=c["layers"], param_dtype="float32",
+                      act_dtype="float32")
+    params = lm_params(cfg32, dev, seed=2)
+    toks = lm_tokens(dev, c["batch"], c["seq"], cfg32.vocab, seed=22)
+    loss, grads = lm_loss_and_grads(params, cfg32, toks)
+    cpu = torch.device("cpu")
+    cpu_loss, cpu_grads = lm_loss_and_grads(tree_to(params, cpu), cfg32,
+                                            toks.cpu())
+    rec["cpu_loss_rel"] = abs(loss - cpu_loss) / abs(cpu_loss)
+    worst = 0.0
+    for g, gc_ in zip(grads, cpu_grads):
+        excess = ((g.cpu() - gc_).abs() - 1e-3 * gc_.abs()).max()
+        worst = max(worst, float(excess))
+    rec["cpu_grad_excess"] = worst      # ≤ atol 1e-4 passes
+    rec["cpu_check_s"] = time.perf_counter() - t0
+    check(rec["cpu_loss_rel"] <= LM_LOSS_RTOL and worst <= 1e-4,
+          f"lm train card vs CPU: loss {rec['cpu_loss_rel']:.3e} relative, "
+          f"gradients {worst:.3e} past rtol 1e-3")
+    return rec
+
+
+def lm_train_breakdown(dev, cfg, n_steps: int = 1) -> dict:
+    """One warm FULL bf16 training step (the step and its loss read back),
+    traced: wall, device ms and operations, busy share, and its 8
+    costliest device operations."""
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.steps import build_lm_step
+    from repro_torch.optim import adamw
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    params = lm_params(cfg, dev)
+    opt = adamw.init_state(params)
+    step = build_lm_step(cfg, LMShape("train", "train", s, b),
+                         adamw.AdamWConfig(lr=LM_TRAIN["lr"]))
+    batch = {"tokens": lm_tokens(dev, b, s, cfg.vocab, seed=21)}
+    rec = trace_steps(lambda: float(step(params, opt, batch)[2]["loss"]),
+                      n_steps, "flash_bf16_kernel", top=8)
+    rec.pop("kernel_ms_per_step")
+    return {f"train_{k}": v for k, v in rec.items()}
+
+
+def lm_readings(dev, cfg, params) -> dict:
+    """Prefill at S = 4096 and an 8-slot decode step, traced: wall, device
+    ms, B8's share and ms a call against its bound."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    b, s = LM_PREFILL
+    toks = lm_tokens(dev, b, s, cfg.vocab, seed=20)
+
+    def prefill():
+        with torch.no_grad():
+            T.prefill(params, cfg, toks)
+    pre = trace_steps(prefill, 2, "flash_bf16_kernel")
+    rec = dict(prefill_wall_ms=pre["step_wall_ms"],
+               prefill_device_ms=pre["device_ms_per_step"],
+               prefill_busy=pre["device_busy_share"],
+               prefill_tok_s=b * s / pre["step_wall_ms"] * 1e3,
+               b8_share=pre["kernel_ms_per_step"] / pre["device_ms_per_step"],
+               b8_ms=pre["kernel_ms_per_step"] / cfg.n_layers,
+               b8_bound_ms=lm_b8_bound_ms(cfg, b, s))
+    rec["b8_bound_share"] = rec["b8_bound_ms"] / rec["b8_ms"]
+    slots = LM_SERVE["slots"]
+    s_max = LM_SERVE["prompt"][1] + LM_SERVE["gen"][1] + 1
+    cache = T.init_cache(cfg, slots, s_max, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for leaf in tree.leaves(cache):
+        leaf.normal_(generator=gen)
+    positions = torch.arange(300, 300 + slots, device=dev)
+    last = lm_tokens(dev, slots, 1, cfg.vocab, seed=24)
+
+    def decode():
+        with torch.no_grad():
+            T.decode_step_ragged(params, cfg, last, cache, positions)
+    dec = trace_steps(decode, 3, "flash_bf16_kernel")
+    rec.update(decode_wall_ms=dec["step_wall_ms"],
+               decode_device_ms=dec["device_ms_per_step"],
+               decode_ops=dec["device_ops_per_step"],
+               decode_busy=dec["device_busy_share"],
+               decode_tok_s=slots / dec["step_wall_ms"] * 1e3)
+    return rec
+
+
+def phase_lm(dev) -> dict:
+    """Phase 20: qwen3-0.6b at FULL (28 layers, d 1024, 16 heads / 8 kv,
+    head_dim 128, vocab 151,936, tied, bf16) with parameters drawn on the
+    card: the prefill on B8 against the blocked attention, serving through
+    the continuous batcher, training through ``build_lm_step`` and
+    ``train.loop.run``, and the readings."""
+    from repro_torch.models.common import count_params
+    cfg = lm_config()
+    params = lm_params(cfg, dev)
+    out = dict(arch=LM_ARCH, params=count_params(params))
+    t = time.perf_counter()
+    out["prefill"] = lm_prefill_checks(dev, cfg, params)
+    say(f"lm prefill {json.dumps(out['prefill'])} "
+        f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    out["serve"] = lm_serving(dev, cfg, params)
+    say(f"lm serve {json.dumps(out['serve'])} "
+        f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    out["readings"] = lm_readings(dev, cfg, params)
+    say(f"lm readings {json.dumps(out['readings'])} "
+        f"({time.perf_counter() - t:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["train"] = lm_training(dev, cfg)
+    say(f"lm train {json.dumps(out['train'])} "
+        f"({time.perf_counter() - t:.1f} s)")
+    pre, srv = out["prefill"], out["serve"]
+    out["launches"] = (pre["launches"] + pre["forward_launches"]
+                       + pre["f32_launches"] + srv["launches"]
+                       + srv["reduced_f32"]["launches"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -4780,7 +5390,14 @@ def main() -> int:
     # mutated graph's forward, hot swaps and a graph stream under traffic
     t19 = time.perf_counter()
     live = phase_live(dev, params, indptr, indices, store, x_table)
-    say(f"phase 19 took {time.perf_counter() - t19:.1f} s; the script "
+    say(f"phase 19 took {time.perf_counter() - t19:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 20 — the LM family: qwen3-0.6b at full width, its prefill on
+    # B8, served by the continuous batcher, trained
+    t20 = time.perf_counter()
+    lm = phase_lm(dev)
+    say(f"phase 20 took {time.perf_counter() - t20:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -4981,10 +5598,27 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py"
                       ":68",
-             launches=b8_launches,
-             launches_note="mha_causal in f32 and in bf16: one each",
+             launches=b8_launches + lm["launches"],
+             launches_note=(
+                 f"phase 12's mha_causal in f32 and in bf16 {b8_launches} "
+                 "(one each); phase 20's qwen3-0.6b "
+                 f"{lm['launches']}: 28 a FULL bf16 prefill at S = 4096 "
+                 f"({lm['prefill']['launches']}) and its eval forward "
+                 f"({lm['prefill']['forward_launches']}), 4 the f32 "
+                 f"prefill at depth 4 ({lm['prefill']['f32_launches']}), "
+                 f"28 a served request's prefill "
+                 f"({lm['serve']['launches']} for "
+                 f"{lm['serve']['requests']}), 3 a reduced f32 request's "
+                 f"({lm['serve']['reduced_f32']['launches']})"),
              max_abs_err=max(c["max_abs_err"] for c in b8),
              f32={k: b8[0][k] for k in ("shape",) + keys},
+             in_model=dict(
+                 shape="qwen3-0.6b prefill B=1 S=4096 bf16, 28 layers",
+                 ms=lm["readings"]["b8_ms"],
+                 bound_ms=lm["readings"]["b8_bound_ms"],
+                 share_of_prefill=lm["readings"]["b8_share"],
+                 last_logits_rel_vs_blocked=lm["prefill"]
+                 ["last_logits_rel"]),
              shape=b8[1]["shape"], **{k: b8[1][k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,6 +23,9 @@ reference wrote restores into the port, and the reverse.
   synchronously and writes it in a background thread;
 * placement: ``restore`` puts each leaf on the device and in the dtype of
   the matching ``like_tree`` leaf, whatever wrote it;
+* bfloat16: a bf16 leaf is saved as the reference saves one, its 2-byte
+  payloads (``|V2``) under the manifest dtype ``bfloat16``, and restored
+  bit for bit, the reference's files included;
 * retention: ``gc_keep_last`` prunes old steps and coordinates with
   in-flight async saves through a process-wide registry: a step whose save
   has not committed is protected from deletion and counted toward the
@@ -80,10 +83,33 @@ def inflight_steps(ckpt_dir) -> list:
         return sorted(_INFLIGHT_SAVES.get(_inflight_key(ckpt_dir), ()))
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf):
+    """A host copy of ``leaf``: a numpy array, or a CPU tensor for a
+    bfloat16 tensor (numpy has no such type)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        return leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
     return np.asarray(leaf)
+
+
+def _is_bf16(arr) -> bool:
+    """A bfloat16 tensor, or an ``ml_dtypes.bfloat16`` array (known by
+    name and size: the port does not import ml_dtypes)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.dtype == torch.bfloat16
+    return arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2
+
+
+def _to_disk(leaf):
+    """(array to ``np.save``, manifest dtype name).  A bfloat16 leaf is
+    saved as the reference saves it: its 2-byte payloads (``|V2``) under
+    the name ``bfloat16``."""
+    arr = _to_host(leaf)
+    if _is_bf16(arr):
+        bits = (arr.view(torch.int16).numpy() if isinstance(arr, torch.Tensor)
+                else np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(np.dtype("V2")), "bfloat16"
+    return arr, str(arr.dtype)
 
 
 def save(ckpt_dir, step: int, tree, metadata: Optional[dict] = None) -> Path:
@@ -103,10 +129,10 @@ def save(ckpt_dir, step: int, tree, metadata: Optional[dict] = None) -> Path:
             "metadata": metadata or {},
         }
         for i, leaf in enumerate(leaves):
-            arr = _to_host(leaf)
+            arr, dtype = _to_disk(leaf)
             np.save(tmp_dir / f"leaf_{i:05d}.npy", arr)
             manifest["leaves"].append(
-                {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+                {"shape": list(arr.shape), "dtype": dtype})
         (tmp_dir / "manifest.json").write_text(json.dumps(manifest))
         (tmp_dir / "COMMIT").write_text(str(time.time()))
         if step_dir.exists():
@@ -211,11 +237,23 @@ def validate_step(ckpt_dir, step: int, like_tree: Any = None) -> dict:
     return manifest
 
 
-def _place(arr: np.ndarray, like):
-    """``arr`` as ``like``: a tensor on its device in its dtype, or a
-    numpy array in its dtype."""
+def _place(arr: np.ndarray, dtype: str, like):
+    """``arr`` (saved as ``dtype``) as ``like``: a tensor on its device in
+    its dtype, or a numpy array in its dtype.  A bfloat16 leaf's 2-byte
+    payloads become a ``torch.bfloat16`` tensor bit for bit (or a view in
+    a bfloat16 ``like`` array's own type)."""
+    if dtype == "bfloat16":
+        if arr.dtype.itemsize != 2:
+            raise CheckpointError(f"a bfloat16 leaf holds {arr.dtype} "
+                                  "items")
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        if not isinstance(like, torch.Tensor) and _is_bf16(like):
+            return bits.view(like.dtype)
+        arr = torch.from_numpy(bits).view(torch.bfloat16)
     if isinstance(like, torch.Tensor):
         return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
+    if isinstance(arr, torch.Tensor):
+        arr = arr.float().numpy()
     return arr.astype(like.dtype)
 
 
@@ -235,7 +273,8 @@ def restore(ckpt_dir, step: int, like_tree: Any):
             raise CheckpointError(
                 f"step {step}: leaf {i} on-disk shape {tuple(arr.shape)} "
                 f"mismatches like_tree {tuple(like.shape)}")
-        loaded.append(_place(arr, like))
+        loaded.append(_place(arr, manifest["leaves"][i].get("dtype", ""),
+                             like))
     return tree_util.unflatten(structure, loaded), manifest["metadata"]
 
 

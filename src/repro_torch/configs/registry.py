@@ -1,9 +1,9 @@
-"""Architecture registry of the ported archs (the part of
-``repro.configs.registry`` that ``launch/train.py`` reads): id → family,
-config module and, for a GNN, its kind: ``conv`` (gcn/gat, node features
-on a graph) or ``geom`` (schnet/dimenet, species and positions).  The
-reference's other archs are listed with the ROADMAP queue item that ports
-them; asking for one raises ``NotImplementedError``.
+"""Architecture registry (the part of ``repro.configs.registry`` that the
+launchers read): id → family, config module and, for a GNN, its kind:
+``conv`` (gcn/gat, node features on a graph) or ``geom`` (schnet/dimenet,
+species and positions).  Every arch of the reference is ported;
+``NOT_PORTED`` would list an arch still queued, with the ROADMAP item that
+ports it, and asking for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,16 @@ class ArchEntry:
 
 
 ARCHS: Dict[str, ArchEntry] = {
+    "llama4-maverick-400b-a17b": ArchEntry(
+        "llama4-maverick-400b-a17b", "lm",
+        "repro_torch.configs.llama4_maverick_400b_a17b"),
+    "grok-1-314b": ArchEntry("grok-1-314b", "lm",
+                             "repro_torch.configs.grok_1_314b"),
+    "gemma-7b": ArchEntry("gemma-7b", "lm", "repro_torch.configs.gemma_7b"),
+    "qwen3-0.6b": ArchEntry("qwen3-0.6b", "lm",
+                            "repro_torch.configs.qwen3_0_6b"),
+    "deepseek-67b": ArchEntry("deepseek-67b", "lm",
+                              "repro_torch.configs.deepseek_67b"),
     "schnet": ArchEntry("schnet", "gnn", "repro_torch.configs.schnet",
                         "geom"),
     "gcn-cora": ArchEntry("gcn-cora", "gnn", "repro_torch.configs.gcn_cora",
@@ -34,10 +44,7 @@ ARCHS: Dict[str, ArchEntry] = {
 }
 
 # the reference's archs that the port does not have yet → ROADMAP item
-NOT_PORTED: Dict[str, str] = {
-    "llama4-maverick-400b-a17b": "A8", "grok-1-314b": "A8",
-    "gemma-7b": "A8", "qwen3-0.6b": "A8", "deepseek-67b": "A8",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def entry(arch_id: str) -> ArchEntry:

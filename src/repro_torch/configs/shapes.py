@@ -1,5 +1,5 @@
-"""Input shapes of the ported workloads (the GNN and RecSys parts of
-``repro.configs.shapes``).
+"""Input shapes of the ported workloads (copy of
+``repro.configs.shapes``: one shape set per architecture family).
 
 Padded sizes are multiples of 2048, as in the reference.
 """
@@ -11,6 +11,27 @@ from typing import Tuple
 
 def pad_to_multiple(x: int, m: int = 2048) -> int:
     return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# LM shapes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    batch: int
+
+
+LM_SHAPES = {
+    "train_4k": LMShape("train_4k", "train", 4096, 256),
+    "prefill_32k": LMShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": LMShape("decode_32k", "decode", 32768, 128),
+    # one-token decode against a 500k cache — linear in S
+    "long_500k": LMShape("long_500k", "decode", 524288, 1),
+}
 
 
 # ---------------------------------------------------------------------------

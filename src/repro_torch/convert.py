@@ -10,11 +10,15 @@ reference's GCN parameters are ``{"layer{i}": {"w": (d_in, d_out),
 SchNet's ``{"embed": (S, d), "atomwise": mlp, "int{i}": {"w_in",
 "filter": mlp, "w_out1", "w_out2"}}``, DimeNet's ``{"embed", "rbf_embed",
 "edge_embed": mlp, "output": mlp, "blocks": {...}}`` (per-block weights
-stacked on a leading axis) and DLRM's ``{"table": (V, D), "bot": {"w{i}",
-"b{i}"}, "top": {"w{i}", "b{i}"}}``; the port keeps every layout, so
-conversion is a checked copy of each array onto the device.
+stacked on a leading axis), DLRM's ``{"table": (V, D), "bot": {"w{i}",
+"b{i}"}, "top": {"w{i}", "b{i}"}}`` and the LM's ``{"embed": (V, D),
+"final_norm": (D,)[, "unembed": (D, V)], "sub{i}": {"ln1", "ln2", "attn",
+"mlp"}}`` (per-super-layer weights stacked on a leading ``n_super``
+axis); the port keeps every layout, so conversion is a checked copy of
+each array onto the device.
 Input arrays are numpy (``np.asarray`` of the JAX leaves): this module
-never imports JAX.
+never imports JAX, nor ``ml_dtypes``, whose bfloat16 arrays it recognises
+by their dtype's name and size and carries across bit for bit.
 """
 from __future__ import annotations
 
@@ -59,7 +63,20 @@ def _layers(tree: Mapping[str, Mapping], keys: set):
         yield i, p
 
 
+def _bf16_numpy(a: np.ndarray) -> bool:
+    """An ``ml_dtypes.bfloat16`` array, known by name and size (the port
+    does not import ml_dtypes)."""
+    return a.dtype.name == "bfloat16" and a.dtype.itemsize == 2
+
+
 def _t(a, dev: torch.device) -> torch.Tensor:
+    """A copy of ``a`` on ``dev``; a bfloat16 array (which
+    ``torch.from_numpy`` refuses) goes across as its 16-bit patterns and
+    is viewed as ``torch.bfloat16``, bit for bit."""
+    a = np.asarray(a)
+    if _bf16_numpy(a):
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
@@ -256,3 +273,92 @@ def dimenet_params_from_jax(tree: Mapping[str, object],
     return {"embed": _t(embed, dev), "rbf_embed": _t(rbf_embed, dev),
             "edge_embed": edge, "output": output,
             "blocks": {k: _t(blocks[k], dev) for k in want}}
+
+
+def _check_shape(name: str, a, want) -> None:
+    if tuple(np.shape(a)) != tuple(want):
+        raise ValueError(f"{name} has shape {tuple(np.shape(a))}, expected "
+                         f"{tuple(want)}")
+
+
+def lm_params_from_jax(tree: Mapping[str, object],
+                       device: DeviceLike = None) -> Dict:
+    """Reference LM parameter tree (numpy leaves, bf16 as
+    ``ml_dtypes.bfloat16``) → port parameters, after a check of every key
+    and shape: ``embed`` (V, D), ``final_norm`` (D,), ``unembed`` (D, V)
+    unless the embeddings are tied, and for each ``sub{i}`` of n
+    super-layers ``ln1``/``ln2`` (n, D), ``attn`` ``wq`` (n, D, H·hd),
+    ``wk``/``wv`` (n, D, KV·hd), ``wo`` (n, H·hd, D) with ``q_norm``/
+    ``k_norm`` (n, hd) both or neither, and ``mlp`` dense ``wg``/``wu``
+    (n, D, F), ``wd`` (n, F, D) or MoE ``router`` (n, D, E), ``wg``/``wu``
+    (n, E, D, F), ``wd`` (n, E, F, D)."""
+    dev = resolve_device(device)
+    n_sub = sum(1 for k in tree if k.startswith("sub"))
+    want = ({"embed", "final_norm"} | {f"sub{i}" for i in range(n_sub)}
+            | ({"unembed"} & set(tree)))
+    if set(tree) != want or n_sub == 0:
+        raise ValueError(f"LM tree has keys {sorted(tree)}, expected "
+                         f"{sorted(want)} with at least one sub-layer")
+    embed = np.asarray(tree["embed"])
+    if embed.ndim != 2:
+        raise ValueError(f"embed has shape {embed.shape}, expected (V, D)")
+    v, d = embed.shape
+    _check_shape("final_norm", tree["final_norm"], (d,))
+    out = {"embed": _t(embed, dev),
+           "final_norm": _t(tree["final_norm"], dev)}
+    if "unembed" in tree:
+        _check_shape("unembed", tree["unembed"], (d, v))
+        out["unembed"] = _t(tree["unembed"], dev)
+    n = None
+    for i in range(n_sub):
+        sub = tree[f"sub{i}"]
+        if set(sub) != {"ln1", "ln2", "attn", "mlp"}:
+            raise ValueError(f"sub{i} has keys {sorted(sub)}, expected "
+                             "attn, ln1, ln2, mlp")
+        if n is None:
+            n = np.shape(sub["ln1"])[0] if np.ndim(sub["ln1"]) else 0
+        for k in ("ln1", "ln2"):
+            _check_shape(f"sub{i}.{k}", sub[k], (n, d))
+        attn, mlp = sub["attn"], sub["mlp"]
+        norms = {"q_norm", "k_norm"} & set(attn)
+        if set(attn) - norms != {"wq", "wk", "wv", "wo"} or len(norms) == 1:
+            raise ValueError(f"sub{i}.attn has keys {sorted(attn)}, "
+                             "expected wk, wo, wq, wv and q_norm, k_norm "
+                             "both or neither")
+        hq = np.shape(attn["wq"])[-1]
+        kv = np.shape(attn["wk"])[-1]
+        _check_shape(f"sub{i}.attn.wq", attn["wq"], (n, d, hq))
+        _check_shape(f"sub{i}.attn.wk", attn["wk"], (n, d, kv))
+        _check_shape(f"sub{i}.attn.wv", attn["wv"], (n, d, kv))
+        _check_shape(f"sub{i}.attn.wo", attn["wo"], (n, hq, d))
+        if norms:
+            hd = np.shape(attn["q_norm"])[-1]
+            if hd == 0 or hq % hd or kv % hd:
+                raise ValueError(f"sub{i}.attn: head dim {hd} does not "
+                                 f"divide the q width {hq} and kv width "
+                                 f"{kv}")
+            for k in ("q_norm", "k_norm"):
+                _check_shape(f"sub{i}.attn.{k}", attn[k], (n, hd))
+        if "router" in mlp:
+            if set(mlp) != {"router", "wg", "wu", "wd"}:
+                raise ValueError(f"sub{i}.mlp has keys {sorted(mlp)}, "
+                                 "expected router, wd, wg, wu")
+            e = np.shape(mlp["router"])[-1]
+            f = np.shape(mlp["wg"])[-1]
+            _check_shape(f"sub{i}.mlp.router", mlp["router"], (n, d, e))
+            shapes = {"wg": (n, e, d, f), "wu": (n, e, d, f),
+                      "wd": (n, e, f, d)}
+        else:
+            if set(mlp) != {"wg", "wu", "wd"}:
+                raise ValueError(f"sub{i}.mlp has keys {sorted(mlp)}, "
+                                 "expected wd, wg, wu")
+            f = np.shape(mlp["wg"])[-1]
+            shapes = {"wg": (n, d, f), "wu": (n, d, f), "wd": (n, f, d)}
+        for k, shape in shapes.items():
+            _check_shape(f"sub{i}.mlp.{k}", mlp[k], shape)
+        out[f"sub{i}"] = {
+            "ln1": _t(sub["ln1"], dev),
+            "ln2": _t(sub["ln2"], dev),
+            "attn": {k: _t(a, dev) for k, a in attn.items()},
+            "mlp": {k: _t(a, dev) for k, a in mlp.items()}}
+    return out

@@ -1,8 +1,9 @@
 """Deterministic synthetic data (numpy copy of ``repro.data.synthetic``).
 
 Real datasets are not bundled; the generators match the statistics of the
-assigned shapes — power-law degree graphs at exact node/edge counts, and
-DLRM batches over the configured vocabularies.
+assigned shapes — power-law degree graphs at exact node/edge counts,
+molecule batches with 3-D coordinates, LM token streams and DLRM batches
+over the configured vocabularies.
 """
 from __future__ import annotations
 
@@ -54,6 +55,32 @@ def molecule_batch(batch: int, n_nodes: int = 30, n_edges: int = 64,
     valid = np.ones((batch, n_edges), dtype=bool)
     targets = rng.normal(size=(batch,)).astype(np.float32)
     return species, pos, senders, receivers, valid, targets
+
+
+def token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0):
+    """(batch, seq_len) int32 token ids drawn uniformly from the
+    vocabulary."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=(batch, seq_len), dtype=np.int64)
+    return tokens.astype(np.int32)
+
+
+class TokenStream:
+    """Deterministic infinite LM batch iterator (data-pipeline stand-in):
+    batch i is ``token_batch(..., seed=seed + i)``."""
+
+    def __init__(self, batch: int, seq_len: int, vocab: int, seed: int = 0):
+        self.batch, self.seq_len, self.vocab = batch, seq_len, vocab
+        self.seed, self.step = seed, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = token_batch(self.batch, self.seq_len, self.vocab,
+                        seed=self.seed + self.step)
+        self.step += 1
+        return t
 
 
 def dlrm_batch(batch: int, n_dense: int, vocab_sizes: Sequence[int],

@@ -1,8 +1,14 @@
-"""Step builders (the GNN and RecSys parts of ``repro.launch.steps``).
+"""Step builders per architecture family (port of ``repro.launch.steps``).
 
 Train steps take (params, opt_state, batch) and return (params,
 opt_state, metrics); serve steps take (params, batch) and return outputs.
 Batches are dicts of tensors on the parameters' device.
+
+* LM: ``build_lm_step`` — ``train`` → (params, opt_state, metrics) over
+  ``loss_fn`` (blocked attention: B8 has no backward), ``prefill`` →
+  (last-token logits, cache) with B8 (``attention="flash"``), ``decode``
+  → (logits, cache) (``tokens`` (B, S) or (B, 1) int32, ``cache``,
+  ``cache_index``).
 
 * GNN: ``build_gnn_step`` builds the training step of gcn, gat, gin,
   schnet and dimenet on any aggregation executor (``dense``, ``chunked``,
@@ -41,6 +47,31 @@ def _train_wrap(loss_fn: Callable, opt_cfg: adamw.AdamWConfig):
             opt_cfg)
         return new_p, new_s, {"loss": loss.detach(), "grad_norm": gnorm}
     return step
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def build_lm_step(cfg, shape, opt_cfg=None):
+    """The LM step of ``shape.kind``; the prefill runs ``T.prefill``'s
+    default attention (B8)."""
+    from repro_torch.models.lm import transformer as T
+    if shape.kind == "train":
+        return _train_wrap(lambda p, b: T.loss_fn(p, cfg, b["tokens"]),
+                           opt_cfg or adamw.AdamWConfig())
+    if shape.kind == "prefill":
+        def prefill_step(params, batch):
+            with torch.no_grad():
+                return T.prefill(params, cfg, batch["tokens"])
+        return prefill_step
+    if shape.kind == "decode":
+        def serve_step(params, batch):
+            with torch.no_grad():
+                return T.decode_step(params, cfg, batch["tokens"],
+                                     batch["cache"], batch["cache_index"])
+        return serve_step
+    raise ValueError(f"unknown LM shape kind {shape.kind!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,33 +1,43 @@
-"""End-to-end training driver (the GNN family of ``repro.launch.train``).
+"""End-to-end training driver (port of ``repro.launch.train``).
 
-Trains gcn-cora, gat-cora and dlrm-rm2 with allocated parameters, a data
-stream, checkpoints and the fault-tolerant loop, on the card unless
-``--device cpu`` is given:
+Trains with allocated parameters, a data stream, checkpoints and the
+fault-tolerant loop, on the card unless ``--device cpu`` is given:
+
+  # ~100M-parameter LM (the lm100m preset), blocked attention:
+  PYTHONPATH=src python -m repro_torch.launch.train --preset lm100m \
+      --steps 300
+
+  # any LM arch at its reduced config:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --steps 50
 
   # paper workload — GCN at full width on a Cora-scale synthetic graph:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \
       --full-gnn --backend cuda --steps 50
 
   # GAT (8 heads, each head's aggregation on B1) and DLRM (B6 forward):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \
       --full-gnn --backend cuda --steps 50
-  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
       --batch 8 --steps 50
 
   # the same on the CPU (the kernels' plain versions):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \
       --full-gnn --backend cuda --steps 5 --device cpu
 
-``--backend`` picks the aggregation executor (``dense``, ``chunked``,
-``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the SpGEMM-built Â²
-(gcn).  dlrm-rm2 trains its *reduced* config, as the reference does, on
-``--batch``-sample ``dlrm_batch(seed=i)`` batches.  The LM preset and
-family (ROADMAP queue A8) raise ``NotImplementedError``, and so do schnet
-and dimenet, which the reference's launcher does not train either: its
-setup builds Cora's graph and its node features (``dataclasses.replace(
-cfg, d_in=...)``), which the geometric configs do not have.  Train those
-through ``launch/steps.build_gnn_step`` and ``train.loop.run`` on a
-molecule batch.
+The LM family (``--preset lm100m``, ``--arch <lm>`` at its reduced
+config) trains on ``TokenStream(--batch, --seq)`` batches, AdamW at lr
+3e-4, through ``launch/steps.build_lm_step`` (blocked attention: B8 has no
+backward).  ``--backend`` picks the aggregation executor (``dense``,
+``chunked``, ``cuda``, ``cuda_q8``); ``--two-hop`` aggregates over the
+SpGEMM-built Â² (gcn).  dlrm-rm2 trains its *reduced* config, as the
+reference does, on ``--batch``-sample ``dlrm_batch(seed=i)`` batches.
+schnet and dimenet raise ``NotImplementedError``, as the reference's
+launcher does not train them either: its setup builds Cora's graph and its
+node features (``dataclasses.replace(cfg, d_in=...)``), which the
+geometric configs do not have.  Train those through
+``launch/steps.build_gnn_step`` and ``train.loop.run`` on a molecule
+batch.
 """
 from __future__ import annotations
 
@@ -39,15 +49,39 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.configs.shapes import LMShape
 from repro_torch.data import synthetic as syn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.models.lm.transformer import LMConfig
 from repro_torch.optim import adamw
 from repro_torch.sparse.plan import ALL_BACKENDS
 from repro_torch.train import loop as train_loop
 
 N_NODES = 2708
 N_LABELLED = 140
+
+LM100M = LMConfig(
+    name="lm100m", n_layers=10, d_model=640, n_heads=10, n_kv_heads=5,
+    head_dim=64, d_ff=2560, vocab=32768, act="silu", qk_norm=True,
+    q_chunk=256, kv_chunk=256,
+)  # ≈ 103M params (61M layers + 2×21M embeddings)
+
+
+def _lm_setup(cfg, batch: int, seq: int, seed: int,
+              device: DeviceLike = None):
+    """(params, step, batches) for an LM config: parameters drawn on the
+    device from ``seed``, ``TokenStream(batch, seq, seed=seed)`` batches,
+    AdamW at lr 3e-4, as the reference sets it up."""
+    from repro_torch.models.lm import transformer as T
+    dev = resolve_device(device)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    stream = syn.TokenStream(batch, seq, cfg.vocab, seed=seed)
+    step = steps_mod.build_lm_step(cfg, LMShape("train", "train", seq, batch),
+                                   adamw.AdamWConfig(lr=3e-4))
+    batches = ({"tokens": torch.from_numpy(t).to(dev)} for t in stream)
+    return params, step, batches
 
 
 def _gnn_setup(arch_id, cfg, seed, backend: str = "dense",
@@ -128,7 +162,9 @@ def main(argv=None):
     ap.add_argument("--preset", default=None, choices=[None, "lm100m"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8,
-                    help="samples a step (recsys)")
+                    help="samples a step (LM, recsys)")
+    ap.add_argument("--seq", type=int, default=512,
+                    help="tokens a sample (LM)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory; a committed step there is "
@@ -146,19 +182,24 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
 
-    if args.preset == "lm100m":
-        raise NotImplementedError(
-            "the lm100m preset trains the LM family, not ported yet "
-            "(ROADMAP queue A8)")
     arch_id = args.arch or "gcn-cora"
-    if registry.entry(arch_id).gnn_kind == "geom":
+    if args.preset == "lm100m":
+        from repro_torch.models.common import count_params
+        params, step, batches = _lm_setup(LM100M, args.batch, args.seq,
+                                          args.seed, args.device)
+        print(f"[train] lm100m: {count_params(params) / 1e6:.1f}M params")
+    elif registry.entry(arch_id).gnn_kind == "geom":
         raise NotImplementedError(
             f"{arch_id!r} is not trained by this launcher, as the "
             "reference's is not: its setup builds the Cora-scale graph and "
             "its node features (d_in), which the geometric configs do not "
             "have; train it on a molecule batch through "
             "launch/steps.build_gnn_step and train.loop.run")
-    if registry.entry(arch_id).family == "recsys":
+    elif registry.entry(arch_id).family == "lm":
+        cfg = registry.get_config(arch_id, reduced=True)
+        params, step, batches = _lm_setup(cfg, args.batch, args.seq,
+                                          args.seed, args.device)
+    elif registry.entry(arch_id).family == "recsys":
         params, step, batches = _recsys_setup(arch_id, args.seed,
                                               args.batch, args.device)
     else:

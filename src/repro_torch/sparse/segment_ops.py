@@ -91,11 +91,15 @@ def _ordered_sum(data: torch.Tensor, order: SegmentOrder,
                  bounds: torch.Tensor) -> torch.Tensor:
     """Each segment's entries of ``data`` added one after another in
     ``order``; differentiable (the backward gathers, and the sorting
-    gather's backward adds each row once)."""
+    gather's backward adds each row once).  bf16 and f16 data are added in
+    f32 and the sums rounded back once (``segment_reduce`` on CUDA takes
+    neither type)."""
     flat = data[:, None] if data.ndim == 1 else data.flatten(1)
+    if flat.dtype in (torch.bfloat16, torch.float16):
+        flat = flat.float()
     out = torch.segment_reduce(flat.index_select(0, order.perm), "sum",
                                offsets=bounds, axis=0)
-    return out.reshape((order.n,) + tuple(data.shape[1:]))
+    return out.reshape((order.n,) + tuple(data.shape[1:])).to(data.dtype)
 
 
 class _Gather(torch.autograd.Function):

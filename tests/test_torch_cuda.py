@@ -1679,3 +1679,105 @@ def test_incremental_plan_gcn_forward_equals_cold(cuda, backend):
                     dl.cold_plan(backends=backends, device=cuda))]
     assert ys[0].device.type == "cuda"
     assert torch.equal(ys[0], ys[1])
+
+
+# ---------------------------------------------------------------------------
+# the LM family on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("llama4-maverick-400b-a17b", "grok-1-314b", "gemma-7b",
+            "qwen3-0.6b", "deepseek-67b")
+LM_TOL = 1e-4
+
+
+def _lm_on(params, dev):
+    from repro_torch import tree
+    leaves, structure = tree.flatten(params)
+    return tree.unflatten(structure, [t.to(dev) for t in leaves])
+
+
+def _lm_case(arch, dev):
+    """(cfg, CPU params, card params, CPU tokens, the prefill's attention:
+    B8 where it takes the head dim, the blocked attention elsewhere)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+    from repro_torch.models.lm import transformer as T
+    resolve_device(dev)
+    cfg = registry.get_config(arch, reduced=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(token_batch(2, 32, cfg.vocab, seed=3))
+    attention = "flash" if cfg.head_dim in HEAD_DIMS else "blocked"
+    return cfg, params, _lm_on(params, dev), toks, attention
+
+
+def _lm_close(got, want, what):
+    err = float((got.cpu().float() - want.float()).abs().max())
+    assert err <= LM_TOL, f"{what}: {err:.3e}"
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_on_card_matches_cpu(cuda, arch):
+    """Each reduced arch's forward, prefill and decode steps (fixed and
+    ragged) on the card against the port on the CPU, f32."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    cfg, params, on, toks, attention = _lm_case(arch, cuda)
+    with torch.no_grad():
+        _lm_close(T.forward(on, cfg, toks.to(cuda)),
+                  T.forward(params, cfg, toks), "forward")
+        got, kv = T.prefill(on, cfg, toks[:, :8].to(cuda),
+                            attention=attention)
+        want, kv_cpu = T.prefill(params, cfg, toks[:, :8],
+                                 attention=attention)
+        _lm_close(got, want, f"prefill ({attention})")
+        for a, b in zip(tree.leaves(kv), tree.leaves(kv_cpu)):
+            _lm_close(a, b, "prefill cache")
+        caches = []
+        for dev, src in ((cuda, kv), ("cpu", kv_cpu)):
+            cache = T.init_cache(cfg, 2, 16, device=dev)
+            for dst, s in zip(tree.leaves(cache), tree.leaves(src)):
+                dst[:, :, :8] = s
+            caches.append(cache)
+        step = toks[:, 8:9]
+        got, _ = T.decode_step(on, cfg, step.to(cuda), caches[0], 8)
+        want, _ = T.decode_step(params, cfg, step, caches[1], 8)
+        _lm_close(got, want, "decode_step")
+        pos = torch.tensor([9, 3])
+        got, gc_ = T.decode_step_ragged(on, cfg, step.to(cuda), caches[0],
+                                        pos.to(cuda))
+        want, wc = T.decode_step_ragged(params, cfg, step, caches[1], pos)
+        _lm_close(got, want, "decode_step_ragged")
+        for a, b in zip(tree.leaves(gc_), tree.leaves(wc)):
+            _lm_close(a, b, "ragged cache")
+
+
+def test_lm_prefill_b8_matches_blocked(cuda):
+    """B8 inside the reduced qwen3's prefill (head_dim 16): one launch a
+    layer, logits and cache against the blocked attention's on the card."""
+    from repro_torch import tree
+    from repro_torch.models.lm import transformer as T
+    cfg, _, on, toks, attention = _lm_case("qwen3-0.6b", cuda)
+    assert attention == "flash"
+    with torch.no_grad():
+        before = flash_attention.launches
+        got, kv = T.prefill(on, cfg, toks.to(cuda), attention="flash")
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + cfg.n_layers
+        want, kv_b = T.prefill(on, cfg, toks.to(cuda), attention="blocked")
+        assert flash_attention.launches == before + cfg.n_layers
+    _lm_close(got, want.cpu(), "flash vs blocked")
+    for a, b in zip(tree.leaves(kv), tree.leaves(kv_b)):
+        # the first layer's k, v come before any attention; later layers'
+        # carry the earlier layers' attention outputs
+        assert torch.equal(a[0], b[0])
+        _lm_close(a, b.cpu(), "flash vs blocked cache")
+
+
+def test_lm_flash_raises_for_head_dims_b8_lacks(cuda):
+    from repro_torch.models.lm import transformer as T
+    cfg, _, on, toks, attention = _lm_case("gemma-7b", cuda)
+    assert attention == "blocked"
+    with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
+        T.prefill(on, cfg, toks.to(cuda), attention="flash")

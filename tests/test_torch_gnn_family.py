@@ -404,11 +404,12 @@ def test_configs_and_registry():
     assert registry.entry("gat-cora").family == "gnn"
     assert registry.entry("gat-cora").module == "repro_torch.configs.gat_cora"
     assert registry.get_config("gat-cora") == tcfgs.FULL
-    # the geometric archs now resolve; an LM arch is still queued (A8)
+    # the geometric archs resolve, and so do the LM archs (A8)
     for arch in ("schnet", "dimenet"):
         assert registry.entry(arch).gnn_kind == "geom"
-    with pytest.raises(NotImplementedError, match="A8"):
-        registry.entry("qwen3-0.6b")
+    assert registry.entry("qwen3-0.6b").family == "lm"
+    assert registry.get_config("qwen3-0.6b").n_layers == 28
+    assert not registry.NOT_PORTED
 
 
 def dataclass_items(cfg):
