@@ -330,7 +330,32 @@ Phases, each of which raises (exit code 1) on any failure:
     CPU (loss ≤1e-4 relative, gradients rtol 1e-3, atol 1e-4); readings:
     prefill wall and device ms, tokens/s, B8's share and ms a call against
     its bound, an 8-slot decode step, the training step traced and its
-    peak memory.
+    peak memory;
+21. A8c and A8d — NeuraSim's workload statistics of the 20 Table-1
+    graphs (``neurasim.datasets.synth`` at the published node and edge
+    counts, up to cit-Patents' 3.77 M nodes and 7.4e7 partial products)
+    computed on the card (``stats_from_coo``, ``mapping_loads`` for the
+    four mappings) with ``pp_interim`` equal to the host's
+    ``deg[cols].sum()`` everywhere and the statistics, row tags and loads
+    equal to the CPU's on the fast set and cit-Patents, then the model's
+    GOP/s per config and its MKL and Gamma ratios (the model's numbers,
+    not the card's speed); A·A of facebook and wiki-Vote through the
+    ``cuda`` SpGEMM executor, counted (B2), C against B2's plain version
+    (≤1e-5) and the plan's ``pp_interim`` and C's entries equal to
+    NeuraSim's; three ``error_feedback_compress`` steps over one
+    backward's bf16 gradients of qwen3-0.6b FULL at B = 2, S = 2048, timed,
+    the embedding, an attention and an MLP leaf and every leaf under a
+    million elements bitwise equal to the same steps on the CPU, with the
+    wire bytes against bf16 and f32; one training step each of
+    qwen3-0.6b FULL (phase 20's shape), gcn-cora FULL on ``dense`` (phase
+    13's) and dlrm-rm2 at ``train_batch`` (phase 15's vocabularies)
+    counted under ``launch/op_costs`` on the card, flops equal to the same
+    step counted under ``FakeTensorMode`` on the host, with
+    ``flops.model_flops``, the useful ratio and the FLOP share of the
+    step's device time from its own phase against the bf16 and f32
+    peaks; and ``launch.dryrun``'s qwen3-0.6b × train_4k and dlrm-rm2 ×
+    train_batch on a fake 16×16 world, both ``ok`` (host work started in
+    the background at the script's start, niced, one thread).
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
@@ -5256,6 +5281,345 @@ def phase_lm(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21 — A8c and A8d: NeuraSim, gradient compression, counted flops,
+# the dry run
+# ---------------------------------------------------------------------------
+
+A8_CPU_GRAPHS = ("ca-CondMat", "email-Enron", "p2p-Gnutella31", "poisson3Da",
+                 "facebook", "wiki-Vote", "scircuit", "m133-b3",
+                 "cit-Patents")        # datasets.FAST_SET and the largest
+A8_B2_GRAPHS = ("facebook", "wiki-Vote")
+A8_UNITS = 32                          # Tile-16's NeuraMems
+A8_HEADLINE = ("poisson3Da", "facebook", "wiki-Vote", "scircuit")
+A8_COMPRESS_STEPS = 3
+# leaves held bitwise against the CPU: the embedding, a stacked attention
+# and an MLP leaf, and every leaf under a million elements
+A8_COMPRESS_LEAVES = ("embed", "sub0.attn.wk", "sub0.mlp.wd")
+A8_DRYRUN = (("qwen3-0.6b", "train_4k"), ("dlrm-rm2", "train_batch"))
+
+
+def start_dryrun(out_dir: pathlib.Path):
+    """Phase 21 (e)'s two dry-run cells on the 16x16 fake world, started in
+    the background at the script's start (host work: ~2.5 min for
+    qwen3-0.6b × train_4k), niced and on one thread so that the phases
+    on the card keep their host."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = []
+    for arch, shape in A8_DRYRUN:
+        log = open(out_dir / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--out", str(out_dir)],
+            stdout=log, stderr=subprocess.STDOUT, env=env,
+            preexec_fn=lambda: os.nice(19))))
+    return procs
+
+
+def finish_dryrun(procs, out_dir: pathlib.Path, timeout_s: float) -> dict:
+    """Wait for the dry-run cells (killing any still running at the
+    deadline) → their records' readings; each must be ``ok``."""
+    out = {}
+    deadline = time.perf_counter() + timeout_s
+    for arch, shape, log, proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        path = out_dir / f"{arch}__{shape}__16x16.json"
+        check(proc.returncode == 0 and path.exists(),
+              f"dryrun {arch} × {shape}: exit {proc.returncode}, log "
+              f"{(out_dir / f'{arch}__{shape}.log').read_text()[-2000:]}")
+        rec = json.loads(path.read_text())
+        check(rec["ok"], f"dryrun {arch} × {shape}: {rec.get('error')}")
+        roof = rec["roofline"]
+        out[f"{arch}×{shape}"] = dict(
+            trace_s=rec["trace_s"], n_ops=rec["n_ops"],
+            **{k: roof[k] for k in ("flops", "bytes", "coll_bytes",
+                                    "model_flops", "useful_ratio",
+                                    "bottleneck")},
+            temp_bytes=rec["memory_analysis"]["temp_size_in_bytes"],
+            argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"])
+    return out
+
+
+def a8_neurasim(dev) -> dict:
+    """(a) NeuraSim's statistics of the 20 Table-1 graphs on the card, held
+    against the host's ``deg[cols].sum()`` and, for ``A8_CPU_GRAPHS``,
+    against the same functions on the CPU; the model's GOP/s a config."""
+    from repro_torch.neurasim import datasets, machine, model
+    maps = ("ring", "modular", "random", "drhm")
+    rec = dict(graphs={}, card_s=0.0, cpu_s=0.0, synth_s=0.0)
+    gops = {c: {} for c in machine.CONFIGS}
+    for name in datasets.TABLE1:
+        t = time.perf_counter()
+        s, r, n = datasets.synth(name)
+        rec["synth_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        w = model.stats_from_coo(s, r, n, device=dev)
+        loads = {m: model.mapping_loads(w.row_tags, A8_UNITS, m, device=dev)
+                 for m in maps}
+        sims = {c: model.simulate_spgemm(w, cfg)
+                for c, cfg in machine.CONFIGS.items()}
+        torch.cuda.synchronize()
+        rec["card_s"] += time.perf_counter() - t
+        pp = int(np.bincount(s, minlength=n)[r].sum())
+        check(w.pp_interim == pp, f"neurasim {name}: pp_interim "
+                                  f"{w.pp_interim} != deg[cols].sum() {pp}")
+        g = dict(pp_interim=w.pp_interim, nnz_out=w.nnz_out,
+                 **{f"{c}_gops": sims[c].gops for c in sims})
+        if name in A8_CPU_GRAPHS:
+            t = time.perf_counter()
+            wc = model.stats_from_coo(s, r, n, device="cpu")
+            same = (wc.nnz_out == w.nnz_out and torch.equal(
+                wc.row_tags, w.row_tags.cpu()) and all(
+                torch.equal(model.mapping_loads(wc.row_tags, A8_UNITS, m,
+                                                device="cpu"),
+                            loads[m].cpu()) for m in maps))
+            rec["cpu_s"] += time.perf_counter() - t
+            check(same, f"neurasim {name}: the card's stats differ from "
+                        "the CPU's")
+            g["cpu_equal"] = True
+        for c in sims:
+            gops[c][name] = sims[c].gops
+        rec["graphs"][name] = g
+    rec["mean_gops"] = {c: statistics.fmean(v.values())
+                        for c, v in gops.items()}
+    t16 = statistics.fmean(gops["tile16"][n] for n in A8_HEADLINE)
+    rec["headline_tile16_gops"] = t16
+    rec["vs_mkl"] = t16 / machine.PUBLISHED_GOPS["Xeon E5 (MKL)"]
+    rec["vs_gamma"] = t16 / machine.PUBLISHED_GOPS["Gamma"]
+    rec["paper"] = dict(vs_mkl=22.1, vs_gamma=1.5,
+                        gops=machine.PAPER_NEURACHIP_GOPS)
+    return rec
+
+
+def a8_spgemm(dev) -> dict:
+    """(b) A·A of ``A8_B2_GRAPHS`` through the ``cuda`` SpGEMM executor
+    (B2), counted; C against B2's plain version, and the plan's counts
+    against NeuraSim's."""
+    from repro_torch.kernels.spgemm_pad import (spgemm_hashpad,
+                                                spgemm_hashpad_compact_plain)
+    from repro_torch.neurasim import datasets, model
+    from repro_torch.sparse import backend as sb
+    from repro_torch.sparse.spgemm import make_spgemm_plan
+    rec = {}
+    for name in A8_B2_GRAPHS:
+        s, r, n = datasets.synth(name)
+        w = np.random.default_rng(0).normal(size=s.size).astype(np.float32)
+        t = time.perf_counter()
+        zero_counts([spgemm_hashpad])
+        plan = make_spgemm_plan(s, r, n, s, r, n, a_vals=w, b_vals=w,
+                                executors=("cuda",), device=dev)
+        c_vals = sb.spgemm(plan, backend="cuda")
+        launches = read_counts([spgemm_hashpad])["spgemm_hashpad"]
+        wall_s = time.perf_counter() - t
+        args = (plan.ell_remaining, plan.ell_block_ptr, plan.ell_a,
+                plan.cell_ptr, plan.cell_lane, plan.cell_bucket,
+                plan.cell_val, plan.c_indptr, plan.out_bucket)
+        kw = dict(block_rows=plan.block_rows, pad_width=plan.pad_width)
+        plain = spgemm_hashpad_compact_plain(*args, **kw)
+        err = float((c_vals - plain).abs().max())
+        ws = model.stats_from_coo(s, r, n, device=dev)
+        check(launches >= 1, f"B2 {name}: not launched on the path")
+        check(err <= KERNEL_TOL, f"B2 {name}: max|kernel-plain| {err:.3e}")
+        check(plan.pp_interim == ws.pp_interim
+              and plan.nnz_out == ws.nnz_out == c_vals.numel(),
+              f"B2 {name}: plan pp {plan.pp_interim} nnz {plan.nnz_out} "
+              f"(C {c_vals.numel()}) vs NeuraSim {ws.pp_interim} "
+              f"{ws.nnz_out}")
+        rec[name] = dict(launches=launches, max_abs_err=err,
+                         pp_interim=plan.pp_interim, nnz_out=plan.nnz_out,
+                         build_and_numeric_s=wall_s)
+    return rec
+
+
+def a8_compression(dev) -> dict:
+    """(c) ``error_feedback_compress`` over one backward's bf16 gradients of
+    qwen3-0.6b FULL at ``LM_TRAIN``'s shape, ``A8_COMPRESS_STEPS`` steps on
+    the card, timed, and the same steps on a CPU copy of the chosen
+    leaves: decoded leaves and residuals bitwise equal."""
+    from repro_torch import tree
+    from repro_torch.optim import compression as C
+    cfg = lm_config()
+    params = lm_params(cfg, dev)
+    names = tree_paths(params)
+    toks = lm_tokens(dev, LM_TRAIN["batch"], LM_TRAIN["seq"], cfg.vocab,
+                     seed=21)
+    _, grads = lm_loss_and_grads(params, cfg, toks)
+    del params
+    grads = list(grads)
+    keep = [i for i, (nm, g) in enumerate(zip(names, grads))
+            if nm in A8_COMPRESS_LEAVES or g.numel() < 1_000_000]
+    check(all(nm in [names[i] for i in keep] for nm in A8_COMPRESS_LEAVES),
+          f"compression: leaves {A8_COMPRESS_LEAVES} not in {names}")
+    cpu_g = [grads[i].cpu() for i in keep]
+    res = C.init_residual(grads)
+    ms = []
+    card = []
+    for _ in range(A8_COMPRESS_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dec, res = C.error_feedback_compress(grads, res)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        card.append([(dec[i].cpu(), res[i].cpu()) for i in keep])
+    cpu_res = C.init_residual(cpu_g)
+    t = time.perf_counter()
+    for step in range(A8_COMPRESS_STEPS):
+        dec_c, cpu_res = C.error_feedback_compress(cpu_g, cpu_res)
+        for j, (d, r) in enumerate(card[step]):
+            check(torch.equal(d, dec_c[j]) and torch.equal(r, cpu_res[j]),
+                  f"compression step {step}: {names[keep[j]]} differs "
+                  "from the CPU's")
+    n = sum(g.numel() for g in grads)
+    wire = C.wire_bytes(grads)
+    return dict(leaves=len(grads), elements=n,
+                checked_leaves=[names[i] for i in keep],
+                checked_elements=sum(g.numel() for g in cpu_g),
+                ms_per_call=ms, cpu_check_s=time.perf_counter() - t,
+                wire_bytes=wire, vs_bf16=wire / (2 * n), vs_f32=wire / (4 * n))
+
+
+def tree_paths(params) -> list:
+    """Dotted key paths of a parameter tree's leaves, in leaf order."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        else:
+            out.append(".".join(path))
+    walk(params, ())
+    return out
+
+
+def flop_reading(name, step, args, host_step, host_args, model_flops,
+                 device_ms, card) -> dict:
+    """(d) one step counted under ``op_costs`` on the card, and the same
+    step built on the host counted under ``FakeTensorMode`` (``host_args``
+    gives its arguments; real host tensors it holds, such as a plan, are
+    taken in as fake): flops equal; the useful ratio and the FLOP share
+    of ``device_ms`` (the step's device time, traced by its own phase in
+    this run)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import tree
+    from repro_torch.launch.analysis import PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+    from repro_torch.launch.op_costs import OpCosts
+    with OpCosts() as on_card:
+        step(*args)
+    torch.cuda.synchronize()
+    metas = [tree.map_leaves(tree.meta_like, x) for x in host_args]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = [tree.map_leaves(
+            lambda t: torch.empty(t.shape, dtype=t.dtype), x) for x in metas]
+        with OpCosts() as on_host:
+            host_step(*fake)
+    check(on_card.flops == on_host.flops,
+          f"flops {name}: card {on_card.flops:.6e} != fake "
+          f"{on_host.flops:.6e}")
+    s = device_ms / 1e3
+    return dict(counted_flops=on_card.flops, fake_flops=on_host.flops,
+                counted_bytes=on_card.bytes, fake_bytes=on_host.bytes,
+                model_flops=model_flops,
+                useful_ratio=model_flops / on_card.flops,
+                device_ms=device_ms,
+                tflops_per_s=model_flops / s / 1e12,
+                share_bf16_peak=model_flops / (s * PEAK_FLOPS_BF16),
+                share_f32_peak=model_flops / (s * PEAK_FLOPS_F32),
+                card=card)
+
+
+def a8_flops(dev, device_ms: dict, card: str) -> dict:
+    """(d) counted flops of three training steps: qwen3-0.6b FULL at
+    ``LM_TRAIN``'s shape (phase 20), gcn-cora FULL on ``dense`` (phase
+    13) and dlrm-rm2 at ``train_batch`` with phase 15's capped
+    vocabularies."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import GNNShape, LMShape, RECSYS_SHAPES
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.launch import flops
+    from repro_torch.launch.steps import build_lm_step, build_recsys_step
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.optim import adamw
+    out = {}
+    cfg = lm_config()
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    shape = LMShape("train", "train", s, b)
+    params = lm_params(cfg, dev)
+    step = build_lm_step(cfg, shape, adamw.AdamWConfig(lr=LM_TRAIN["lr"]))
+    args = (params, adamw.init_state(params),
+            {"tokens": lm_tokens(dev, b, s, cfg.vocab, seed=21)})
+    out["qwen3-0.6b"] = flop_reading(
+        "qwen3-0.6b", step, args, step, args,
+        flops.model_flops("qwen3-0.6b", shape, cfg=cfg),
+        device_ms["qwen3-0.6b"], card)
+    del params, args
+    torch.cuda.empty_cache()
+    p, step, batches = train_setup(dev, "dense")
+    batch = next(batches)
+    p_cpu, step_cpu, batches_cpu = train_setup(torch.device("cpu"), "dense")
+    n, e = batch["x"].shape[0], batch["senders"].shape[0]
+    gshape = GNNShape("cora_train", "fullgraph", n_nodes=n - 1, n_edges=e,
+                      d_feat=batch["x"].shape[1], n_classes=7)
+    out["gcn-cora"] = flop_reading(
+        "gcn-cora", step, (p, adamw.init_state(p), batch), step_cpu,
+        (p_cpu, adamw.init_state(p_cpu), next(batches_cpu)),
+        flops.model_flops("gcn-cora", gshape,
+                          {"n_nodes_pad": n, "n_edges_pad": e},
+                          cfg=registry.get_config("gcn-cora", shape=gshape)),
+        device_ms["gcn-cora"], card)
+    dcfg = dlrm_train_cfg()
+    rshape = RECSYS_SHAPES["train_batch"]
+    dp = dlrm.init_params(dcfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    dstep = build_recsys_step(dcfg, rshape, adamw.AdamWConfig(lr=1e-3))
+    d, ids, y = dlrm_batch(rshape.batch, dcfg.n_dense, dcfg.vocab_sizes,
+                           seed=0)
+    db = {"dense": torch.from_numpy(d).to(dev),
+          "sparse_ids": torch.from_numpy(ids).to(dev),
+          "labels": torch.from_numpy(y).to(dev)}
+    args = (dp, adamw.init_state(dp), db)
+    out["dlrm-rm2"] = flop_reading(
+        "dlrm-rm2", dstep, args, dstep, args,
+        flops.model_flops("dlrm-rm2", rshape, cfg=dcfg),
+        device_ms["dlrm-rm2"], card)
+    return out
+
+
+def phase_a8(dev, card: str, device_ms: dict, dryrun) -> dict:
+    """Phase 21: (a) NeuraSim at Table-1 size, (b) against B2, (c)
+    gradient compression at full width, (d) counted flops and FLOP shares,
+    (e) the dry run's two cells (started at the script's start)."""
+    out = {}
+    for key, fn in (("neurasim", lambda: a8_neurasim(dev)),
+                    ("spgemm", lambda: a8_spgemm(dev)),
+                    ("compression", lambda: a8_compression(dev)),
+                    ("flops", lambda: a8_flops(dev, device_ms, card))):
+        t = time.perf_counter()
+        out[key] = fn()
+        out[f"{key}_s"] = time.perf_counter() - t
+        say(f"a8 {key} {json.dumps(out[key])} ({out[f'{key}_s']:.1f} s)")
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    procs, out_dir = dryrun
+    out["dryrun"] = finish_dryrun(procs, out_dir, A8_DRYRUN_WAIT_S)
+    out["dryrun_wait_s"] = time.perf_counter() - t
+    say(f"a8 dryrun {json.dumps(out['dryrun'])} (waited "
+        f"{out['dryrun_wait_s']:.1f} s)")
+    return out
+
+
+A8_DRYRUN_WAIT_S = 600
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip-smoke] torch.cuda.is_available() is false: this script "
@@ -5281,6 +5645,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    dryrun_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
+    dryrun = (start_dryrun(dryrun_dir), dryrun_dir)
     dev = resolve_device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -5397,7 +5763,18 @@ def main() -> int:
     # B8, served by the continuous batcher, trained
     t20 = time.perf_counter()
     lm = phase_lm(dev)
-    say(f"phase 20 took {time.perf_counter() - t20:.1f} s; the script "
+    say(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 21 — A8c and A8d: NeuraSim at Table-1 size and against B2,
+    # gradient compression, counted flops and FLOP shares, the dry run
+    t21 = time.perf_counter()
+    a8 = phase_a8(dev, card, {
+        "qwen3-0.6b": lm["train"]["train_device_ms_per_step"],
+        "gcn-cora": train["readings"]["dense"]["device_ms_per_step"],
+        "dlrm-rm2": dlrm_train["device_ms_per_step"]}, dryrun)
+    shutil.rmtree(dryrun[1], ignore_errors=True)
+    say(f"phase 21 took {time.perf_counter() - t21:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -5520,11 +5897,13 @@ def main() -> int:
              replaces="src/repro/kernels/spgemm_pad/spgemm_pad.py:83",
              launches=(two_hop["launches"]["spgemm_hashpad"]
                        + conv["launches"]["spgemm_hashpad"]
-                       + geom["launches"]["spgemm_hashpad"]),
+                       + geom["launches"]["spgemm_hashpad"]
+                       + sum(g["launches"] for g in a8["spgemm"].values())),
              launches_note="two_hop_graph and coarsen_graph (phase 7); "
                            "GIN's Â² under cuda and cuda_q8 (phase 14); "
                            "DimeNet's Â² under cuda and cuda_q8 (phase "
-                           "16)",
+                           "16); A·A of Table-1's facebook and wiki-Vote "
+                           "(phase 21)",
              max_abs_err=max(c["max_abs_err"] for c in b2),
              shape=main_b2["shape"], **{k: main_b2[k] for k in keys}),
         dict(name="spmm_dedup_chunks_q8", route="cuda",

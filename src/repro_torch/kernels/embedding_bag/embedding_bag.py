@@ -49,8 +49,8 @@ def embedding_bag_plain(ids: torch.Tensor, table: torch.Tensor
     in m order from zero as the kernel does → ``(B, F·D)`` f32."""
     b, f, m = ids.shape
     rows = take_rows(table, ids)                   # (B, F, M, D)
-    out = torch.zeros((b, f, table.shape[1]), dtype=torch.float32,
-                      device=table.device)
+    out = torch.zeros_like(rows[:, :, 0], dtype=torch.float32,
+                           memory_format=torch.contiguous_format)
     for j in range(m):
         out += rows[:, :, j]
     return out.reshape(b, -1)

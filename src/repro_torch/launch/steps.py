@@ -19,6 +19,10 @@ Batches are dicts of tensors on the parameters' device.
   metrics), ``serve`` → logits, ``retrieval`` → candidate scores
   (``dense`` (B, 13) f32, ``sparse_ids`` (B, 26, M) int32, ``labels`` (B,)
   f32, ``candidates`` (C, D)).
+
+``build_step`` picks the family's builder for an (arch, shape) cell of
+the registry, and ``needs_optimizer`` says whether its step takes an
+optimizer state.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.configs.registry import entry
 from repro_torch.configs.shapes import RecSysShape
 from repro_torch.models.recsys import dlrm
 from repro_torch.optim import adamw
@@ -53,9 +58,9 @@ def _train_wrap(loss_fn: Callable, opt_cfg: adamw.AdamWConfig):
 # LM
 # ---------------------------------------------------------------------------
 
-def build_lm_step(cfg, shape, opt_cfg=None):
-    """The LM step of ``shape.kind``; the prefill runs ``T.prefill``'s
-    default attention (B8)."""
+def build_lm_step(cfg, shape, opt_cfg=None, attention: str = "flash"):
+    """The LM step of ``shape.kind``; the prefill runs ``attention``
+    (``"flash"``: B8, or ``"blocked"``)."""
     from repro_torch.models.lm import transformer as T
     if shape.kind == "train":
         return _train_wrap(lambda p, b: T.loss_fn(p, cfg, b["tokens"]),
@@ -63,7 +68,8 @@ def build_lm_step(cfg, shape, opt_cfg=None):
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             with torch.no_grad():
-                return T.prefill(params, cfg, batch["tokens"])
+                return T.prefill(params, cfg, batch["tokens"],
+                                 attention=attention)
         return prefill_step
     if shape.kind == "decode":
         def serve_step(params, batch):
@@ -221,3 +227,32 @@ def build_recsys_step(cfg: dlrm.DLRMConfig, shape: RecSysShape,
                                 batch["sparse_ids"])
         return serve
     raise ValueError(f"unknown RecSys shape kind {shape.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Any registry cell
+# ---------------------------------------------------------------------------
+
+def build_step(arch_id: str, cfg, shape, statics, opt_cfg=None,
+               backend: str = "dense", plan=None, triplet_plan=None,
+               graph=None, two_hop=None, attention: str = "flash"):
+    """The step of the cell (``arch_id``, ``shape``): ``statics`` is
+    ``registry.input_specs``' second value (its ``n_graphs`` goes to
+    ``build_gnn_step``); ``attention`` is the LM prefill's."""
+    # "gin" is a beyond-assignment arch: GNN family, not in the registry
+    fam = "gnn" if arch_id == "gin" else entry(arch_id).family
+    if fam == "lm":
+        return build_lm_step(cfg, shape, opt_cfg, attention=attention)
+    if fam == "gnn":
+        return build_gnn_step(arch_id, cfg, opt_cfg, backend=backend,
+                              plan=plan, graph=graph, two_hop=two_hop,
+                              n_graphs=statics.get("n_graphs", 1),
+                              triplet_plan=triplet_plan)
+    return build_recsys_step(cfg, shape, opt_cfg)
+
+
+def needs_optimizer(arch_id: str, shape) -> bool:
+    """GNN cells train at every shape; LM and RecSys cells at ``train``."""
+    if entry(arch_id).family == "gnn":
+        return True
+    return getattr(shape, "kind", "train") == "train"

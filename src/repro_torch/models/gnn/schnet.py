@@ -29,6 +29,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.common import mlp_apply, mlp_init, shifted_softplus
@@ -68,7 +69,10 @@ def _centers(n: int, cutoff: float, device: torch.device) -> torch.Tensor:
 
 def rbf_expand(d: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     """Gaussian radial basis on [0, cutoff] (SchNet §3, 0.1Å-spaced γ)."""
-    centers = _centers(n_rbf, float(cutoff), d.device)
+    # a shape-only trace (FakeTensorMode) must not leave its fake centres
+    # in the cache for later calls
+    centers = (_centers.__wrapped__ if is_fake(d) else _centers)(
+        n_rbf, float(cutoff), d.device)
     gamma = (n_rbf / cutoff) ** 2 * 0.5      # 1/(2Δ²)
     return torch.exp(-gamma * (d[:, None] - centers[None, :]) ** 2)
 

@@ -40,11 +40,13 @@ Every sum of a training step is order-fixed on the card: the embedding
 lookup's backward (``segment_ops.take``), the MoE dispatch
 (``segment_ops.segment_sum``) and combine (``segment_ops.gather``).
 
+``param_specs`` and ``cache_specs`` give the parameter and cache trees
+as ``meta`` tensors (``tree.eval_shape``, the counterpart of the
+reference's ``jax.eval_shape``): what the dry run shards.
+
 Not here: the reference's ``_psc`` sharding constraints (a no-op on one
 device), ``moe_mlp_sharded`` and ``forward``/``prefill`` with
-``cfg.dp_axes`` set (multi-device, ROADMAP A7: they raise), and
-``param_specs``/``cache_specs`` (``jax.eval_shape``; the dry-run tools of
-ROADMAP A8d).
+``cfg.dp_axes`` set (multi-device, ROADMAP A7: they raise).
 """
 from __future__ import annotations
 
@@ -201,6 +203,13 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                 generator, cfg, n, dev),
         }
     return params
+
+
+def param_specs(cfg: LMConfig) -> Params:
+    """The parameter tree as ``meta`` tensors: ``init_params``' shapes and
+    dtypes, nothing allocated or drawn."""
+    from repro_torch.tree import eval_shape
+    return eval_shape(init_params, cfg, torch.Generator(), "cpu")
 
 
 def _layers(params: Params, cfg: LMConfig):
@@ -671,6 +680,13 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int,
     return {f"sub{i}": {"k": torch.zeros(shape, dtype=dt, device=dev),
                         "v": torch.zeros(shape, dtype=dt, device=dev)}
             for i in range(len(cfg.layer_pattern))}
+
+
+def cache_specs(cfg: LMConfig, batch: int, s_max: int,
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """``init_cache``'s tree as ``meta`` tensors."""
+    from repro_torch.tree import eval_shape
+    return eval_shape(init_cache, cfg, batch, s_max, dtype, "cpu")
 
 
 def _decode(params: Params, cfg: LMConfig, tokens: torch.Tensor, cache,

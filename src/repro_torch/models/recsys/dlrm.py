@@ -112,7 +112,9 @@ def interact(dense_out: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     gram = torch.bmm(z, z.transpose(1, 2))
     f = z.shape[1]
     iu, ju = torch.triu_indices(f, f, offset=1, device=z.device)
-    return gram[:, iu, ju]                                     # (B, F(F-1)/2)
+    # ``gram[:, iu, ju]`` as one ``index_select`` of the flat Gram rows (the
+    # same values; each index once, so the backward's scatter is exact)
+    return gram.reshape(gram.shape[0], f * f).index_select(1, iu * f + ju)
 
 
 def _offsets(cfg: DLRMConfig, like: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,10 @@ def segment_order(segment_ids: torch.Tensor, n: int) -> SegmentOrder:
     ids = segment_ids.to(torch.int64)
     key = ids.clamp(-1, n) + 1             # 0: below range, n + 1: above
     perm = torch.argsort(key, stable=True)
-    ends = torch.bincount(key, minlength=n + 2).cumsum(0)
+    # a count of static length (``bincount``'s grows with the largest id,
+    # which a shape-only trace cannot know); integer adds, exact
+    ends = key.new_zeros(n + 2).scatter_add(0, key, torch.ones_like(key))
+    ends = ends.cumsum(0)
     sum_bounds = ends[:n + 1]
     edge = ends.new_full((1,), ids.shape[0])
     gather_bounds = torch.cat([ends.new_zeros(1), ends[1:n], edge])

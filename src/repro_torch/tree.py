@@ -7,7 +7,9 @@ step written by the reference restores into the port leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Tuple
+
+import torch
 
 _LEAF = "leaf"
 
@@ -52,3 +54,23 @@ def unflatten(structure: Any, leaves) -> Any:
 
 def leaves(tree: Any) -> List[Any]:
     return flatten(tree)[0]
+
+
+def map_leaves(fn: Callable, tree: Any) -> Any:
+    leaves_, structure = flatten(tree)
+    return unflatten(structure, [fn(t) for t in leaves_])
+
+
+def meta_like(t: torch.Tensor) -> torch.Tensor:
+    """A ``meta`` tensor of ``t``'s shape and dtype (no storage)."""
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def eval_shape(fn: Callable, *args, **kwargs) -> Any:
+    """``fn(*args, **kwargs)``'s output tree as ``meta`` tensors (the
+    counterpart of ``jax.eval_shape``): ``fn`` runs under
+    ``FakeTensorMode``, which allocates no storage and draws no number."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        out = fn(*args, **kwargs)
+    return map_leaves(meta_like, out)

@@ -1781,3 +1781,66 @@ def test_lm_flash_raises_for_head_dims_b8_lacks(cuda):
     assert attention == "blocked"
     with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
         T.prefill(on, cfg, toks.to(cuda), attention="flash")
+
+
+# --- A8c and A8d: compression, NeuraSim and op_costs on the card ----------
+
+def test_compression_on_card_bitwise_cpu(cuda):
+    from repro_torch.optim import compression as C
+    rng = np.random.default_rng(0)
+    g = {"a": torch.from_numpy(rng.normal(size=(3, 1000)).astype(
+        np.float32)).to(torch.bfloat16),
+         "b": torch.from_numpy(rng.normal(size=(777,)).astype(np.float32)),
+         "z": torch.zeros(300)}
+    g_card = {k: v.to(cuda) for k, v in g.items()}
+    r, r_card = C.init_residual(g), C.init_residual(g_card)
+    for _ in range(3):
+        d, r = C.error_feedback_compress(g, r)
+        d_card, r_card = C.error_feedback_compress(g_card, r_card)
+        for k in g:
+            assert torch.equal(d_card[k].cpu(), d[k]), k
+            assert torch.equal(r_card[k].cpu(), r[k]), k
+    for x in (g["a"], g["b"]):
+        q, s = C.quantize_int8(x)
+        q_card, s_card = C.quantize_int8(x.to(cuda))
+        assert torch.equal(q_card.cpu(), q) and torch.equal(s_card.cpu(), s)
+
+
+def test_neurasim_stats_on_card_equal_cpu(cuda):
+    from repro_torch.neurasim import datasets, machine, model
+    s, r, n = datasets.synth("facebook")
+    w_card = model.stats_from_coo(s, r, n, device=cuda)
+    w = model.stats_from_coo(s, r, n, device="cpu")
+    assert (w_card.pp_interim, w_card.nnz_out) == (w.pp_interim, w.nnz_out)
+    assert w_card.row_tags.device.type == "cuda"
+    assert torch.equal(w_card.row_tags.cpu(), w.row_tags)
+    for mapping in ("ring", "modular", "random", "drhm"):
+        assert torch.equal(
+            model.mapping_loads(w_card.row_tags, 32, mapping,
+                                device=cuda).cpu(),
+            model.mapping_loads(w.row_tags, 32, mapping, device="cpu"))
+    for cfg in machine.CONFIGS.values():
+        assert model.simulate_spgemm(w_card, cfg) == \
+            model.simulate_spgemm(w, cfg)
+
+
+def test_step_costs_on_card_equal_fake_count(cuda):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import op_costs
+    from repro_torch.models.common import mlp_apply, mlp_init
+    params = mlp_init(torch.Generator().manual_seed(0), [64, 128, 32],
+                      torch.float32, cuda)
+    x = torch.randn(256, 64, device=cuda)
+
+    def step(p, x):
+        loss = mlp_apply(p, x, act=torch.relu).square().mean()
+        return torch.autograd.grad(loss, list(p.values()))
+    live = {k: v.requires_grad_() for k, v in params.items()}
+    flops, byts, _ = op_costs.step_costs(step, live, x)
+    with FakeTensorMode():
+        fp = {k: torch.empty(v.shape).requires_grad_()
+              for k, v in params.items()}
+        f_flops, f_bytes, _ = op_costs.step_costs(step, fp,
+                                                  torch.empty(256, 64))
+    assert flops == f_flops > 0
+    assert byts > 0 and f_bytes > 0
