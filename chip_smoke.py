@@ -354,8 +354,10 @@ Phases, each of which raises (exit code 1) on any failure:
     ``flops.model_flops``, the useful ratio and the FLOP share of the
     step's device time from its own phase against the bf16 and f32
     peaks; and ``launch.dryrun``'s qwen3-0.6b × train_4k and dlrm-rm2 ×
-    train_batch on a fake 16×16 world, both ``ok`` (host work started in
-    the background at the script's start, niced, one thread).
+    train_batch on a fake 16×16 world, both ``ok`` and each counting per
+    device between its unsharded count ÷ 256 and that count, with the
+    operations that ran replicated (host work started in the background
+    with phase 20's training, niced, one thread a process).
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
@@ -374,6 +376,7 @@ captured) and ``sampled_addmm`` run eagerly.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import gc
@@ -5246,12 +5249,13 @@ def lm_readings(dev, cfg, params) -> dict:
     return rec
 
 
-def phase_lm(dev) -> dict:
+def phase_lm(dev, before_training=None) -> dict:
     """Phase 20: qwen3-0.6b at FULL (28 layers, d 1024, 16 heads / 8 kv,
     head_dim 128, vocab 151,936, tied, bf16) with parameters drawn on the
     card: the prefill on B8 against the blocked attention, serving through
     the continuous batcher, training through ``build_lm_step`` and
-    ``train.loop.run``, and the readings."""
+    ``train.loop.run``, and the readings.  ``before_training`` (if given)
+    is called once the serving readings are taken, before training."""
     from repro_torch.models.common import count_params
     cfg = lm_config()
     params = lm_params(cfg, dev)
@@ -5270,6 +5274,8 @@ def phase_lm(dev) -> dict:
         f"({time.perf_counter() - t:.1f} s)")
     del params
     torch.cuda.empty_cache()
+    if before_training is not None:
+        before_training()
     t = time.perf_counter()
     out["train"] = lm_training(dev, cfg)
     say(f"lm train {json.dumps(out['train'])} "
@@ -5299,51 +5305,87 @@ A8_COMPRESS_LEAVES = ("embed", "sub0.attn.wk", "sub0.mlp.wd")
 A8_DRYRUN = (("qwen3-0.6b", "train_4k"), ("dlrm-rm2", "train_batch"))
 
 
+# each cell's step counted on one device that holds all of it: the bound
+# of the per-device count (launch/dryrun.unsharded_costs)
+_UNSHARDED = """
+import json, pathlib, sys
+from repro_torch.launch import dryrun
+cells = json.loads(sys.argv[1])
+pathlib.Path(sys.argv[2]).write_text(json.dumps(
+    {f"{a}×{s}": dryrun.unsharded_costs(a, s).flops for a, s in cells}))
+"""
+
+
 def start_dryrun(out_dir: pathlib.Path):
-    """Phase 21 (e)'s two dry-run cells on the 16x16 fake world, started in
-    the background at the script's start (host work: ~2.5 min for
-    qwen3-0.6b × train_4k), niced and on one thread so that the phases
-    on the card keep their host."""
+    """Phase 21 (e)'s two dry-run cells on the 16x16 fake world, and their
+    unsharded counts, as host work in the background (~2.5 min for
+    qwen3-0.6b × train_4k), niced and on one thread each.  The script
+    starts them with phase 20's training, which is device-bound, so that
+    no serving reading of phases 17–20 runs beside them (the training's
+    wall readings do)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
+    jobs = [(f"{arch}__{shape}", [
+        "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+        "--mesh", "pod", "--out", str(out_dir)]) for arch, shape in A8_DRYRUN]
+    jobs.append(("unsharded", ["-c", _UNSHARDED, json.dumps(A8_DRYRUN),
+                               str(out_dir / "unsharded.json")]))
     procs = []
-    for arch, shape in A8_DRYRUN:
-        log = open(out_dir / f"{arch}__{shape}.log", "w")
-        procs.append((arch, shape, log, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "pod", "--out", str(out_dir)],
-            stdout=log, stderr=subprocess.STDOUT, env=env,
-            preexec_fn=lambda: os.nice(19))))
-    return procs
+    for name, args in jobs:
+        log = open(out_dir / f"{name}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, *args], stdout=log, stderr=subprocess.STDOUT,
+            env=env, preexec_fn=lambda: os.nice(19))
+        atexit.register(proc.kill)      # a failing phase leaves none behind
+        procs.append((name, log, proc))
+    return procs, out_dir, time.perf_counter()
 
 
-def finish_dryrun(procs, out_dir: pathlib.Path, timeout_s: float) -> dict:
-    """Wait for the dry-run cells (killing any still running at the
-    deadline) → their records' readings; each must be ``ok``."""
-    out = {}
+def finish_dryrun(dryrun, timeout_s: float) -> dict:
+    """Wait for the dry-run jobs (killing any still running at the
+    deadline) → each cell's readings.  Each cell must be ``ok`` and count
+    per device between its unsharded count ÷ 256 (every operation split)
+    and that count (every operation replicated); ``replication`` places it
+    there: 1 when split perfectly, 256 when replicated."""
+    procs, out_dir, t0 = dryrun
     deadline = time.perf_counter() + timeout_s
-    for arch, shape, log, proc in procs:
+    for name, log, proc in procs:
         try:
             proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
         log.close()
+    for name, log, proc in procs:
+        check(proc.returncode == 0, f"dryrun {name}: exit "
+              f"{proc.returncode}, log "
+              f"{(out_dir / f'{name}.log').read_text()[-2000:]}")
+    one = json.loads((out_dir / "unsharded.json").read_text())
+    out = dict(background_s=time.perf_counter() - t0)
+    for arch, shape in A8_DRYRUN:
+        key = f"{arch}×{shape}"
         path = out_dir / f"{arch}__{shape}__16x16.json"
-        check(proc.returncode == 0 and path.exists(),
-              f"dryrun {arch} × {shape}: exit {proc.returncode}, log "
-              f"{(out_dir / f'{arch}__{shape}.log').read_text()[-2000:]}")
+        check(path.exists(), f"dryrun {key}: no record")
         rec = json.loads(path.read_text())
-        check(rec["ok"], f"dryrun {arch} × {shape}: {rec.get('error')}")
+        check(rec["ok"], f"dryrun {key}: {rec.get('error')}")
         roof = rec["roofline"]
-        out[f"{arch}×{shape}"] = dict(
+        n = roof["n_devices"]
+        check(one[key] / n <= roof["flops"] <= one[key],
+              f"dryrun {key}: {roof['flops']:.4g} flops a device outside "
+              f"[{one[key] / n:.4g}, {one[key]:.4g}] (the unsharded count "
+              f"÷ {n} and the count)")
+        out[key] = dict(
             trace_s=rec["trace_s"], n_ops=rec["n_ops"],
             **{k: roof[k] for k in ("flops", "bytes", "coll_bytes",
                                     "model_flops", "useful_ratio",
                                     "bottleneck")},
+            unsharded_flops=one[key],
+            replication=roof["flops"] * n / one[key],
+            flops_by_op=rec["flops_by_op"],
             temp_bytes=rec["memory_analysis"]["temp_size_in_bytes"],
-            argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"])
+            argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
+            notes=rec["notes"])
     return out
 
 
@@ -5597,7 +5639,8 @@ def a8_flops(dev, device_ms: dict, card: str) -> dict:
 def phase_a8(dev, card: str, device_ms: dict, dryrun) -> dict:
     """Phase 21: (a) NeuraSim at Table-1 size, (b) against B2, (c)
     gradient compression at full width, (d) counted flops and FLOP shares,
-    (e) the dry run's two cells (started at the script's start)."""
+    (e) the dry run's two cells (``start_dryrun``'s jobs, started with
+    phase 20's training)."""
     out = {}
     for key, fn in (("neurasim", lambda: a8_neurasim(dev)),
                     ("spgemm", lambda: a8_spgemm(dev)),
@@ -5609,8 +5652,7 @@ def phase_a8(dev, card: str, device_ms: dict, dryrun) -> dict:
         say(f"a8 {key} {json.dumps(out[key])} ({out[f'{key}_s']:.1f} s)")
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    procs, out_dir = dryrun
-    out["dryrun"] = finish_dryrun(procs, out_dir, A8_DRYRUN_WAIT_S)
+    out["dryrun"] = finish_dryrun(dryrun, A8_DRYRUN_WAIT_S)
     out["dryrun_wait_s"] = time.perf_counter() - t
     say(f"a8 dryrun {json.dumps(out['dryrun'])} (waited "
         f"{out['dryrun_wait_s']:.1f} s)")
@@ -5645,8 +5687,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    dryrun_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
-    dryrun = (start_dryrun(dryrun_dir), dryrun_dir)
     dev = resolve_device("cuda")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -5762,7 +5802,9 @@ def main() -> int:
     # phase 20 — the LM family: qwen3-0.6b at full width, its prefill on
     # B8, served by the continuous batcher, trained
     t20 = time.perf_counter()
-    lm = phase_lm(dev)
+    dryrun_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
+    dryrun = []                     # phase 21 (e), started with training
+    lm = phase_lm(dev, lambda: dryrun.append(start_dryrun(dryrun_dir)))
     say(f"phase 20 took {time.perf_counter() - t20:.1f} s")
     torch.cuda.empty_cache()
 
@@ -5772,8 +5814,8 @@ def main() -> int:
     a8 = phase_a8(dev, card, {
         "qwen3-0.6b": lm["train"]["train_device_ms_per_step"],
         "gcn-cora": train["readings"]["dense"]["device_ms_per_step"],
-        "dlrm-rm2": dlrm_train["device_ms_per_step"]}, dryrun)
-    shutil.rmtree(dryrun[1], ignore_errors=True)
+        "dlrm-rm2": dlrm_train["device_ms_per_step"]}, dryrun[0])
+    shutil.rmtree(dryrun_dir, ignore_errors=True)
     say(f"phase 21 took {time.perf_counter() - t21:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 

@@ -27,7 +27,13 @@ with the error, and the sweep goes on, as the reference's does.  An
 operation DTensor has no sharding rule for runs replicated (its inputs
 gathered, its output whole on every rank), the fallback GSPMD takes for
 an operation it cannot split; the record's ``notes`` name such
-operations.  LM cells trace with ``dp_axes=()``: the port's activation
+operations, and its ``flops_by_op`` says where the flops went.  A strided
+shard's size is computed on plain CPU tensors (fake ones cannot be read
+back); DTensor's search for the cheapest redistribution of such shards
+can run for minutes an operation, so ``main`` records a cell still
+tracing after ``CELL_LIMIT_S`` as failed.  ``unsharded_costs`` counts a
+cell's step on one device that holds all of it: each traced cell's
+per-device flops lie between that count ÷ the devices and that count.  LM cells trace with ``dp_axes=()``: the port's activation
 sharding constraints and ``moe_mlp_sharded`` wait for ROADMAP A7, so the
 dense LMs run without the reference's constraints and the MoE LMs run
 the one-device ``moe_mlp``.  Steps run the ``dense`` executor and the
@@ -36,9 +42,11 @@ blocked attention (no hand-written kernel on the path).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import re
+import signal
 import time
 import traceback
 import warnings
@@ -60,6 +68,9 @@ GNN_NOTE = ("GNN traced without the reference's activation sharding "
             "constraints (dp_axes), which wait for ROADMAP A7")
 MOE_NOTE = "MoE layers trace the one-device moe_mlp"
 MAX_FALLBACKS = 16
+# ``main`` records a cell still tracing after this many seconds as failed:
+# DTensor's search over strided shards can run for minutes an operation
+CELL_LIMIT_S = 1200
 
 
 def param_tree_for(arch_id: str, cfg):
@@ -140,6 +151,34 @@ def _missing_rule(exc: BaseException):
     return None
 
 
+@contextlib.contextmanager
+def _strided_sizes_on_host():
+    """DTensor sizes a strided shard (a dim split over two mesh dims once
+    a reshape has merged them) by splitting an ``arange`` and reading it
+    back (``tolist``), which fake tensors cannot give.  The sizes depend
+    on shapes alone: compute them on plain CPU tensors, outside every
+    dispatch mode (fake tensors, the count)."""
+    try:
+        from torch.distributed.tensor.placement_types import _StridedShard
+        from torch.utils._python_dispatch import _disable_current_modes
+    except ImportError:
+        yield
+        return
+    orig = _StridedShard.__dict__.get("local_shard_size_and_offset")
+    if orig is None:
+        yield
+        return
+
+    def sized(self, *args, **kwargs):
+        with _disable_current_modes():
+            return orig(self, *args, **kwargs)
+    _StridedShard.local_shard_size_and_offset = sized
+    try:
+        yield
+    finally:
+        _StridedShard.local_shard_size_and_offset = orig
+
+
 class _MasksEqual(TorchDispatchMode):
     """DTensor checks with ``torch.equal`` that a vocab-sharded gather's
     mask, materialized again, holds the same data; fake tensors hold none,
@@ -186,9 +225,38 @@ def _trace(step, arch_id, shape, specs, params_meta, mesh):
                                       mesh)
             args = (params, opt)
         arg_bytes = _local_bytes(args) + _local_bytes(inputs)
-        with _MasksEqual(), OpCosts() as costs:
+        with _strided_sizes_on_host(), _MasksEqual(), OpCosts() as costs:
             out = step(*args, inputs)
         return costs, arg_bytes, _local_bytes(out)
+
+
+def _cell(arch_id, shape_name, reduced, shape):
+    """(shape, config, input specs, statics, step, parameter specs) of a
+    cell."""
+    shape = shape or registry.shapes_for(arch_id)[shape_name]
+    cfg = registry.get_config(arch_id, reduced=reduced, shape=shape)
+    specs, statics = registry.specs_for(arch_id, cfg, shape)
+    step = steps.build_step(arch_id, cfg, shape, statics)
+    return shape, cfg, specs, statics, step, param_tree_for(arch_id, cfg)
+
+
+def unsharded_costs(arch_id: str, shape_name: str, reduced: bool = False,
+                    shape=None) -> OpCosts:
+    """The cell's step counted on one device that holds all of it (fake
+    tensors at the global shapes, no mesh).  A traced cell's per-device
+    flops lie between this count ÷ the number of devices (every
+    operation split) and this count (every operation replicated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    shape, _, specs, _, step, params_meta = _cell(arch_id, shape_name,
+                                                  reduced, shape)
+    args = [params_meta]
+    if steps.needs_optimizer(arch_id, shape):
+        args.append(tree.eval_shape(adamw.init_state, params_meta))
+    with FakeTensorMode():
+        fake = [_fake(a) for a in args + [specs]]
+        with OpCosts() as costs:
+            step(*fake)
+    return costs
 
 
 def lower_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
@@ -200,8 +268,8 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
     object in place of the registry's ``shape_name``."""
     ms = mesh_shape or M.production_mesh_shape(multi_pod)
     name = M.mesh_name(ms)
-    shape = shape or registry.shapes_for(arch_id)[shape_name]
-    cfg = registry.get_config(arch_id, reduced=reduced, shape=shape)
+    shape, cfg, specs, statics, step, params_meta = _cell(
+        arch_id, shape_name, reduced, shape)
     fam = registry.ARCHS[arch_id].family
     notes = []
     if fam == "lm":
@@ -210,10 +278,6 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
             notes.append(MOE_NOTE)
     elif fam == "gnn":
         notes.append(GNN_NOTE)
-    specs, statics = registry.specs_for(arch_id, cfg, shape)
-    step = steps.build_step(arch_id, cfg, shape, statics, backend="dense",
-                            attention="blocked")
-    params_meta = param_tree_for(arch_id, cfg)
     if not _GATHER_RULE:
         _gather_rule()
         _GATHER_RULE.append(True)
@@ -254,12 +318,27 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
     return {
         "arch": arch_id, "shape": shape_name, "mesh": name, "ok": True,
         "trace_s": trace_s, "n_ops": costs.n_ops,
+        "flops_by_op": costs.flops_by_op,
         "memory_analysis": mem_rec,
         "collectives": analysis.collective_stats(
             costs.collectives, costs.collective_counts).to_json(),
         "roofline": roof.to_json(),
         "notes": notes,
     }
+
+
+@contextlib.contextmanager
+def _time_limit(seconds: int):
+    """Raise ``TimeoutError`` in the main thread after ``seconds``."""
+    def expired(signum, frame):
+        raise TimeoutError(f"still tracing after {seconds} s")
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def failed_record(arch_id, shape_name, mesh_name, e: BaseException) -> dict:
@@ -299,7 +378,8 @@ def main(argv=None) -> int:
             print(f"[dryrun] {arch_id} × {shape_name} × {mesh_name} ...",
                   flush=True)
             try:
-                rec = lower_cell(arch_id, shape_name, multi_pod)
+                with _time_limit(CELL_LIMIT_S):
+                    rec = lower_cell(arch_id, shape_name, multi_pod)
                 roof = rec["roofline"]
                 print(f"  ok: traced {rec['trace_s']:.1f}s  "
                       f"flops/dev {roof['flops']:.3e}  "

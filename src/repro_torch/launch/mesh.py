@@ -80,7 +80,7 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def _device_mesh(sizes, names, device_type: str):
+def _device_mesh(sizes, names, device_type: str = "cpu"):
     from torch.distributed.device_mesh import init_device_mesh
     n = 1
     for s in sizes:
@@ -94,25 +94,25 @@ def _device_mesh(sizes, names, device_type: str):
                             mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cpu"):
+def make_production_mesh(*, multi_pod: bool = False):
     """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data",
-    "model") with ``multi_pod``, over the initialized process group."""
+    "model") with ``multi_pod``, over the initialized process group
+    (host devices, as the fake world has no card)."""
     sizes, names = PRODUCTION_SHAPES[multi_pod]
-    return _device_mesh(sizes, names, device_type)
+    return _device_mesh(sizes, names)
 
 
-def make_host_mesh(data: int = 1, model: int = 1, device_type: str = ""):
+def make_host_mesh(data: int = 1, model: int = 1):
     """A (data, model) mesh over the ranks of the initialized process
     group (tests, examples), on the card where there is one."""
-    device_type = device_type or ("cuda" if torch.cuda.is_available()
-                                  else "cpu")
-    return _device_mesh((data, model), ("data", "model"), device_type)
+    return _device_mesh((data, model), ("data", "model"),
+                        "cuda" if torch.cuda.is_available() else "cpu")
 
 
-def make_mesh(sizes, names, device_type: str = "cpu"):
-    """A mesh of any shape over the initialized process group."""
-    return _device_mesh(sizes, names, device_type)
+def make_mesh(sizes, names):
+    """A mesh of any shape over the initialized process group, on host
+    devices."""
+    return _device_mesh(sizes, names)
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:

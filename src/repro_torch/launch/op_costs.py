@@ -111,7 +111,8 @@ def _group_size(args) -> int:
 
 class OpCosts(TorchDispatchMode):
     """Counts while active (``with OpCosts() as c: step(...)``):
-    ``flops``, ``bytes``, ``collectives`` (kind → wire bytes),
+    ``flops`` (and ``flops_by_op``: operation → flops), ``bytes``,
+    ``collectives`` (kind → wire bytes),
     ``collective_counts``, ``n_ops``, and ``peak_live_bytes``: the most
     bytes that tensors made inside the window held at once (a tensor is
     live until it is freed; views add nothing)."""
@@ -123,6 +124,7 @@ class OpCosts(TorchDispatchMode):
         self._dtensor = DTensor
         self._flop_registry = flop_registry
         self.flops = 0.0
+        self.flops_by_op: Dict[str, float] = {}
         self.bytes = 0.0
         self.collectives: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
         self.collective_counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
@@ -206,7 +208,9 @@ class OpCosts(TorchDispatchMode):
         self.bytes += in_b + tensor_bytes(out)
         flop = self._flop_registry.get(func._overloadpacket)
         if flop is not None:
-            self.flops += float(flop(*args, **kwargs, out_val=out))
+            f = float(flop(*args, **kwargs, out_val=out))
+            self.flops += f
+            self.flops_by_op[name] = self.flops_by_op.get(name, 0.0) + f
         if not func._schema.is_mutable:
             self._track(out)
         return out

@@ -58,9 +58,9 @@ def _train_wrap(loss_fn: Callable, opt_cfg: adamw.AdamWConfig):
 # LM
 # ---------------------------------------------------------------------------
 
-def build_lm_step(cfg, shape, opt_cfg=None, attention: str = "flash"):
-    """The LM step of ``shape.kind``; the prefill runs ``attention``
-    (``"flash"``: B8, or ``"blocked"``)."""
+def build_lm_step(cfg, shape, opt_cfg=None):
+    """The LM step of ``shape.kind``; the prefill runs ``T.prefill``'s
+    default attention (B8)."""
     from repro_torch.models.lm import transformer as T
     if shape.kind == "train":
         return _train_wrap(lambda p, b: T.loss_fn(p, cfg, b["tokens"]),
@@ -68,8 +68,7 @@ def build_lm_step(cfg, shape, opt_cfg=None, attention: str = "flash"):
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             with torch.no_grad():
-                return T.prefill(params, cfg, batch["tokens"],
-                                 attention=attention)
+                return T.prefill(params, cfg, batch["tokens"])
         return prefill_step
     if shape.kind == "decode":
         def serve_step(params, batch):
@@ -233,22 +232,29 @@ def build_recsys_step(cfg: dlrm.DLRMConfig, shape: RecSysShape,
 # Any registry cell
 # ---------------------------------------------------------------------------
 
-def build_step(arch_id: str, cfg, shape, statics, opt_cfg=None,
-               backend: str = "dense", plan=None, triplet_plan=None,
-               graph=None, two_hop=None, attention: str = "flash"):
-    """The step of the cell (``arch_id``, ``shape``): ``statics`` is
-    ``registry.input_specs``' second value (its ``n_graphs`` goes to
-    ``build_gnn_step``); ``attention`` is the LM prefill's."""
-    # "gin" is a beyond-assignment arch: GNN family, not in the registry
-    fam = "gnn" if arch_id == "gin" else entry(arch_id).family
-    if fam == "lm":
-        return build_lm_step(cfg, shape, opt_cfg, attention=attention)
+def build_step(arch_id: str, cfg, shape, statics):
+    """The step of the cell (``arch_id``, ``shape``) as the dry run traces
+    it: the ``dense`` executor and, for an LM prefill, the blocked
+    attention, so that no hand-written kernel is on the path.
+    ``statics`` is ``registry.input_specs``' second value (its
+    ``n_graphs`` goes to ``build_gnn_step``).  The reference's
+    ``build_step`` also takes an optimizer config, a backend and plans,
+    which no cell of the dry run sets."""
+    fam = entry(arch_id).family
     if fam == "gnn":
-        return build_gnn_step(arch_id, cfg, opt_cfg, backend=backend,
-                              plan=plan, graph=graph, two_hop=two_hop,
-                              n_graphs=statics.get("n_graphs", 1),
-                              triplet_plan=triplet_plan)
-    return build_recsys_step(cfg, shape, opt_cfg)
+        return build_gnn_step(arch_id, cfg,
+                              n_graphs=statics.get("n_graphs", 1))
+    if fam == "recsys":
+        return build_recsys_step(cfg, shape)
+    if shape.kind != "prefill":
+        return build_lm_step(cfg, shape)
+    from repro_torch.models.lm import transformer as T
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return T.prefill(params, cfg, batch["tokens"],
+                             attention="blocked")
+    return prefill_step
 
 
 def needs_optimizer(arch_id: str, shape) -> bool:

@@ -75,14 +75,16 @@ def _on(a, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(a).to(device=dev, dtype=torch.int64)
 
 
-def mapping_loads(row_tags, n_units: int, mapping: str,
-                  gamma: int = 0x9E3779B1, reseed_every: int = 0,
-                  seed: int = 0, device: DeviceLike = None) -> torch.Tensor:
+def mapping_loads(row_tags, n_units: int, mapping: str, seed: int = 0,
+                  device: DeviceLike = None) -> torch.Tensor:
     """Partial products per NeuraMem unit under a mapping policy, counted
     on ``device`` → (n_units,) int64.  The reference hashes in uint64;
     every product here stays below 2**63, so int64 gives the same units
     (``modular``: tags below 2**63 / 2654435761; ``drhm``: a 16-bit tag
-    times an odd gamma below 2**32)."""
+    times an odd gamma below 2**32).  ``drhm`` reseeds its gamma every
+    ``n // 64`` partial products, the reference's default; the
+    reference's ``gamma`` (never read) and ``reseed_every`` options are
+    left out."""
     dev = resolve_device(device)
     tags = _on(row_tags, dev)
     n = tags.numel()
@@ -99,8 +101,7 @@ def mapping_loads(row_tags, n_units: int, mapping: str,
         units = _on(lut, dev)[tags]
     elif mapping == "drhm":
         # reseed gamma after every `reseed_every` pps (≙ per-row reseed)
-        if reseed_every <= 0:
-            reseed_every = max(1, n // 64)
+        reseed_every = max(1, n // 64)
         rng = np.random.default_rng(seed)
         n_seg = (n + reseed_every - 1) // reseed_every
         gammas = rng.integers(1, 2**31, size=n_seg, dtype=np.int64) * 2 + 1

@@ -107,7 +107,7 @@ def test_mapping_loads_equal(pairs, mapping, n_units):
         assert model.imbalance_factor(got) == JM.imbalance_factor(
             JM.mapping_loads(wj.row_tags, n_units, mapping))
     tags = (np.arange(300_000) * 32) % (1 << 16)     # stride-adversarial
-    for kw in ({}, {"seed": 3}, {"reseed_every": 1000}):
+    for kw in ({}, {"seed": 3}):
         np.testing.assert_array_equal(
             model.mapping_loads(tags, n_units, mapping, device=CPU,
                                 **kw).numpy(),

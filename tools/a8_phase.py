@@ -3,14 +3,16 @@
 
     python3 tools/a8_phase.py
 
-Starts the dry run's two cells in the background, builds B2's and B6's
-libraries (the kernels on the phase's path and on the DLRM step it
-counts), traces one training step each of qwen3-0.6b FULL, gcn-cora on
+Starts the dry run's jobs in the background (its two cells and their
+unsharded counts; the whole script starts them with phase 20's
+training), builds B2's and B6's libraries (the kernels on the phase's
+path and on the DLRM step it counts), traces one training step each of qwen3-0.6b FULL, gcn-cora on
 ``dense`` and dlrm-rm2 at ``train_batch`` for their device times (the
 whole script takes them from phases 20, 13 and 15), then drives
 ``chip_smoke.phase_a8``: NeuraSim at Table-1 size on the card against the
 CPU, A·A through B2 against NeuraSim, gradient compression against the
-CPU, counted flops against the fake count, and the dry run's records.
+CPU, counted flops against the fake count, and the dry run's records,
+each per-device count between its unsharded count ÷ 256 and that count.
 Prints the card's name and power limit first; exits non-zero when there
 is no GPU or a check fails.
 """
@@ -44,7 +46,7 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     out_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
-    dryrun = (c.start_dryrun(out_dir), out_dir)
+    dryrun = c.start_dryrun(out_dir)
     try:
         secs = build.build([spgemm_pad.LIBRARY, embedding_bag.LIBRARY])
         dev = resolve_device("cuda")
