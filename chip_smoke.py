@@ -357,13 +357,33 @@ Phases, each of which raises (exit code 1) on any failure:
     train_batch on a fake 16×16 world, both ``ok`` and each counting per
     device between its unsharded count ÷ 256 and that count, with the
     operations that ran replicated (host work started in the background
-    with phase 20's training, niced, one thread a process).
+    with phase 20's training, niced, one thread a process), the cells now
+    traced with the reference's sharding constraints (``dp_axes``,
+    ``tp_axis``, ``moe_mlp_sharded``), and the count of them that trace;
+22. A7, the distributed executor (``tools/a7_phase.py``) — the
+    ``distributed`` backend on one NCCL rank (gcn-cora at full width on
+    the Cora-scale graph: aggregate, accumulate, the gradient in x and
+    the forward against ``dense``, timed beside it); the same at 4 gloo
+    ranks sharing the card (NCCL refuses two ranks on one device; their
+    collectives go through pinned host buffers), with the all-gather and
+    ring SpMMs at phase 6's Pubmed-scale stand-in (D = 602) against the
+    single-device product, each other and run to run, and
+    ``build_gcn_drhm_step`` (all-gather and ring) against the local GCN
+    loss, three steps; each world's transport printed; then, counted, the
+    4-lane cluster with every lane on the card (``devices=[cuda:0] * 4``)
+    serving gcn-cora at full width on ``cuda`` and ``cuda_q8``: sharded
+    residency bitwise replicated, mesh placement bitwise stacked, offline
+    replay, B1 (B4) launched, the halo gather timed beside the replicated
+    fetch, a hot-swap and a graph flush on sharded residency with no
+    request lost; and ``spmm_blocked_ell`` against its plain version at
+    phase 2's bucket-16 and Cora-scale shapes (one B1 a call).
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
 12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
 forward, phases 17 and 18's servers, phase 19's forwards and drills,
-phase 20's prefills, forward and servers) and read just
+phase 20's prefills, forward and servers, phase 22's sharded and
+mesh-placed clusters and ``spmm_blocked_ell`` calls) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -5816,7 +5836,21 @@ def main() -> int:
         "gcn-cora": train["readings"]["dense"]["device_ms_per_step"],
         "dlrm-rm2": dlrm_train["device_ms_per_step"]}, dryrun[0])
     shutil.rmtree(dryrun_dir, ignore_errors=True)
-    say(f"phase 21 took {time.perf_counter() - t21:.1f} s; the script "
+    traced = sum(1 for k in A8_DRYRUN if f"{k[0]}×{k[1]}" in a8["dryrun"])
+    say(f"dryrun: {traced} of {len(A8_DRYRUN)} cells trace with the "
+        f"reference's sharding constraints on torch {torch.__version__}")
+    say(f"phase 21 took {time.perf_counter() - t21:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 22 — A7: the distributed backend on NCCL and on 4 gloo ranks
+    # sharing the card, the ring and all-gather SpMMs, the DRHM-sharded
+    # GCN step, the sharded and mesh-placed cluster (B1, B4), and
+    # spmm_blocked_ell (B1)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import a7_phase
+    a7 = a7_phase.phase_a7(dev, params, indptr, indices, store)
+    say(f"a7 {json.dumps(a7, default=float)}")
+    say(f"phase 22 took {a7['phase_s']:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -5840,6 +5874,8 @@ def main() -> int:
                         + live["launches"].get(k, 0))
     launches["spmm_dedup_chunks"] += \
         bf16_forward["launches"]["spmm_dedup_chunks"]
+    for k in ("spmm_dedup_chunks", "spmm_dedup_chunks_q8"):
+        launches[k] += a7["launches"][k]
     runs = train["per_run"]
     train_note = ", ".join(
         f"{name} {runs[name]['spmm_dedup_chunks']} + "
@@ -5883,7 +5919,12 @@ def main() -> int:
                  "aggregation a round for all lanes: 2 a gcn round, 9 a "
                  "gat round); phase 19's mutated-graph forwards and live "
                  f"drill {live['launches']['spmm_dedup_chunks']} (2 a "
-                 "round, each swap's shadow warm-up a round)"),
+                 "round, each swap's shadow warm-up a round); phase 22's "
+                 "sharded and mesh-placed 4-lane clusters on one card "
+                 f"{a7['cluster']['launches']['spmm_dedup_chunks']} (2 a "
+                 "stacked round, 2 a lane a mesh round) and "
+                 f"spmm_blocked_ell {a7['blocked_ell']['launches']} (one "
+                 "a call)"),
              max_abs_err=max(c["max_abs_err"] for c in b1 + train["forward"]
                              + train["backward"]),
              stacked=[{k: c[k] for k in ("shape", "single_lane_calls_ms")
@@ -5967,7 +6008,9 @@ def main() -> int:
                  f"cluster {cluster['launches']['spmm_dedup_chunks_q8']} "
                  "(2 a round for all lanes, lane-scaled); phase 19's "
                  "mutated-graph forwards and int8 live drill "
-                 f"{live['launches']['spmm_dedup_chunks_q8']}"),
+                 f"{live['launches']['spmm_dedup_chunks_q8']}; phase 22's "
+                 "sharded and mesh-placed int8 clusters "
+                 f"{a7['cluster']['launches']['spmm_dedup_chunks_q8']}"),
              max_abs_err=max(c["max_abs_err"]
                              for c in b4 + train["forward_q8"]),
              lane_scaled=dict(

@@ -319,6 +319,40 @@ def spmm_dedup_chunks(u_cols: torch.Tensor, remaining: torch.Tensor,
 
 
 spmm_dedup_chunks.launches = 0
+
+
+def spmm_blocked_ell(cols, row_local, vals, remaining, x: torch.Tensor, *,
+                     block_rows: int = 8) -> torch.Tensor:
+    """y = A @ x for A in the per-lane ``BlockedELL`` layout (host arrays
+    or tensors of ``sparse.graph.pack_blocked_ell``) → ``(n_blocks ·
+    block_rows, D)``: the live lanes are re-packed on the host into dedup
+    chunks (per call — a plan packs once) and B1 runs on them
+    (``spmm_dedup_chunks``: the kernel on a CUDA ``x``, its plain version
+    on a CPU one)."""
+    import numpy as np
+
+    from repro_torch.sparse.graph import pack_dedup_chunks
+    from repro_torch.sparse.plan import block_ptr_from_first
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.asarray(a)
+    cols, row_local, vals, remaining = map(host, (cols, row_local, vals,
+                                                  remaining))
+    n_blocks, nnz_pad = cols.shape
+    live = np.arange(nnz_pad)[None, :] < remaining[:, None]
+    b_idx = np.nonzero(live)[0]
+    rows_g = row_local[live] + b_idx * block_rows
+    ch = pack_dedup_chunks(rows_g, cols[live], vals[live],
+                           n_blocks * block_rows, int(x.shape[0]),
+                           block_rows=block_rows)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(x.device)
+    return spmm_dedup_chunks(
+        dev(ch.u_cols), dev(ch.remaining),
+        dev(block_ptr_from_first(ch.first, ch.n_blocks)), dev(ch.a),
+        x.contiguous(), block_rows=block_rows)
 spmm_dedup_chunks.launches_bf16 = 0     # the bf16 instantiation's share
 
 

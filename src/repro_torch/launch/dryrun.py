@@ -33,16 +33,18 @@ back); DTensor's search for the cheapest redistribution of such shards
 can run for minutes an operation, so ``main`` records a cell still
 tracing after ``CELL_LIMIT_S`` as failed.  ``unsharded_costs`` counts a
 cell's step on one device that holds all of it: each traced cell's
-per-device flops lie between that count ÷ the devices and that count.  LM cells trace with ``dp_axes=()``: the port's activation
-sharding constraints and ``moe_mlp_sharded`` wait for ROADMAP A7, so the
-dense LMs run without the reference's constraints and the MoE LMs run
-the one-device ``moe_mlp``.  Steps run the ``dense`` executor and the
-blocked attention (no hand-written kernel on the path).
+per-device flops lie between that count ÷ the devices and that count.
+Cells trace with the reference's activation constraints: an LM config
+takes ``dp_axes`` (the mesh's axes but ``model``) and ``tp_axis="model"``
+(its MoE layers then run ``moe_mlp_sharded``), a GNN config ``dp_axes``.
+Steps run the ``dense`` executor and the blocked attention (no
+hand-written kernel on the path).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import logging
 import re
@@ -62,11 +64,6 @@ from repro_torch.launch import mesh as M
 from repro_torch.launch.op_costs import OpCosts, tensor_bytes
 from repro_torch.optim import adamw
 
-LM_NOTE = ("LM traced with dp_axes=(): the activation sharding constraints "
-           "and moe_mlp_sharded wait for ROADMAP A7")
-GNN_NOTE = ("GNN traced without the reference's activation sharding "
-            "constraints (dp_axes), which wait for ROADMAP A7")
-MOE_NOTE = "MoE layers trace the one-device moe_mlp"
 MAX_FALLBACKS = 16
 # ``main`` records a cell still tracing after this many seconds as failed:
 # DTensor's search over strided shards can run for minutes an operation
@@ -230,12 +227,20 @@ def _trace(step, arch_id, shape, specs, params_meta, mesh):
         return costs, arg_bytes, _local_bytes(out)
 
 
-def _cell(arch_id, shape_name, reduced, shape):
+def _cell(arch_id, shape_name, reduced, shape, mesh_shape=None):
     """(shape, config, input specs, statics, step, parameter specs) of a
-    cell."""
+    cell; on ``mesh_shape`` the config carries the reference's sharding
+    constraints."""
     shape = shape or registry.shapes_for(arch_id)[shape_name]
     cfg = registry.get_config(arch_id, reduced=reduced, shape=shape)
     specs, statics = registry.specs_for(arch_id, cfg, shape)
+    if mesh_shape is not None:
+        # the reference's constraints: batch axes = every axis but model
+        dp = tuple(a for a in mesh_shape.axis_names if a != "model")
+        if registry.ARCHS[arch_id].family == "lm":
+            cfg = dataclasses.replace(cfg, dp_axes=dp, tp_axis="model")
+        elif hasattr(cfg, "dp_axes"):
+            cfg = dataclasses.replace(cfg, dp_axes=dp)
     step = steps.build_step(arch_id, cfg, shape, statics)
     return shape, cfg, specs, statics, step, param_tree_for(arch_id, cfg)
 
@@ -269,15 +274,8 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
     ms = mesh_shape or M.production_mesh_shape(multi_pod)
     name = M.mesh_name(ms)
     shape, cfg, specs, statics, step, params_meta = _cell(
-        arch_id, shape_name, reduced, shape)
-    fam = registry.ARCHS[arch_id].family
+        arch_id, shape_name, reduced, shape, ms)
     notes = []
-    if fam == "lm":
-        notes.append(LM_NOTE)
-        if cfg.n_experts > 0:
-            notes.append(MOE_NOTE)
-    elif fam == "gnn":
-        notes.append(GNN_NOTE)
     if not _GATHER_RULE:
         _gather_rule()
         _GATHER_RULE.append(True)

@@ -1,5 +1,5 @@
 """GNN inference serving driver — port of ``repro.launch.gnn_serve``
-(single lane, and the replicated cluster tier).
+(single lane, and the cluster tier).
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --backend cuda \\
       --sampler device --requests 100 --max-batch 16 --fanouts 5,3
@@ -27,8 +27,11 @@ and a streamed edge insert stream, each flush proven against a cold
 re-pack; it exits 1 when a flush fails parity or an old version does not
 drain, and replays only requests settled on the live version and the
 last graph epoch.
-``--shard`` and ``--placement mesh`` need the distributed executor
-(``ROADMAP.md`` A7) and raise.
+``--shard`` shards the resident feature table over the lanes (DRHM row
+residency with a halo gather) and ``--placement mesh`` runs each lane's
+step on a device of its own: by default one lane a visible card (fewer
+cards than lanes is an error); ``--lane-devices cuda:0,cuda:0,...`` names
+them, a device may repeat (several lanes on one card).
 
 Serves one arch (``--arch gcn|gat|sage|gin|schnet|dimenet``).  Stands up
 a ``GNNServer`` over a synthetic power-law resident graph (node features
@@ -206,7 +209,10 @@ def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
                            shed_queue_hwm=args.shed_hwm,
                            scale_min_lanes=args.scale_min_lanes,
                            slo=True if args.slo else None,
-                           metrics_port=args.metrics_port, device=device)
+                           metrics_port=args.metrics_port,
+                           devices=(args.lane_devices.split(",")
+                                    if args.lane_devices else None),
+                           device=device)
     with server:
         if args.metrics_port is not None:
             print(f"[gnn-serve] metrics exposition at "
@@ -303,7 +309,8 @@ def run_cluster(args, device, fanouts, cfg, params, indptr, indices,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gcn", choices=list(MODELS))
-    ap.add_argument("--backend", default="cuda", choices=list(ALL_BACKENDS))
+    ap.add_argument("--backend", default="cuda",
+                    choices=[b for b in ALL_BACKENDS if b != "distributed"])
     ap.add_argument("--sampler", default="host", choices=["host", "device"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--requests", type=int, default=100)
@@ -321,14 +328,17 @@ def main(argv=None) -> int:
                     help="serving lanes; >1 stands up the DRHM-routed "
                          "cluster tier (conv archs, host sampler)")
     ap.add_argument("--shard", action="store_true",
-                    help="shard the resident feature table over the lanes: "
-                         "needs the distributed executor (ROADMAP.md A7) "
-                         "and raises")
+                    help="shard the resident feature table over the lanes "
+                         "(DRHM row residency, a halo gather a round)")
     ap.add_argument("--placement", default="stacked",
                     choices=["stacked", "mesh"],
                     help="lane compute placement: one lane-stacked "
-                         "dispatch a round (stacked); mesh needs "
-                         "ROADMAP.md A7 and raises")
+                         "dispatch a round (stacked), or each lane's step "
+                         "on its own device (mesh)")
+    ap.add_argument("--lane-devices", default=None, metavar="DEVS",
+                    help="comma-separated device a lane for --shard / "
+                         "--placement mesh (a device may repeat); default "
+                         "one lane a visible card")
     ap.add_argument("--seeds-per-request", type=int, default=1)
     ap.add_argument("--telemetry-jsonl", default=None, metavar="PATH",
                     help="append per-lane telemetry samples/events as JSON "

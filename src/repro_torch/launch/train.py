@@ -172,8 +172,11 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--full-gnn", action="store_true",
                     help="full (non-reduced) GNN config on Cora-scale data")
-    ap.add_argument("--backend", default="dense", choices=list(ALL_BACKENDS),
-                    help="sparse aggregation executor (GNN archs)")
+    ap.add_argument("--backend", default="dense",
+                    choices=[b for b in ALL_BACKENDS if b != "distributed"],
+                    help="sparse aggregation executor (GNN archs; the "
+                         "SPMD `distributed` one trains through "
+                         "launch.variants on a process group)")
     ap.add_argument("--two-hop", action="store_true",
                     help="aggregate over the SpGEMM-precomputed Â² two-hop "
                          "graph (gcn; gat raises)")

@@ -76,3 +76,13 @@ def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
 def count_params(params) -> int:
     """Number of scalars in a parameter tree."""
     return sum(p.numel() for p in tree.leaves(params))
+
+
+def pin_rows(x: torch.Tensor, dp_axes) -> torch.Tensor:
+    """The reference's ``_pin``: node- and edge-major tensors stay sharded
+    over ``dp_axes`` along their first dim (a redistribute of a
+    ``DTensor``; no-op on a plain tensor or with no axes)."""
+    if not dp_axes:
+        return x
+    from repro_torch.core.distributed import constrain
+    return constrain(x, (tuple(dp_axes),) + (None,) * (x.ndim - 1))

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import mlp_apply, mlp_init
+from repro_torch.models.common import mlp_apply, mlp_init, pin_rows
 from repro_torch.sparse import backend as sparse_backend
 from repro_torch.sparse.plan import AggregationPlan, edge_plan
 from repro_torch.sparse.segment_ops import (gather, kept_order, segment_sum,
@@ -65,6 +65,8 @@ class DimeNetConfig:
     n_species: int = 100
     max_triplets_per_edge: int = 8
     param_dtype: str = "float32"
+    # node/edge-dim sharding constraint axes (empty ⇒ no constraints)
+    dp_axes: tuple = ()
     # mix the Â² two-hop node aggregation into the output block: the step
     # builder precomputes A·A once through the SpGEMM engine and passes its
     # plan as ``two_hop_plan``
@@ -212,7 +214,7 @@ def forward(params: Params, cfg: DimeNetConfig, species: torch.Tensor,
         _norm(v_in) * _norm(v_out), 1e-9)
     d_kj = dist.index_select(0, t_in)
     sbf = angular_basis(d_kj, cosang, cfg).to(dt)                  # (T, L·R)
-    sbf = sbf * pt.valid[:, None].to(dt)
+    sbf = pin_rows(sbf * pt.valid[:, None].to(dt), cfg.dp_axes)
 
     # embedding block: m_ji = W [h_j || h_i || rbf_emb]
     m = mlp_apply(params["edge_embed"], torch.cat([
@@ -220,24 +222,28 @@ def forward(params: Params, cfg: DimeNetConfig, species: torch.Tensor,
         gather(h, receivers, pl.order("rows")),
         rbf @ params["rbf_embed"].to(dt)], dim=-1), act=act)
     ev = pl.valid[:, None].to(dt)
-    m = m * ev
+    m = pin_rows(m * ev, cfg.dp_axes)
+    rbf = pin_rows(rbf, cfg.dp_axes)
     by_t_in = pt.order("cols")
 
     def block(m, p):
         x_kj = act(m @ p["w_src"].to(dt))
-        x_kj = x_kj * (rbf @ p["w_rbf_gate"].to(dt))
-        x_t = gather(x_kj, t_in, by_t_in)                          # (T, d)
-        sb = sbf @ p["w_sbf"].to(dt)                               # (T, nb)
+        x_kj = pin_rows(x_kj * (rbf @ p["w_rbf_gate"].to(dt)), cfg.dp_axes)
+        x_t = pin_rows(gather(x_kj, t_in, by_t_in), cfg.dp_axes)   # (T, d)
+        sb = pin_rows(sbf @ p["w_sbf"].to(dt), cfg.dp_axes)        # (T, nb)
         # bilinear Σ_b sb[:, b] · (x_t @ W_b), in the reference's order:
         # the reassociated form peaks at one (T, d) product
         w_bil = p["w_bilinear"].to(dt)
         contrib = torch.zeros_like(x_t)
         for b in range(cfg.n_bilinear):
             contrib = contrib + sb[:, b:b + 1] * (x_t @ w_bil[b])
-        agg = sparse_backend.accumulate(pt, contrib, backend=backend)
+        contrib = pin_rows(contrib, cfg.dp_axes)
+        agg = pin_rows(sparse_backend.accumulate(pt, contrib,
+                                                 backend=backend),
+                       cfg.dp_axes)
         m = act(m @ p["w_self"].to(dt)) + agg
         m = m + act(m @ p["w_out1"].to(dt)) @ p["w_out2"].to(dt)
-        return m * ev
+        return pin_rows(m * ev, cfg.dp_axes)
 
     blocks = params["blocks"]
     for i in range(cfg.n_blocks):

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import pin_rows
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.plan import AggregationPlan, edge_plan
 from repro_torch.sparse.segment_ops import gather, segment_softmax
@@ -42,6 +43,8 @@ class GATConfig:
     n_classes: int = 7
     negative_slope: float = 0.2
     param_dtype: str = "float32"
+    # node/edge-dim sharding constraint axes (empty ⇒ no constraints)
+    dp_axes: tuple = ()
 
 
 def init_params(cfg: GATConfig, generator: torch.Generator,
@@ -75,7 +78,7 @@ def gat_layer(p, cfg: GATConfig, x: torch.Tensor, pl: AggregationPlan,
     n = x.shape[0]
     d_in, heads, d_out = p["w"].shape
     w = p["w"].to(x.dtype).reshape(d_in, heads * d_out)
-    h = (x @ w).reshape(n, heads, d_out)                    # (N, H, F)
+    h = pin_rows((x @ w).reshape(n, heads, d_out), cfg.dp_axes)  # (N,H,F)
     # score stage: per-edge attention logits
     e_src = (h * p["a_src"].to(x.dtype)).sum(-1)            # (N, H)
     e_dst = (h * p["a_dst"].to(x.dtype)).sum(-1)
@@ -84,16 +87,17 @@ def gat_layer(p, cfg: GATConfig, x: torch.Tensor, pl: AggregationPlan,
                           + gather(e_dst, pl.rows, by_rows),
                           cfg.negative_slope).float()        # (E, H)
     valid = pl.valid[:, None]
-    logits = torch.where(valid, logits, -1e30)
+    logits = pin_rows(torch.where(valid, logits, -1e30), cfg.dp_axes)
     alpha = segment_softmax(logits, pl.rows, n, by_rows).to(x.dtype)
-    alpha = torch.where(valid, alpha, 0)
+    alpha = pin_rows(torch.where(valid, alpha, 0), cfg.dp_axes)
     # one decoupled SpMM per head, the attention weights as edge values
     agg = torch.stack([sb.aggregate(pl, alpha[:, hd], h[:, hd, :],
                                     backend=backend)
                        for hd in range(heads)], dim=1)
+    agg = pin_rows(agg, cfg.dp_axes)
     if average_heads:
-        return agg.mean(dim=1)
-    return agg.reshape(n, -1) + p["b"].to(x.dtype)
+        return pin_rows(agg.mean(dim=1), cfg.dp_axes)
+    return pin_rows(agg.reshape(n, -1) + p["b"].to(x.dtype), cfg.dp_axes)
 
 
 def forward(params: Params, cfg: GATConfig, x: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import pin_rows
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.plan import AggregationPlan, edge_plan
 
@@ -34,6 +35,8 @@ class GCNConfig:
     d_hidden: int = 16
     n_classes: int = 7
     param_dtype: str = "float32"
+    # node-dim sharding constraint axes (empty ⇒ no constraints)
+    dp_axes: tuple = ()
 
     @property
     def dims(self):
@@ -75,12 +78,13 @@ def forward(params: Params, cfg: GCNConfig, x: torch.Tensor,
     h = x
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
-        h = torch.matmul(h, p["w"].to(h.dtype))           # combination
+        h = pin_rows(torch.matmul(h, p["w"].to(h.dtype)),  # combination
+                     cfg.dp_axes)
         h = sb.aggregate(pl, None, h, backend=backend)    # aggregation
-        h = h + p["b"].to(h.dtype)
+        h = pin_rows(h, cfg.dp_axes) + p["b"].to(h.dtype)
         if i < cfg.n_layers - 1:
             h = torch.relu(h)
-    return h
+    return pin_rows(h, cfg.dp_axes)
 
 
 def loss_fn(params: Params, cfg: GCNConfig, x: torch.Tensor, senders,

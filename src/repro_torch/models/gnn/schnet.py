@@ -32,7 +32,8 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import mlp_apply, mlp_init, shifted_softplus
+from repro_torch.models.common import (mlp_apply, mlp_init, pin_rows,
+                                       shifted_softplus)
 from repro_torch.sparse import backend as sb
 from repro_torch.sparse.plan import AggregationPlan, edge_plan
 from repro_torch.sparse.segment_ops import (gather, kept_order, segment_sum,
@@ -50,6 +51,8 @@ class SchNetConfig:
     cutoff: float = 10.0
     n_species: int = 100
     param_dtype: str = "float32"
+    # node/edge-dim sharding constraint axes (empty ⇒ no constraints)
+    dp_axes: tuple = ()
 
 
 @functools.lru_cache(maxsize=16)
@@ -121,19 +124,21 @@ def forward(params: Params, cfg: SchNetConfig, species: torch.Tensor,
     x = take(params["embed"], species)
     d_vec = pos.index_select(0, senders) - pos.index_select(0, receivers)
     dist = torch.sqrt((d_vec * d_vec).sum(-1) + 1e-12)
-    rbf = rbf_expand(dist, cfg.n_rbf, cfg.cutoff).to(x.dtype)
+    rbf = pin_rows(rbf_expand(dist, cfg.n_rbf, cfg.cutoff).to(x.dtype),
+                   cfg.dp_axes)
     fcut = (cosine_cutoff(dist, cfg.cutoff) * pl.valid).to(x.dtype)
     by_senders = pl.order("cols")
 
     for i in range(cfg.n_interactions):
         p = params[f"int{i}"]
-        h = x @ p["w_in"].to(x.dtype)
+        h = pin_rows(x @ p["w_in"].to(x.dtype), cfg.dp_axes)
         w_filt = mlp_apply(p["filter"], rbf, act=shifted_softplus,
                            final_act=True)                    # (E, d)
-        msg = gather(h, senders, by_senders) * w_filt * fcut[:, None]
-        agg = sb.accumulate(pl, msg, backend=backend)
+        msg = pin_rows(gather(h, senders, by_senders) * w_filt
+                       * fcut[:, None], cfg.dp_axes)
+        agg = pin_rows(sb.accumulate(pl, msg, backend=backend), cfg.dp_axes)
         v = shifted_softplus(agg @ p["w_out1"].to(x.dtype))
-        x = x + v @ p["w_out2"].to(x.dtype)
+        x = pin_rows(x + v @ p["w_out2"].to(x.dtype), cfg.dp_axes)
 
     atom_e = mlp_apply(params["atomwise"], x, act=shifted_softplus)[:, 0]
     return segment_sum(atom_e, graph_ids, n_graphs,

@@ -44,9 +44,17 @@ lookup's backward (``segment_ops.take``), the MoE dispatch
 as ``meta`` tensors (``tree.eval_shape``, the counterpart of the
 reference's ``jax.eval_shape``): what the dry run shards.
 
-Not here: the reference's ``_psc`` sharding constraints (a no-op on one
-device), ``moe_mlp_sharded`` and ``forward``/``prefill`` with
-``cfg.dp_axes`` set (multi-device, ROADMAP A7: they raise).
+Sharding (``cfg.dp_axes``/``cfg.tp_axis``, empty on one device): ``_psc``
+is the reference's activation constraint — a ``DTensor`` activation is
+redistributed to the spec's placements (``core.distributed.constrain``),
+a plain tensor passes as it is.  With ``dp_axes`` set, ``forward`` and
+``prefill`` run the MoE layers through ``moe_mlp_sharded``, the
+reference's per-device dispatch under ``shard_map``
+(``core.distributed.shard_map`` over the mesh of the ``DTensor`` inputs,
+or the ambient ``distributed.use_mesh`` mesh for global-view tensors on
+SPMD ranks): expert-parallel by ``all_to_all`` over ``tp`` when the
+experts divide over it, the FFN hidden dim split over ``tp`` and joined
+by a ``psum`` otherwise.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.distributed import constrain
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import mha_causal
 from repro_torch.models.common import rms_norm
@@ -65,6 +74,33 @@ from repro_torch.sparse.segment_ops import gather, segment_sum, take
 
 Params = Dict[str, object]
 ATTENTION = ("flash", "blocked")
+
+
+def _batch_rows(y, cfg: "LMConfig"):
+    """A (B, S, D) sub-layer output or embedding batch-sharded, the rows
+    whole, before it joins the sequence-sharded residual stream: the
+    gradient then reaches the product's backward with its (B, S) rows
+    whole, which DTensor flattens on every torch version (2.11's cannot
+    flatten a batch and a sequence both split)."""
+    return _psc(y, cfg, "dp", None, None)
+
+
+def _psc(x, cfg: "LMConfig", *spec):
+    """The reference's sharding constraint when the config names mesh
+    axes, else a no-op.  Spec entries: ``"dp"`` → ``cfg.dp_axes``,
+    ``"tp"`` → ``cfg.tp_axis``, ``None`` → unsharded.  On a ``DTensor``
+    a dim its axes do not divide (long_500k's one batch row over dp)
+    stays whole, where GSPMD would pad it."""
+    if not cfg.dp_axes and not cfg.tp_axis:
+        return x
+    resolved = [tuple(cfg.dp_axes) if e == "dp" else (cfg.tp_axis or None)
+                if e == "tp" else None for e in spec]
+    mesh = getattr(x, "device_mesh", None)
+    if mesh is not None:
+        from repro_torch.core.distributed import axis_size
+        resolved = [e if e and x.shape[d] % axis_size(mesh, e) == 0
+                    else None for d, e in enumerate(resolved)]
+    return constrain(x, tuple(resolved))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +130,7 @@ class LMConfig:
     kv_chunk: int = 512
     # remat: "full" (recompute layer in bwd), "none"
     remat: str = "full"
-    # activation-sharding axes of the reference's meshes (empty ⇒ one
-    # device; the port runs one device only, ROADMAP A7)
+    # activation-sharding constraints (empty ⇒ one device)
     dp_axes: Tuple[str, ...] = ()
     tp_axis: str = ""
     seq_shard: bool = True
@@ -123,13 +158,6 @@ class LMConfig:
     @property
     def adt(self) -> torch.dtype:
         return getattr(torch, self.act_dtype)
-
-
-def _one_device(cfg: LMConfig, what: str) -> None:
-    if cfg.dp_axes:
-        raise NotImplementedError(
-            f"{what} with dp_axes {cfg.dp_axes} shards over a mesh, which "
-            "the port does not have yet (ROADMAP queue A7)")
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +297,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # ---------------------------------------------------------------------------
 
+def _uneven(y, cfg: LMConfig, n: int) -> bool:
+    """Whether ``y`` is a ``DTensor`` on a mesh whose tp axis does not
+    divide ``n`` heads (8 kv heads over 16)."""
+    mesh = getattr(y, "device_mesh", None)
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return (cfg.tp_axis in names
+            and n % mesh.size(names.index(cfg.tp_axis)) != 0)
+
+
+def _heads(y: torch.Tensor, cfg: LMConfig, n: int) -> torch.Tensor:
+    """A projection (B, S, n·hd) as (B, S, n, hd).  Where ``_uneven``,
+    the projection is first gathered over tp, where GSPMD would pad the
+    heads: DTensor cannot view an unevenly split dim."""
+    b, s, _ = y.shape
+    if _uneven(y, cfg, n):
+        y = _psc(y, cfg, "dp", None, None)
+    return y.reshape(b, s, n, cfg.head_dim)
+
+
 def _qkv(p, cfg: LMConfig, x: torch.Tensor, tables):
     """q, k, v of x: (B, S, D), rotated by the RoPE ``tables``."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kv, hd)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    q = _heads(x @ p["wq"].to(x.dtype), cfg, h)
+    k = _heads(x @ p["wk"].to(x.dtype), cfg, kv)
+    v = _heads(x @ p["wv"].to(x.dtype), cfg, kv)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"].to(x.dtype))
         k = rms_norm(k, p["k_norm"].to(x.dtype))
@@ -298,7 +344,13 @@ def attention_chunks(cfg: LMConfig, s: int) -> Tuple[int, int]:
 def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """Online-softmax blocked attention.  q: (B, S, H, hd), k/v: (B, S, KV,
-    hd), kv heads repeated up to H.  Returns (B, S, H, hd) in q's type."""
+    hd), kv heads repeated up to H.  Returns (B, S, H, hd) in q's type.
+
+    On ``DTensor`` inputs the reference's constraint — batch over dp,
+    heads over tp (where they divide: llama4's 40 over 16 stay whole,
+    where GSPMD pads) — is a ``local_map``: each rank attends its own
+    batch rows and heads on local tensors, so no attention product is
+    propagated through DTensor's view rules."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -308,6 +360,20 @@ def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor,
         # of ``repeat_interleave`` adds them back by atomics on the card)
         k = k[:, :, :, None].expand(b, s, kvh, g, hd).reshape(b, s, h, hd)
         v = v[:, :, :, None].expand(b, s, kvh, g, hd).reshape(b, s, h, hd)
+    mesh = getattr(q, "device_mesh", None)
+    if mesh is not None and (cfg.dp_axes or cfg.tp_axis):
+        from repro_torch.core import distributed as D
+        heads = None if _uneven(q, cfg, h) else (cfg.tp_axis or None)
+        spec = (tuple(cfg.dp_axes), None, heads, None)
+        return D.shard_map(lambda *t: _blocked_local(*t, cfg), mesh,
+                           in_specs=[spec] * 3, out_specs=spec)(q, k, v)
+    return _blocked_local(q, k, v, cfg)
+
+
+def _blocked_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: LMConfig) -> torch.Tensor:
+    """The blocked attention on (B, S, H, hd) tensors, heads equal."""
+    b, s, h, hd = q.shape
     qc, kc = attention_chunks(cfg, s)
     nq, nk = s // qc, s // kc
     scale = 1.0 / math.sqrt(hd)
@@ -374,12 +440,19 @@ def attention_block(p, cfg: LMConfig, x: torch.Tensor,
         positions, cfg.head_dim, cfg.rope_theta, x.device), attention)[0]
 
 
-def _attention(p, cfg: LMConfig, x: torch.Tensor, tables, attention: str):
-    """(the block's output, k, v)."""
+def _attention(p, cfg: LMConfig, x: torch.Tensor, tables, attention: str,
+               anchor: bool = True):
+    """(the block's output, k, v).  ``anchor``: the reference's
+    ``attention_block`` constraints (batch-sharded at the projections,
+    heads over tp before ``wo``); its prefill has none."""
     b, s, _ = x.shape
+    if anchor:
+        x = _psc(x, cfg, "dp", None, None)
     q, k, v = _qkv(p, cfg, x, tables)
-    o = causal_attention(q, k, v, cfg, attention)
-    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype), k, v
+    o = causal_attention(q, k, v, cfg, attention).reshape(b, s, -1)
+    if anchor:
+        o = _psc(o, cfg, "dp", None, "tp")
+    return _batch_rows(o @ p["wo"].to(x.dtype), cfg), k, v
 
 
 def _decode_attend(p, cfg: LMConfig, x, q, k_cache, v_cache, mask):
@@ -388,6 +461,9 @@ def _decode_attend(p, cfg: LMConfig, x, q, k_cache, v_cache, mask):
     then the output projection."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if _uneven(q, cfg, kvh):
+        # grouping the heads by kv head views an uneven split: gather them
+        q = _psc(q, cfg, "dp", None, None, None)
     qg = q.reshape(b, kvh, h // kvh, hd).float()
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(hd)
     sc = torch.where(mask, sc, -1e30)
@@ -477,8 +553,10 @@ def _act(cfg: LMConfig):
 
 def dense_mlp(p, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     a = _act(cfg)
+    x = _psc(x, cfg, "dp", None, None)
     h = a(x @ p["wg"].to(x.dtype)) * (x @ p["wu"].to(x.dtype))
-    return h @ p["wd"].to(x.dtype)
+    h = _psc(h, cfg, "dp", None, "tp")
+    return _batch_rows(h @ p["wd"].to(x.dtype), cfg)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -521,11 +599,18 @@ def moe_mlp(p, cfg: LMConfig, x: torch.Tensor,
     xk = xt[:, None].expand(t, k, d).reshape(t * k, d)
     buf = segment_sum(xk, slot.reshape(-1), e * capacity + 1)
     buf = buf[:e * capacity].reshape(e, capacity, d).to(x.dtype)
+    # expert-parallel layout: experts over tp when they divide (llama4's
+    # 128); otherwise (grok's 8) whole experts with the hidden dim over tp
+    e_spec = "tp" if (cfg.tp_axis and e % 16 == 0) else None
+    f_spec = None if e_spec else "tp"
+    buf = _psc(buf, cfg, e_spec, "dp", None)
 
     a = _act(cfg)
     hidden = a(torch.bmm(buf, p["wg"].to(x.dtype))) \
         * torch.bmm(buf, p["wu"].to(x.dtype))
-    out_buf = torch.bmm(hidden, p["wd"].to(x.dtype))
+    hidden = _psc(hidden, cfg, e_spec, "dp", f_spec)
+    out_buf = _psc(torch.bmm(hidden, p["wd"].to(x.dtype)), cfg, e_spec,
+                   "dp", None)
 
     # combine: gather the slots back, probability-weighted
     flat = out_buf.reshape(e * capacity, d)
@@ -536,12 +621,98 @@ def moe_mlp(p, cfg: LMConfig, x: torch.Tensor,
     return y.reshape(b, s, d)
 
 
+def _moe_local(cfg: LMConfig, router, wg, wu, wd, xt, capacity: int,
+               n_tokens: int, ep: bool):
+    """One rank's MoE on its tokens ``xt`` (T_loc, D): route into a local
+    (E, C_loc, D) buffer, run the experts (expert-parallel: slots travel
+    to their expert's owner and back by ``all_to_all`` over tp;
+    hidden-sharded: each tp rank's F-slice, joined by a ``psum``), and
+    combine."""
+    from repro_torch.core import distributed as D
+    e, k = cfg.n_experts, cfg.top_k
+    tp = cfg.tp_axis
+    t_loc, d = xt.shape
+    c_loc = max(8, capacity * t_loc // n_tokens)
+    probs = torch.softmax((xt @ router).float(), dim=-1)
+    top_p, top_e = _top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    onehot = F.one_hot(top_e.reshape(t_loc * k), e)
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    pos = pos.reshape(t_loc, k)
+    keep = pos < c_loc
+    slot = torch.where(keep, top_e * c_loc + pos,
+                       torch.full_like(pos, e * c_loc))
+    xk = xt[:, None].expand(t_loc, k, d).reshape(t_loc * k, d)
+    buf = segment_sum(xk, slot.reshape(-1), e * c_loc + 1)
+    buf = buf[:e * c_loc].reshape(e, c_loc, d).to(xt.dtype)
+    a = _act(cfg)
+    if ep:
+        n_tp = D.axis_size(D.current_mesh(), tp)
+        e_loc = e // n_tp
+        # slots to their experts' owners: (E/tp, C·tp, D), rank i's at i
+        got = D.all_to_all(buf, tp)
+        buf = got.reshape(n_tp, e_loc, c_loc, d).transpose(0, 1).reshape(
+            e_loc, n_tp * c_loc, d)
+        hidden = a(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        out = torch.bmm(hidden, wd)
+        # and back: (E, C_loc, D), owner i's experts at block i
+        out = out.reshape(e_loc, n_tp, c_loc, d).transpose(0, 1).reshape(
+            n_tp * e_loc, c_loc, d)
+        out = D.all_to_all(out, tp)
+    else:
+        hidden = a(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        out = D.psum(torch.bmm(hidden, wd), tp)
+    flat = out.reshape(e * c_loc, d)
+    gathered = gather(flat, torch.clamp(slot, max=e * c_loc - 1)
+                      .reshape(-1)).reshape(t_loc, k, d)
+    gathered = torch.where(keep[..., None], gathered, 0)
+    return (gathered * top_p[..., None].to(xt.dtype)).sum(dim=1)
+
+
 def moe_mlp_sharded(p, cfg: LMConfig, x: torch.Tensor, capacity: int,
                     tp_size: int = 16) -> torch.Tensor:
-    """The reference's per-device dispatch under ``shard_map``."""
-    raise NotImplementedError(
-        "moe_mlp_sharded dispatches over a device mesh, which the port does "
-        "not have yet (ROADMAP queue A7); moe_mlp is the one-device MoE")
+    """The reference's manual MoE under ``shard_map``: token-local
+    dispatch with a per-rank capacity.
+
+    Tokens are sharded over the dp axes, and over tp too when the experts
+    divide over it (expert-parallel: ``all_to_all`` over tp carries each
+    slot to its expert's owner, llama4); otherwise the FFN hidden dim is
+    split over tp and the down-projection ``psum``s over it (grok), with
+    the tokens over dp alone.  The mesh is the ``DTensor`` inputs' own or
+    the ambient ``distributed.use_mesh``; its tp size replaces
+    ``tp_size``."""
+    from repro_torch.core import distributed as D
+    b, s, d = x.shape
+    e = cfg.n_experts
+    tp = cfg.tp_axis
+    mesh = getattr(x, "device_mesh", None) or D.current_mesh()
+    if mesh is None:
+        raise ValueError(
+            "moe_mlp_sharded dispatches over a mesh: pass DTensor inputs or "
+            "run it under core.distributed.use_mesh(mesh)")
+    if tp in mesh.mesh_dim_names:
+        tp_size = D.axis_size(mesh, tp)
+    ep = e % tp_size == 0
+    token_axes = tuple(cfg.dp_axes) + ((tp,) if ep else ())
+    if ep:
+        w_spec = ((tp, None, None),) * 3
+    else:
+        w_spec = ((None, None, tp), (None, None, tp), (None, tp, None))
+
+    def local_fn(router, wg, wu, wd, xt):
+        return _moe_local(cfg, router, wg, wu, wd, xt, capacity, b * s, ep)
+
+    fn = D.shard_map(local_fn, mesh,
+                     in_specs=((), *w_spec, (token_axes, None)),
+                     out_specs=(token_axes, None))
+    y = fn(p["router"].to(x.dtype), p["wg"].to(x.dtype),
+           p["wu"].to(x.dtype), p["wd"].to(x.dtype), x.reshape(b * s, d))
+    if ep:
+        # tokens back over dp alone before they unflatten into (B, S): a
+        # DTensor splits the batch dim wrongly when one flat dim is split
+        # over dp and tp and the batch is shorter than dp × tp
+        y = D.constrain(y, (tuple(cfg.dp_axes), None))
+    return y.reshape(b, s, d)
 
 
 def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
@@ -550,8 +721,14 @@ def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
     return max(8, ((c + 127) // 128) * 128)
 
 
-def _mlp(kind: str, p, cfg: LMConfig, h: torch.Tensor, cap: int):
+def _mlp(kind: str, p, cfg: LMConfig, h: torch.Tensor, cap: int,
+         sharded: bool = False):
+    """The layer's MLP; ``sharded``: the MoE through ``moe_mlp_sharded``
+    (``forward`` and ``prefill`` under ``cfg.dp_axes``, as the
+    reference's)."""
     if kind == "moe":
+        if sharded and cfg.dp_axes:
+            return moe_mlp_sharded(p["mlp"], cfg, h, cap)
         return moe_mlp(p["mlp"], cfg, h, cap)
     return dense_mlp(p["mlp"], cfg, h)
 
@@ -570,19 +747,24 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     """tokens (B, S) → final hidden states (B, S, D).  With ``remat ==
     "full"`` and a gradient to flow, each super-layer runs under
     ``torch.utils.checkpoint``."""
-    _one_device(cfg, "forward")
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _batch_rows(_embed(params, cfg, tokens), cfg)
     tables = rope_tables(torch.arange(s, device=x.device), cfg.head_dim,
                          cfg.rope_theta, x.device)
     cap = moe_capacity(cfg, b * s) if cfg.n_experts > 0 else 0
 
+    seq = "tp" if cfg.seq_shard else None
+
     def super_layer(x, layer):
+        x = _psc(x, cfg, "dp", seq, None)
         for kind, p in zip(cfg.layer_pattern, layer):
             h = rms_norm(x, p["ln1"].to(x.dtype))
-            x = x + _attention(p["attn"], cfg, h, tables, attention)[0]
+            # the residual stream stays sequence-sharded (Megatron-SP)
+            x = _psc(x + _attention(p["attn"], cfg, h, tables, attention)[0],
+                     cfg, "dp", seq, None)
             h = rms_norm(x, p["ln2"].to(x.dtype))
-            x = x + _mlp(kind, p, cfg, h, cap)
+            x = _psc(x + _mlp(kind, p, cfg, h, cap, sharded=True), cfg,
+                     "dp", seq, None)
         return x
 
     remat = cfg.remat == "full" and torch.is_grad_enabled()
@@ -598,20 +780,22 @@ def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor,
 
     Returns (last-token logits (B, V) f32, cache as in ``init_cache`` at
     S_max = S)."""
-    _one_device(cfg, "prefill")
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     tables = rope_tables(torch.arange(s, device=x.device), cfg.head_dim,
                          cfg.rope_theta, x.device)
     cap = moe_capacity(cfg, b * s) if cfg.n_experts > 0 else 0
     kvs = [{"k": [], "v": []} for _ in cfg.layer_pattern]
+    seq = "tp" if cfg.seq_shard else None
     for layer in _layers(params, cfg):
+        x = _psc(x, cfg, "dp", seq, None)
         for i, (kind, p) in enumerate(zip(cfg.layer_pattern, layer)):
             h = rms_norm(x, p["ln1"].to(x.dtype))
-            o, k, v = _attention(p["attn"], cfg, h, tables, attention)
+            o, k, v = _attention(p["attn"], cfg, h, tables, attention,
+                                 anchor=False)
             x = x + o
             h = rms_norm(x, p["ln2"].to(x.dtype))
-            x = x + _mlp(kind, p, cfg, h, cap)
+            x = x + _mlp(kind, p, cfg, h, cap, sharded=True)
             kvs[i]["k"].append(k)
             kvs[i]["v"].append(v)
     x = rms_norm(x, params["final_norm"].to(x.dtype))

@@ -16,8 +16,10 @@ in f32 and casts to the requested dtype; ``error_feedback_compress``
 keeps the residual in f32.  Every function runs on the device of its
 input.
 
-Not here: ``compressed_psum``, the collective that sums the decoded
-blocks over a mesh axis (ROADMAP queue A7).
+``compressed_psum`` is the collective: it quantizes a rank's block, sums
+the decoded contributions over a mesh axis (``core.distributed.psum``,
+inside ``core.distributed.shard_map``), and returns the sum in the
+input's shape and dtype.
 """
 from __future__ import annotations
 
@@ -57,6 +59,19 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     for s in shape:
         n *= s
     return flat[:n].reshape(tuple(shape)).to(dtype)
+
+
+def compressed_psum(x: torch.Tensor, axis_name, block: int = 256
+                    ) -> torch.Tensor:
+    """int8-quantize → psum over ``axis_name`` → the sum in ``x``'s shape
+    and dtype.  The scales are each rank's own, so what is summed is each
+    block's decoded contribution ``q · scale`` in f32 (an int8 sum would
+    overflow).  Runs inside ``core.distributed.shard_map``."""
+    from repro_torch.core.distributed import psum
+    q, scale = quantize_int8(x, block)
+    total = psum(q.to(torch.float32) * scale, axis_name)
+    n = x.numel()
+    return total.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
 
 
 def _leaf(g: torch.Tensor, r: torch.Tensor, block: int):

@@ -1,12 +1,12 @@
 """Scale-out GNN serving: DRHM-routed replica lanes under a supervised
-control plane (port of the replicated half of ``repro.serve.cluster``).
+control plane (port of ``repro.serve.cluster``).
 
 The paper's third mechanism — load balancing via **dynamic reseeding
 hash-based mapping** — applied one level up: the *requests* are the TAGs,
 the *serving lanes* are the bins.
 
-``ClusterServer`` runs ``n_lanes`` replica lanes over one resident graph on
-one device:
+``ClusterServer`` runs ``n_lanes`` replica lanes over one resident graph,
+in one process:
 
 * **routing** — a ``DRHMRouter`` maps each request's seed TAG through a
   splitmix-conditioned bin, then through the γ-seeded DRHM bijective
@@ -21,9 +21,24 @@ one device:
   lane, stacked into ONE dispatch of the lane step
   (``compute.build_lane_infer_step``: one forward over the block-diagonal
   stack of the lanes' bucket plans, so each aggregation kernel launches
-  once a layer for all lanes).  ``mode="sharded"`` and
-  ``placement="mesh"`` need several devices and the distributed executor
-  (``ROADMAP.md`` A7) and raise.
+  once a layer for all lanes).
+* **sharded mode** — feature *residency* is DRHM-row-sharded
+  (``sparse.plan.plan_feature_sharding``): lane i's shard of the permuted
+  table lives on its device, and a round's halo exchange
+  (``core.distributed.LaneHalo``) copies the shards' rows onto each
+  lane's device and gathers its subgraph there; bitwise identical to
+  replicated residency.
+* **mesh placement** — lane i's step runs on its own device
+  (``compute.build_lane_infer_step(placement="mesh")``), at its place in
+  the round's stacked shapes, so its rows are bitwise the stacked
+  round's.
+
+Sharded mode and mesh placement take the lanes' ``devices``: by default
+one lane a visible card of the server's device type (fewer cards than
+lanes raises ``ValueError``, as the reference does with fewer devices
+than lanes).  A caller may pass ``devices`` that repeat a device — the
+counterpart of the reference tests' emulated XLA devices: the CPU tests
+run ``devices=["cpu"] * n_lanes``, and one card can hold every lane.
 
 The control plane on top:
 
@@ -263,6 +278,28 @@ class DRHMRouter:
                 "routed_per_epoch": [c.tolist() for c in self.epoch_counts]}
 
 
+def _lane_devices(device: torch.device, n_lanes: int, devices, mode: str,
+                  placement: str) -> list:
+    """The lanes' devices: ``devices`` as given (one a lane; a device may
+    repeat), or one lane a visible card of ``device``'s type — fewer
+    cards than lanes raises."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != n_lanes:
+            raise ValueError(f"{len(devices)} devices for {n_lanes} lanes: "
+                             "pass one device a lane (a device may repeat)")
+        return devices
+    have = (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if have < n_lanes:
+        raise ValueError(
+            f"mode={mode!r}/placement={placement!r} needs {n_lanes} "
+            f"devices, have {have} {device.type} device(s) — pass devices="
+            "[...] with one device a lane (a device may repeat), or use "
+            "placement='stacked' replicated, which is device-count-agnostic")
+    return [torch.device(device.type, i) if device.type == "cuda"
+            else device for i in range(n_lanes)]
+
+
 def utilization_spread(counts: Sequence[float]) -> float:
     """max/mean per-lane load — 1.0 is perfect balance (the paper's hot-spot
     metric, ``drhm.imbalance``, on host counters)."""
@@ -307,18 +344,13 @@ class ClusterServer:
                  scale_sustain_ticks: int = 4,
                  tracing: bool = False, trace_capacity: int = 4096,
                  profile_annotations: bool = False,
-                 clock=time.monotonic, device: DeviceLike = None):
+                 devices=None, clock=time.monotonic,
+                 device: DeviceLike = None):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; have {MODES}")
         if placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {placement!r}; "
                              f"have {PLACEMENTS}")
-        if mode == "sharded" or placement == "mesh":
-            raise NotImplementedError(
-                f"mode={mode!r}/placement={placement!r} spreads the lanes "
-                "over several devices through the distributed executor, "
-                "ROADMAP.md A7; this port serves mode='replicated', "
-                "placement='stacked'")
         if _arch_key(arch_id) not in CONV_ARCHS:
             raise ValueError(f"cluster serving covers {CONV_ARCHS}; "
                              f"{arch_id!r} is single-device only")
@@ -342,6 +374,10 @@ class ClusterServer:
         self.indices = np.asarray(indices)
         self.store = store
         self.n_lanes = int(n_lanes)
+        self.lane_devices = None
+        if mode == "sharded" or placement == "mesh":
+            self.lane_devices = _lane_devices(self.device, self.n_lanes,
+                                              devices, mode, placement)
         self.mode = mode
         self.placement = placement
         self.fanouts = tuple(int(f) for f in fanouts)
@@ -463,7 +499,17 @@ class ClusterServer:
         self.steps = StepCache(self._build_step, maxsize=step_cache_size)
         self._offline_steps = StepCache(self._build_offline_step, maxsize=4)
         self._structs: Dict[int, object] = {}
-        self._fetch_step = build_fetch_step(self.store)
+        self.shard_plan = None
+        if mode == "sharded":
+            from repro_torch.core.distributed import LaneHalo
+            from repro_torch.sparse.plan import plan_feature_sharding
+            n_rows = self.store.n_nodes + 1           # ghost row included
+            self.shard_plan = plan_feature_sharding(n_rows, self.n_lanes)
+            self._halo = LaneHalo(self.store.x, self.shard_plan,
+                                  self.lane_devices,
+                                  n_ghost_slot=self.store.n_nodes)
+        else:
+            self._fetch_step = build_fetch_step(self.store)
 
         self._rid_lock = threading.Lock()
         self._next_rid = 0
@@ -1007,9 +1053,13 @@ class ClusterServer:
         return ep
 
     def update_feature_rows(self, row_ids, rows):
-        """Re-home updated feature rows into the resident store: the table
-        is patched on its device and the fetch step rebuilt over it (the
-        replicated residency; sharded residency is ``ROADMAP.md`` A7)."""
+        """Re-home updated feature rows into the resident store.
+
+        Sharded residency writes them in place into the permuted lane
+        shards at the slots the existing DRHM shard plan gives them
+        (``perm[row_ids]``: no re-shard, no round trip of the table);
+        replicated residency patches the table on its device and rebuilds
+        the fetch step over it."""
         import dataclasses as _dc
         row_ids = np.asarray(row_ids, np.int64).ravel()
         rows = np.asarray(rows, np.float32)
@@ -1026,7 +1076,10 @@ class ClusterServer:
         x[torch.from_numpy(row_ids).to(x.device)] = torch.from_numpy(
             rows).to(x.device)
         self.store = _dc.replace(self.store, x=x)
-        self._fetch_step = build_fetch_step(self.store)
+        if self.mode == "sharded":
+            self._halo.update(row_ids, rows)
+        else:
+            self._fetch_step = build_fetch_step(self.store)
         # the offline-replay anchor closes over the store at build time;
         # drop the cached steps so replay sees the patched features too
         self._offline_steps = StepCache(self._build_offline_step, maxsize=4)
@@ -1042,12 +1095,20 @@ class ClusterServer:
     def _build_step(self, key: tuple):
         (bucket,) = key
         struct = self._struct(bucket)
-        # the lane-stacked plan packs here, with the step: a build is one
-        # cache miss, and the round that pays it is the one that counts it
-        bucket_plan(struct, self.backend, True, self.device, self.n_lanes)
+        # the lane-stacked plan (on every lane's device under mesh
+        # placement) packs here, with the step: a build is one cache miss,
+        # and the round that pays it is the one that counts it
+        if self.placement == "mesh":
+            for dev in dict.fromkeys(self.lane_devices):
+                bucket_plan(struct, self.backend, True, dev, self.n_lanes)
+        else:
+            bucket_plan(struct, self.backend, True, self.device,
+                        self.n_lanes)
         return build_lane_infer_step(self.arch_id, self.cfg, struct,
                                      backend=self.backend,
-                                     placement=self.placement)
+                                     placement=self.placement,
+                                     devices=self.lane_devices,
+                                     out_device=self.device)
 
     def _build_offline_step(self, key: tuple):
         # the single-lane serving step — the parity anchor
@@ -1056,6 +1117,11 @@ class ClusterServer:
                                 self._struct(bucket), backend=self.backend)
 
     def _gather(self, node_ids: np.ndarray):
+        if self.mode == "sharded":
+            lanes = self._halo.gather(node_ids)
+            if self.placement == "mesh":
+                return lanes            # each lane's batch on its device
+            return torch.stack([x.to(self.device) for x in lanes])
         return self._fetch_step(node_ids)
 
     def _reap_expired(self):

@@ -14,7 +14,8 @@ serving must hold it constant after warm-up.
 The cluster tier's lane step (``build_lane_infer_step``) runs one round
 of ``L`` lanes as ONE model forward over a block-diagonal stack of the
 bucket plan (``bucket_plan`` with ``n_lanes``): one B1 (``cuda``) or B4
-(``cuda_q8``) launch a layer for all lanes.
+(``cuda_q8``) launch a layer for all lanes; with ``placement="mesh"``
+each lane runs on a device of its own, at its place in that stack.
 
 All six GNNs serve through here.  The conv family (``gcn`` sym-normed with
 self loops; the unweighted ``sage``, ``gin`` and ``gat``, whose edge
@@ -352,31 +353,75 @@ def _lane_body(arch_id: str, cfg, struct: BucketStructure,
 
 def build_lane_infer_step(arch_id: str, cfg, struct: BucketStructure,
                           backend: str = "dense", *,
-                          placement: str = "stacked") -> Callable:
+                          placement: str = "stacked",
+                          devices=None, out_device=None) -> Callable:
     """``step(params, x, node_ids, hop_valid) -> (L, k, d_out)`` over
     lane-stacked inputs ``x (L, n, d)`` / ``node_ids (L, n)`` /
-    ``hop_valid (L, E)`` on ``x``'s device.
+    ``hop_valid (L, E)``.
 
     ``placement="stacked"`` runs the lanes as ONE forward over the
     block-diagonal stack of their bucket plans (``bucket_plan`` with
-    ``n_lanes``, built on first use per lane count): per-dispatch
-    overhead is paid once per round, not once per lane.  ``placement="mesh"`` (the lanes on a
-    mesh of devices) needs the distributed executor of ``ROADMAP.md`` A7
-    and raises."""
-    if placement == "mesh":
-        raise NotImplementedError(
-            "placement='mesh' (one lane a device) needs the distributed "
-            "executor, ROADMAP.md A7; use placement='stacked'")
-    if placement != "stacked":
+    ``n_lanes``, built on first use per lane count) on ``x``'s device:
+    per-dispatch overhead is paid once per round, not once per lane.
+
+    ``placement="mesh"`` runs lane i's step on ``devices[i]`` (one lane a
+    device, the reference's ``shard_map`` over a ``('lane',)`` mesh): lane
+    i's features (``x[i]``, or the i-th tensor of a list that the sharded
+    residency's halo left on each lane's device) and inputs go to its
+    device, and the parameters are copied there once a parameter set.  A
+    lane computes at its place in the round's stacked shapes, the other
+    lanes' rows empty (``-1`` ids, no valid edge, zero features), on the
+    stacked plan: each operation then runs the kernel the stacked round
+    runs (a GEMM's algorithm depends on its shape, and on the card a
+    smaller one sums in another order), and lanes never mix, so lane i's
+    rows come out bitwise the stacked round's.  The price is the round's
+    stacked work on every lane's device.  The lanes' outputs come back to
+    ``out_device`` (``devices[0]`` by default)."""
+    body = _lane_body(arch_id, cfg, struct, backend)
+    if placement == "stacked":
+        return body
+    if placement != "mesh":
         raise ValueError(f"unknown placement {placement!r}; "
                          "have ('stacked', 'mesh')")
-    return _lane_body(arch_id, cfg, struct, backend)
+    if not devices:
+        raise ValueError("placement='mesh' needs the lanes' devices")
+    devices = [torch.device(d) for d in devices]
+    out_device = torch.device(out_device or devices[0])
+    copies: Dict[torch.device, tuple] = {}
+
+    def params_on(params, dev):
+        got = copies.get(dev)
+        if got is None or got[0] is not params:
+            from repro_torch import tree
+            got = copies[dev] = (params, tree.map_leaves(
+                lambda t: t.to(dev), params))
+        return got[1]
+
+    def step(params, x, node_ids, hop_valid):
+        node_ids = torch.as_tensor(node_ids)
+        hop_valid = torch.as_tensor(hop_valid)
+        n_lanes = len(devices)
+        outs = []
+        for lane, dev in enumerate(devices):
+            xl = x[lane].to(dev, non_blocking=True)
+            xs = xl.new_zeros((n_lanes,) + tuple(xl.shape))
+            xs[lane] = xl
+            ids = torch.full_like(node_ids, -1)
+            ids[lane] = node_ids[lane]
+            hv = torch.zeros_like(hop_valid)
+            hv[lane] = hop_valid[lane]
+            outs.append(body(params_on(params, dev), xs, ids,
+                             hv)[lane:lane + 1])
+        return torch.cat([o.to(out_device) for o in outs])
+    return step
 
 
 def build_fetch_step(store: FeatureStore) -> Callable:
     """Replicated-residency feature fetch: ``(node_ids (L, n)) -> x (L, n,
     d)`` straight off the resident table on the store's device (ghost row
-    for padding lanes)."""
+    for padding lanes).  The sharded-residency counterpart is
+    ``core.distributed.LaneHalo`` — the same rows, another transport,
+    bitwise the same batch."""
     dev = store.device
 
     def fetch(node_ids):

@@ -31,7 +31,12 @@ Two arms over a *running* ``serve.cluster.ClusterServer``:
   through ``SamplerPool.set_graph``.  Requests
   sampled before the flip drain on the old adjacency and carry its
   ``graph_epoch``.  Feature-row updates re-home through the server's
-  resident store.
+  resident store: on sharded residency in place at each row's DRHM slot
+  of its owner lane's shard, with no re-shard.
+
+Both arms act on any residency and placement: a swap's shadow warm-up
+and every round after the flip run on the lanes' own devices, and a
+flush swaps the CSR the shared sampler reads, never the resident table.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Unified sparse-backend engine — one aggregation API, four executors.
+"""Unified sparse-backend engine — one aggregation API, five executors.
 
 Port of ``repro.sparse.backend``.  Every sparse aggregation goes through
 
@@ -20,7 +20,11 @@ dispatched over a registry of interchangeable executors:
                 (one scale per feature tile).  ``x`` may be f32 (quantized
                 on each call; straight-through gradients, the f32 backward
                 of ``cuda``) or ``sparse.quantize.QuantizedFeatures``
-                (quantized once, the resident path, inference only).
+                (quantized once, the resident path, inference only);
+* ``distributed`` — DRHM row ownership + the all-gather schedule over the
+                plan's ``DeviceMesh`` (``core.distributed``, paper C1+C2):
+                every rank calls it with the whole x and gets the whole y;
+                it trains (gradients in x and in ``vals``).
 
 ``vals`` may be ``None`` (use the plan's edge weights) or an (E,) tensor;
 either way padding lanes contribute nothing.
@@ -315,3 +319,54 @@ def _cuda_q8_aggregate(plan, vals, x):
 
 
 register_backend(Backend("cuda_q8", _cuda_q8_aggregate, _cuda_accumulate))
+
+
+# ---------------------------------------------------------------------------
+# distributed — DRHM row ownership + all-gather SPMD schedule (paper C1+C2)
+# ---------------------------------------------------------------------------
+
+def _dist_edge_vals(plan, vals):
+    from repro_torch.sparse.plan import dist_values
+    if vals is None:
+        return plan.dist_vals
+    return dist_values(plan, torch.where(plan.valid, vals, 0).to(
+        torch.float32))
+
+
+def _dist_permute_in(plan, x):
+    pad = plan.dist_n_pad - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+    return x.index_select(0, plan.dist_inv_perm)
+
+
+def _dist_permute_out(plan, y_perm, dtype):
+    return y_perm.index_select(0, plan.dist_perm[: plan.n_rows]).to(dtype)
+
+
+def _distributed_aggregate(plan, vals, x):
+    from repro_torch.core import distributed
+    plan.require("dist", "distributed")
+    v = _dist_edge_vals(plan, vals)
+    x_perm = _dist_permute_in(plan, x.to(torch.float32))
+    fn = distributed.make_allgather_spmm_dims(plan.mesh, plan.rows_per_shard,
+                                              data_axis="data",
+                                              model_axis=None)
+    y_perm = fn(x_perm, plan.dist_rows_local, plan.dist_cols_perm, v)
+    return _dist_permute_out(plan, y_perm, x.dtype)
+
+
+def _distributed_accumulate(plan, messages):
+    from repro_torch.core import distributed
+    from repro_torch.sparse.plan import dist_values
+    plan.require("dist", "distributed")
+    m = _mask_messages(plan, messages).to(torch.float32)
+    m_dist = dist_values(plan, m)
+    fn = distributed.make_owner_accumulate(plan.mesh, plan.rows_per_shard,
+                                           data_axis="data")
+    y_perm = fn(m_dist, plan.dist_rows_local)
+    return _dist_permute_out(plan, y_perm, messages.dtype)
+
+
+register_backend(Backend("distributed", _distributed_aggregate,
+                         _distributed_accumulate))

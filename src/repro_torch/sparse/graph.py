@@ -4,8 +4,10 @@
 The device-side graph is a padded COO edge list (``Graph``, torch tensors on
 one device).  Host-side: CSR for the neighbor sampler, GCN symmetric
 normalization, and the operand-deduplicated chunk packer the Gustavson
-kernel runs on.  The packer must give arrays bitwise equal to the
-reference's, so it is copied, not rewritten.  ``coarsen_graph`` runs two
+kernel runs on (and the older per-lane ``BlockedELL`` layout, which
+``kernels.gustavson_spmm.spmm_blocked_ell`` re-packs into dedup chunks).
+The packers must give arrays bitwise equal to the reference's, so they
+are copied, not rewritten.  ``coarsen_graph`` runs two
 rectangular SpGEMMs through the engine in ``repro_torch.sparse.spgemm``.
 """
 from __future__ import annotations
@@ -141,6 +143,65 @@ def sym_norm_weights(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,
     dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
     w = dinv[senders] * dinv[receivers]
     return senders, receivers, w.astype(np.float32)
+
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedELL:
+    """Blocked-ELL packing of a sparse matrix: rows grouped into blocks of
+    ``block_rows``; each block stores a padded nnz list (cols, vals, local
+    row within the block) of length ``nnz_pad`` (the max nnz over blocks,
+    rounded to ``nnz_multiple``).  ``remaining`` is each block's real nnz
+    count (its rolling-eviction counter)."""
+
+    cols: np.ndarray       # (n_blocks, nnz_pad) int32 — column per edge
+    row_local: np.ndarray  # (n_blocks, nnz_pad) int32 — row within block
+    vals: np.ndarray       # (n_blocks, nnz_pad) float32 (0 for padding)
+    remaining: np.ndarray  # (n_blocks,) int32 — eviction counters
+    n_rows: int
+    n_cols: int
+    block_rows: int
+    # slot of input edge i in the flattened (n_blocks * nnz_pad) layout
+    slots: Optional[np.ndarray] = None  # (E,) int32
+
+    @property
+    def n_blocks(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def nnz_pad(self) -> int:
+        return self.cols.shape[1]
+
+
+def pack_blocked_ell(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                     n_rows: int, n_cols: int, block_rows: int = 8,
+                     nnz_multiple: int = 128) -> BlockedELL:
+    """Pack COO (rows, cols, vals) into ``BlockedELL`` (host-side, once)."""
+    n_blocks = round_up(n_rows, block_rows) // block_rows
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    blk = rows // block_rows
+    counts = np.zeros(n_blocks, dtype=np.int64)
+    np.add.at(counts, blk, 1)
+    nnz_pad = int(round_up(max(int(counts.max(initial=1)), 1), nnz_multiple))
+    out_cols = np.zeros((n_blocks, nnz_pad), dtype=np.int32)
+    out_rloc = np.zeros((n_blocks, nnz_pad), dtype=np.int32)
+    out_vals = np.zeros((n_blocks, nnz_pad), dtype=np.float32)
+    starts = np.zeros(n_blocks + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slots = np.zeros(rows.shape[0], dtype=np.int32)
+    for b in range(n_blocks):
+        lo, hi = starts[b], starts[b + 1]
+        k = hi - lo
+        out_cols[b, :k] = cols[lo:hi]
+        out_rloc[b, :k] = rows[lo:hi] - b * block_rows
+        out_vals[b, :k] = vals[lo:hi]
+        slots[order[lo:hi]] = b * nnz_pad + np.arange(k, dtype=np.int32)
+    return BlockedELL(
+        cols=out_cols, row_local=out_rloc, vals=out_vals,
+        remaining=counts.astype(np.int32), n_rows=n_rows, n_cols=n_cols,
+        block_rows=block_rows, slots=slots,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

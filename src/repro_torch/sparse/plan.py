@@ -16,7 +16,14 @@ dispatches to, as tensors on one device:
   order where two edges share a cell (``scatter_order``);
 * the forward tiles quantized to int8 with one scale per chunk
   (``ell_a_q8``/``ell_a_scale``, ``sparse.quantize``) — the ``cuda_q8``
-  kernel's operands, baked when ``backends`` names ``cuda_q8``.
+  kernel's operands, baked when ``backends`` names ``cuda_q8``;
+* the DRHM shard section (``dist_*``, via ``core.distributed.
+  plan_distributed_spmm``) — the ``distributed`` executor over the
+  plan's ``mesh`` (a ``DeviceMesh`` with a ``data`` axis), with scatter
+  slots for per-edge values.
+
+``plan_feature_sharding`` is the serving cluster's sharded residency: a
+DRHM row permutation of a resident feature table over its lanes.
 
 ``plan_from_graph`` builds a plan for a padded ``Graph``;
 ``cached_plan_from_graph`` keeps the last few behind an LRU keyed on the
@@ -36,7 +43,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-ALL_BACKENDS = ("dense", "chunked", "cuda", "cuda_q8")
+ALL_BACKENDS = ("dense", "chunked", "cuda", "cuda_q8", "distributed")
 
 
 class BackendPlanError(ValueError):
@@ -61,6 +68,10 @@ class AggregationPlan:
     lanes: int = 1
     lane_rows: Optional[int] = None   # None → n_rows
     lane_nodes: Optional[int] = None  # None → lane_rows
+    n_shards: int = 0
+    rows_per_shard: int = 0
+    edges_per_shard: int = 0
+    mesh: Optional[object] = None     # DeviceMesh for `distributed`
 
     # --- COO section (always present) ---
     rows: Optional[torch.Tensor] = None       # (E,) int64 — receivers
@@ -98,6 +109,13 @@ class AggregationPlan:
     # plan time from the f32 tiles and re-quantized by plan_with_values
     ell_a_q8: Optional[torch.Tensor] = None       # (n_chunks·BR, width) int8
     ell_a_scale: Optional[torch.Tensor] = None    # (n_chunks,) f32
+    # --- DRHM shard section (`distributed`) ---
+    dist_rows_local: Optional[torch.Tensor] = None  # (S·e_per,) int64
+    dist_cols_perm: Optional[torch.Tensor] = None   # (S·e_per,) int64
+    dist_vals: Optional[torch.Tensor] = None        # (S·e_per,) f32
+    dist_slots: Optional[torch.Tensor] = None       # (E,) int64; OOB: dropped
+    dist_perm: Optional[torch.Tensor] = None        # (n_pad,) row → slot
+    dist_inv_perm: Optional[torch.Tensor] = None    # (n_pad,) slot → row
     # the SegmentOrders of ``rows``/``cols`` (``order``), built on first
     # use and keyed by the id tensor: plans re-valued by
     # ``plan_with_values`` (same rows and cols) share them
@@ -107,6 +125,8 @@ class AggregationPlan:
     def has(self, section: str) -> bool:
         if section == "ell":
             return self.ell_u_cols is not None
+        if section == "dist":
+            return self.dist_rows_local is not None and self.mesh is not None
         return self.rows is not None
 
     def require(self, section: str, backend: str) -> None:
@@ -119,6 +139,10 @@ class AggregationPlan:
     @property
     def device(self) -> torch.device:
         return self.rows.device
+
+    @property
+    def dist_n_pad(self) -> int:
+        return self.n_shards * self.rows_per_shard
 
     def order(self, axis: str, lo: int = 0, hi: Optional[int] = None):
         """The ``segment_ops.SegmentOrder`` of ``rows`` or ``cols`` (edges
@@ -252,7 +276,7 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
               chunk: int = 8192, block_rows: int = 8, width_cap: int = 128,
               width_multiple: int = 16, d_tile: Optional[int] = None,
               lanes: int = 1, lane_rows: Optional[int] = None,
-              lane_nodes: Optional[int] = None,
+              lane_nodes: Optional[int] = None, mesh=None,
               device: DeviceLike = None) -> AggregationPlan:
     """Host-side plan: precompute every layout in ``backends`` once and
     place it on ``device`` (default ``cuda``).
@@ -265,6 +289,10 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
     ``lanes``/``lane_rows``/``lane_nodes``): ``n_rows`` must be ``lanes ·
     lane_rows``, ``lane_rows`` a multiple of ``block_rows`` (so every
     output block lies in one lane) and no edge may cross lanes.
+
+    ``distributed`` shards the valid edges over the ``data`` axis of
+    ``mesh`` (default: a one-axis mesh over every rank of the initialized
+    process group; without one it raises).
     """
     for b in backends:
         if b not in ALL_BACKENDS:
@@ -320,7 +348,41 @@ def make_plan(senders: np.ndarray, receivers: np.ndarray, n_rows: int,
         record_value("plan.hub_splits",
                      int(fwd.u_cols.shape[0] - np.unique(fwd.out_block).size))
         kw.update(ell_sections(fwd, tr, e, vidx, backends, d_tile, dev))
+
+    if "distributed" in backends:
+        from repro_torch.core.distributed import plan_distributed_spmm
+        if mesh is None:
+            mesh = _world_data_mesh()
+        n_shards = int(mesh.size(list(mesh.mesh_dim_names).index("data")))
+        dp = plan_distributed_spmm(r[vidx], s[vidx], base[vidx], int(n_rows),
+                                   n_shards=n_shards)
+        slots = np.full(e, dp.n_shards * dp.edges_per_shard, np.int64)
+        slots[vidx] = dp.slots
+        kw.update(mesh=mesh, n_shards=dp.n_shards,
+                  rows_per_shard=dp.rows_per_shard,
+                  edges_per_shard=dp.edges_per_shard,
+                  dist_rows_local=t(dp.rows_local.astype(np.int64)),
+                  dist_cols_perm=t(dp.cols_perm.astype(np.int64)),
+                  dist_vals=t(dp.vals), dist_slots=t(slots),
+                  dist_perm=t(dp.perm.astype(np.int64)),
+                  dist_inv_perm=t(dp.inv_perm.astype(np.int64)))
     return AggregationPlan(**kw)
+
+
+def _world_data_mesh():
+    """A one-axis ``("data",)`` mesh over every rank of the initialized
+    process group (the reference's default mesh over every device)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise ValueError(
+            "the distributed backend shards over the ranks of a process "
+            "group: initialize one (torch.distributed.init_process_group) "
+            "or pass make_plan(..., mesh=) a DeviceMesh with a 'data' axis")
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = str(dist.get_backend())
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                            (dist.get_world_size(),),
+                            mesh_dim_names=("data",))
 
 
 def _scatter(shape, dtype, slots: torch.Tensor, vals: torch.Tensor,
@@ -422,7 +484,68 @@ def plan_with_values(plan: AggregationPlan, edge_weight=None,
             from repro_torch.sparse.quantize import quantize_chunk_tiles
             kw["ell_a_q8"], kw["ell_a_scale"] = quantize_chunk_tiles(
                 kw["ell_a"], plan.ell_u_cols.shape[0])
+    if plan.dist_rows_local is not None:
+        kw["dist_vals"] = dist_values(plan, base)
     return dataclasses.replace(plan, **kw)
+
+
+def dist_values(plan: AggregationPlan, vals: torch.Tensor) -> torch.Tensor:
+    """Per-edge ``vals`` placed at their owner-grouped slots of the
+    ``dist_*`` layout (padding lanes and invalid edges 0).  Every slot
+    takes at most one edge, so the placement is exact in any order;
+    gradients reach ``vals`` through it."""
+    n = plan.dist_rows_local.shape[0]
+    flat = vals.new_zeros((n + 1,) + vals.shape[1:])
+    flat = flat.index_copy(0, plan.dist_slots.clamp(0, n), vals)
+    return flat[:n]
+
+
+# ---------------------------------------------------------------------------
+# Feature-shard plan — the serving cluster's sharded-residency layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FeatureShardPlan:
+    """DRHM row-sharded residency for a resident feature table (serving
+    cluster): lane ``i`` of ``n_lanes`` owns permuted row slots ``[i·R,
+    (i+1)·R)``.  The DRHM permutation is a bijection, so every lane holds
+    exactly ``R = n_pad / n_lanes`` rows, whichever nodes are popular.
+
+    ``perm`` maps a padded row id (ghost row included, id ``n_rows-1``) to
+    its permuted slot; the halo gather uses it to translate a sampled
+    subgraph's node ids into slots of the sharded table."""
+
+    n_rows: int                  # padded row count incl. ghost row
+    n_lanes: int
+    n_pad: int                   # permuted slot count (n_lanes-divisible)
+    gamma: int
+    perm: np.ndarray             # (n_pad,) row id -> permuted slot
+    inv_perm: np.ndarray         # (n_pad,) permuted slot -> row id
+
+    @property
+    def rows_per_lane(self) -> int:
+        return self.n_pad // self.n_lanes
+
+    def owner_of(self, row_ids: np.ndarray) -> np.ndarray:
+        return self.perm[row_ids] // self.rows_per_lane
+
+    def permute_table(self, table: np.ndarray) -> np.ndarray:
+        """A host feature table (ghost row last) in permuted slot order;
+        pad slots (beyond ``n_rows``) are zero, like the ghost row."""
+        out = np.zeros((self.n_pad,) + table.shape[1:], table.dtype)
+        out[self.perm[:table.shape[0]]] = table
+        return out
+
+
+def plan_feature_sharding(n_rows: int, n_lanes: int,
+                          gamma: int = 0x9E3779B1) -> FeatureShardPlan:
+    """DRHM shard plan for a resident feature table of ``n_rows`` rows
+    (ghost row included) over ``n_lanes`` serving lanes."""
+    from repro_torch.core import drhm
+    sp = drhm.plan_row_sharding(n_rows, n_lanes, gamma)
+    return FeatureShardPlan(n_rows=n_rows, n_lanes=n_lanes, n_pad=sp.n_pad,
+                            gamma=sp.gamma, perm=sp.perm,
+                            inv_perm=sp.inv_perm)
 
 
 def plan_from_graph(g, *, n_rows: Optional[int] = None,

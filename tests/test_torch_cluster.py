@@ -14,8 +14,9 @@
 * a port ``ClusterServer(device="cpu")`` serves within 1e-5 of the
   reference's ``ClusterServer`` on the same world and request stream;
 * the counterparts of ``tests/test_cluster_serving.py``'s router and
-  replicated cases; ``mode="sharded"`` and ``placement="mesh"`` raise,
-  naming ROADMAP A7.
+  replicated cases; ``mode="sharded"`` and ``placement="mesh"`` without a
+  device a lane raise ``ValueError`` naming the devices (their parity is
+  ``tests/test_torch_cluster_sharded.py``).
 """
 import jax
 import numpy as np
@@ -294,9 +295,12 @@ def test_lane_scaled_b4_plain_equals_per_lane_calls():
 
 
 def test_placements_and_modes_beyond_stacked_raise_naming_a7():
+    """Sharded mode and mesh placement (ROADMAP A7, ported) need a device a
+    lane: without them they raise ``ValueError`` naming the devices, as the
+    reference does with fewer devices than lanes."""
     struct = build_bucket_structure(2, (2, 2), with_loops=True)
     cfg = tgcn.GCNConfig(d_in=4, n_classes=3)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="devices"):
         tcompute.build_lane_infer_step("gcn", cfg, struct, placement="mesh")
     with pytest.raises(ValueError, match="placement"):
         tcompute.build_lane_infer_step("gcn", cfg, struct,
@@ -304,10 +308,10 @@ def test_placements_and_modes_beyond_stacked_raise_naming_a7():
     cfg, params, indptr, indices, store = build_world(64, 256, 4, 0, CPU)
     for kw in (dict(mode="sharded"), dict(placement="mesh"),
                dict(mode="sharded", placement="mesh")):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="devices"):
             ClusterServer("gcn", cfg, params, indptr, indices, store,
                           device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="devices"):
         tlaunch.main(["--device", "cpu", "--replicas", "2", "--shard",
                       "--requests", "4", "--nodes", "64", "--edges", "256"])
 

@@ -583,9 +583,7 @@ def test_gnn_serve_world_matches_reference():
                                                            8, seed=4)
         tcfg, _, tip, tix, tstore = gnn_serve.build_world(120, 400, 8, 4,
                                                           CPU, arch)
-        assert dataclasses.asdict(tcfg) == {
-            k: v for k, v in dataclasses.asdict(jcfg).items()
-            if k != "dp_axes"}
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
         np.testing.assert_array_equal(tip, jip)
         np.testing.assert_array_equal(tix, jix)
         np.testing.assert_array_equal(tstore.species.numpy(),
@@ -617,9 +615,7 @@ def test_shapes_configs_and_registry_match_reference():
             "dimenet": (jdimenet_cfg, tdimenet_cfg)}.items():
         for a, b in ((tcfg_mod.FULL, jcfg_mod.FULL),
                      (tcfg_mod.reduced(), jcfg_mod.reduced())):
-            assert dataclasses.asdict(a) == {
-                k: v for k, v in dataclasses.asdict(b).items()
-                if k != "dp_axes"}
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
         e = registry.entry(arch)
         assert (e.family, e.gnn_kind) == ("gnn", "geom")
         assert e.gnn_kind == jregistry.ARCHS[arch].gnn_kind

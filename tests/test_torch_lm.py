@@ -335,13 +335,18 @@ def test_flash_with_a_gradient_raises():
 
 
 def test_multi_device_paths_raise():
+    """With ``dp_axes`` set, the MoE layers dispatch over a mesh
+    (``moe_mlp_sharded``, ported): without DTensor inputs or an ambient
+    mesh they raise, naming the mesh (the sharded paths' parity is
+    ``tests/test_torch_lm_sharded.py``)."""
     cfg = dataclasses.replace(registry.get_config("grok-1-314b", reduced=True),
                               dp_axes=("data",))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), CPU)
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for fn in (T.forward, T.prefill):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn({}, cfg, toks)
-    with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="mesh"):
+            fn(params, cfg, toks, attention="blocked")
+    with pytest.raises(ValueError, match="mesh"):
         T.moe_mlp_sharded({}, cfg, torch.zeros((1, 4, 64)), 8)
 
 
