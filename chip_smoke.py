@@ -126,9 +126,14 @@ Phases, each of which raises (exit code 1) on any failure:
     heads, 8 kv heads, head_dim 128), S = 4096, batch 1, in f32 and bf16,
     counted, against the f32 plain version (≤2e-5 f32, ≤2e-2 bf16), timed
     beside ``scaled_dot_product_attention(is_causal=True)``, with B8's
-    achieved TFLOP/s and share of its bound per dtype; then, as readings
-    and not gates, each B8 instantiation's ``HGMMA`` / ``HMMA`` count in
-    its SASS (``cuobjdump -sass``) and its registers, stack, local (spill)
+    achieved TFLOP/s and share of its bound per dtype; B8 over the head
+    dims it takes (``FLASH_SWEEP``: 5 and every width class to 256, BH =
+    4, S = 1,024), in f32 and bf16, one counted launch a case, against
+    the f32 plain version at the same bars, each timed from a replayed
+    graph beside its bound (``flash_bound``: at the true d, and where the
+    wrapper pads d, also of the padded work); then, as readings and not gates, each B8 instantiation's
+    ``HGMMA`` / ``HMMA`` count in its SASS (``cuobjdump -sass``) and its
+    registers, stack, local (spill)
     and static shared memory (``cuobjdump --dump-resource-usage``), and
     where each dtype's error comes from (``flash_numerics``: bf16 against
     the rounded f32 plain version and P's rounding alone, f32 against an
@@ -376,14 +381,30 @@ Phases, each of which raises (exit code 1) on any failure:
     replay, B1 (B4) launched, the halo gather timed beside the replicated
     fetch, a hot-swap and a graph flush on sharded residency with no
     request lost; and ``spmm_blocked_ell`` against its plain version at
-    phase 2's bucket-16 and Cora-scale shapes (one B1 a call).
+    phase 2's bucket-16 and Cora-scale shapes (one B1 a call);
+23. gemma-7b at FULL (28 layers, d_model 3072, 16 heads and 16 kv heads
+    of head_dim 256, d_ff 24,576, GeGLU, vocab 256,000, tied, bf16,
+    ~8.54e9 parameters, 17.1 GB) drawn on the card from seed 0, after
+    phase 20 has freed qwen3's: phase 20's prefill checks (B8 at d = 256,
+    28 launches, against the blocked attention at ``LM_BF16_REL`` and
+    ``LM_BF16_TOP1``; f32 at depth 4 at ``LM_F32_REL``), its serving (16
+    requests on 8 slots, 28 B8 a prefill, every request finished with
+    tokens inside the vocab, each served prefill and served token held as
+    there, then the reduced gemma in f32 token for token equal to offline
+    decode; equality of the FULL model's tokens with offline decode is
+    not taken here, to keep the phase short) and its readings (prefill and
+    decode traced, B8's share of the prefill's device time); then B8 at
+    gemma's attention shape (BH = 16, S = 4,096, d = 256) in bf16 and
+    f32 against its f32 plain version on the same values (≤2e-5 f32,
+    ≤2e-2 bf16), timed from a replayed graph beside its plain version,
+    ``scaled_dot_product_attention`` and its bound.
 
 Launch counters are set to 0 just before each main-path run (the
 serving runs, phases 7 and 9's paths, each DLRM step, phases 11 and
 12's wrapper calls, each training run of phases 13–16, phase 2b's bf16
 forward, phases 17 and 18's servers, phase 19's forwards and drills,
-phase 20's prefills, forward and servers, phase 22's sharded and
-mesh-placed clusters and ``spmm_blocked_ell`` calls) and read just
+phase 20's and 23's prefills, forwards and servers, phase 22's sharded
+and mesh-placed clusters and ``spmm_blocked_ell`` calls) and read just
 after it; launches made to compare or
 time a kernel are not counted.  The
 line before last is a JSON object with each kernel's launches, error and
@@ -398,6 +419,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import functools
 import gc
 import io
@@ -439,6 +461,10 @@ OGB_PRODUCTS = (2_449_029, 61_859_140, 100)
 # minibatch_lg's graph (nodes, edges), repro configs/shapes.py:66-69
 MINIBATCH_LG_GRAPH = (232_965, 114_615_892)
 QWEN3_ATTENTION = (1, 4096, 16, 8, 128)
+# phase 12's head-dim sweep: (BH, S, head dims): each instantiation's
+# widths and widths below and between them, which the wrapper pads on the
+# card to the next width
+FLASH_SWEEP = (4, 1024, (5, 8, 16, 24, 32, 64, 80, 96, 112, 128, 160, 256))
 GEOM_ARCHS = ("schnet", "dimenet")
 
 
@@ -2198,22 +2224,64 @@ def b7_path_sweep(dev, x_full, y_full, gen):
     return sweep
 
 
-def flash_case(dtype, flat):
-    """B8 at one dtype on the (BH, S, d) layout ``flat`` = (qf, kf, vf):
-    timed beside its plain version and ``scaled_dot_product_attention``."""
+def flash_bound(dtype, bh: int, s: int, d: int) -> dict:
+    """B8's bound on (BH, S, d) in ``dtype``.  Least bytes: q, k, v read
+    once and o written once (the repeated heads, as the kernel takes
+    them).  Least operations: q.k and p.v over the S(S+1)/2 causal pairs,
+    2 flops a multiply-add, at the tensor cores' peak for the input type:
+    bf16, or for f32 the 3xTF32 rate (the TF32 peak over the three
+    products each f32 one takes).  Where the wrapper pads d to a wider
+    compiled width dp, ``padded_bound_ms`` is the same bound for the work
+    it does: q, k, v read at d and written at dp, the kernel's reads and
+    write and its operations at dp, and o read and written at d to cut it
+    back."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        padded_head_dim
+    elem = torch.finfo(dtype).bits // 8
+    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
+            else F32_3XTF32_FLOPS_PER_S)
+
+    def bound(n_bytes, n_flops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+    n_bytes, n_flops = 4 * bh * s * d * elem, 2 * bh * d * s * (s + 1)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    rec = dict(bound_ms=bound_ms, bound_by=bound_by, bound_bytes=n_bytes,
+               bound_flops=n_flops)
+    dp = padded_head_dim(d, dtype)
+    if dp != d:
+        pad_bytes = bh * s * elem * (5 * d + 7 * dp)
+        rec.update(padded_to=dp, padded_bytes=pad_bytes,
+                   padded_bound_ms=bound(pad_bytes,
+                                         2 * bh * dp * s * (s + 1))[0])
+    return rec
+
+
+def flash_case(dtype, flat, model="qwen3-0.6b"):
+    """B8 at one dtype on the (BH, S, d) layout ``flat`` = (qf, kf, vf),
+    ``model``'s attention: held against its f32 plain version on the same
+    values (≤2e-5 f32, ≤2e-2 bf16), timed beside its plain version and
+    ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                      flash_attention)
     qf, kf, vf = flat
     bh, s, d = qf.shape
     out = flash_attention(qf, kf, vf)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    err = float((out.float() - causal_attention_plain(
+        qf.float(), kf.float(), vf.float())).abs().max())
+    check(err <= tol, f"B8 {model} {dtype}: kernel vs f32 plain {err:.3e} "
+                      f"> {tol}")
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qf[None], kf[None], vf[None], is_causal=True)[0]
     lib_err = float((library().float() - out.float()).abs().max())
     check(lib_err <= (2e-2 if dtype == torch.bfloat16 else 1e-4),
           f"B8 {dtype}: kernel vs scaled_dot_product_attention {lib_err:.3e}")
-    rec = dict(shape=f"qwen3-0.6b attention BH={bh} S={s} d={d} "
+    rec = dict(shape=f"{model} attention BH={bh} S={s} d={d} "
                      f"{str(dtype).split('.')[-1]}",
+               max_abs_err=err, tolerance=tol,
                ms=graph_ms(lambda: flash_attention(qf, kf, vf), calls=5,
                            replays=4),
                plain_ms=eager_ms(lambda: causal_attention_plain(qf, kf, vf),
@@ -2221,21 +2289,9 @@ def flash_case(dtype, flat):
                library_ms=graph_ms(library, calls=5, replays=4),
                library_err=lib_err,
                library_note="F.scaled_dot_product_attention(is_causal=True)"
-                            " on the repeated (1, BH, S, d) heads")
-    # least bytes: q, k, v read once and o written once (the repeated
-    # heads, as the kernel takes them).  Least operations: q.k and p.v over
-    # the S(S+1)/2 causal pairs, 2 flops a multiply-add, at the tensor
-    # cores' peak for the input type: bf16, or for f32 the 3xTF32 rate
-    # (the TF32 peak over the three products each f32 one takes)
-    n_bytes = 4 * bh * s * d * qf.element_size()
-    n_flops = 2 * bh * d * s * (s + 1)
-    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
-            else F32_3XTF32_FLOPS_PER_S)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
-    rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_bytes=n_bytes, bound_flops=n_flops)
-    rec.update(tflop_s=n_flops / rec["ms"] / 1e9,
+                            " on the repeated (1, BH, S, d) heads",
+               **flash_bound(dtype, bh, s, d))
+    rec.update(tflop_s=rec["bound_flops"] / rec["ms"] / 1e9,
                bound_share=rec["bound_ms"] / rec["ms"])
     return rec
 
@@ -2253,9 +2309,9 @@ def sass_readings(library: pathlib.Path) -> dict:
         return subprocess.run([tool, flag, str(library)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
 
-    def readable(mangled):       # _Z17flash_bf16_kernelILi128E... → <128>
+    def readable(mangled):  # _Z17flash_bf16_kernelILi128EEv... → <128>
         m = re.search(r"_Z\d+(\w+?_kernel)ILi(\d+)E", mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+        return mangled if m is None else f"{m.group(1)}<{m.group(2)}>"
 
     out, name = {}, None
     for line in dump("-sass").splitlines():
@@ -2386,6 +2442,44 @@ def flash_numerics(dtype, flat) -> dict:
     return out
 
 
+def flash_sweep(dev) -> list:
+    """B8 at each head dim of ``FLASH_SWEEP`` in f32 and bf16 on the same
+    seeded (BH, S, d) q, k, v: one counted launch a case, shaped and
+    finite, against its f32 plain version (≤2e-5 f32, ≤2e-2 bf16), and
+    its time from a replayed graph beside its bound (``flash_bound``)."""
+    from repro_torch.kernels.flash_attention import (causal_attention_plain,
+                                                     flash_attention)
+    bh, s, dims = FLASH_SWEEP
+    gen = torch.Generator(device=dev).manual_seed(121)
+    recs = []
+    for d in dims:
+        flat32 = [torch.randn((bh, s, d), generator=gen, device=dev)
+                  for _ in range(3)]
+        want = causal_attention_plain(*flat32)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = (t.to(dtype) for t in flat32)
+            ref = want if dtype == torch.float32 else causal_attention_plain(
+                q.float(), k.float(), v.float())
+            flash_attention.launches = 0
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            launches = flash_attention.launches
+            name = f"B8 sweep d={d} {str(dtype).split('.')[-1]}"
+            check(launches == 1 and out.dtype == dtype
+                  and out.shape == q.shape
+                  and bool(torch.isfinite(out).all()),
+                  f"{name}: {launches} launches, malformed output")
+            err = float((out.float() - ref).abs().max())
+            check(err <= tol, f"{name}: kernel vs f32 plain {err:.3e} > "
+                              f"{tol}")
+            recs.append(dict(d=d, dtype=str(dtype).split(".")[-1],
+                             launches=launches, max_abs_err=err,
+                             tolerance=tol, ms=graph_ms(
+                                 lambda: flash_attention(q, k, v), calls=5,
+                                 replays=4), **flash_bound(dtype, bh, s, d)))
+    return recs
+
+
 def phase_flash(dev):
     """B8 through ``mha_causal`` at qwen3-0.6b's attention width (16 heads,
     8 kv heads, head_dim 128: repro configs/qwen3_0_6b.py) and the
@@ -2422,8 +2516,7 @@ def phase_flash(dev):
         flat = tuple(t.repeat_interleave(h // t.shape[2], dim=2)
                      .transpose(1, 2).reshape(b * h, s, hd).contiguous()
                      for t in (qt, kt, vt))
-        rec = dict(max_abs_err=err, tolerance=tol,
-                   **flash_case(dtype, flat))
+        rec = dict(mha_causal_err=err, **flash_case(dtype, flat))
         say(f"B8 {json.dumps(rec)}")
         sdpa_tflop_s = rec["bound_flops"] / rec["library_ms"] / 1e9
         say(f"B8 {dtype}: {rec['tflop_s']} TFLOP/s, "
@@ -2432,6 +2525,10 @@ def phase_flash(dev):
         say(f"B8 {dtype} numerics "
             f"{json.dumps(flash_numerics(dtype, flat))}")
         recs.append(rec)
+    sweep = flash_sweep(dev)
+    say(f"B8 head-dim sweep BH={FLASH_SWEEP[0]} S={FLASH_SWEEP[1]} "
+        f"{json.dumps(sweep)}")
+    launches += sum(r["launches"] for r in sweep)
     say(f"B8 SASS and resources {json.dumps(sass_readings(LIBRARY.path))}")
     return recs, launches
 
@@ -4753,12 +4850,12 @@ LM_LOSS_RTOL = 1e-4
 LM_FIRST_LOSS_TOL = 0.5            # ln V ± this at random initialization
 
 
-def lm_config(**changes):
-    """qwen3-0.6b's FULL config (repro configs/qwen3_0_6b.py) with
-    ``changes``."""
+def lm_config(arch=LM_ARCH, **changes):
+    """``arch``'s FULL config (qwen3-0.6b's: repro configs/qwen3_0_6b.py)
+    with ``changes``."""
     import dataclasses
     from repro_torch.configs import registry
-    return dataclasses.replace(registry.get_config(LM_ARCH), **changes)
+    return dataclasses.replace(registry.get_config(arch), **changes)
 
 
 def lm_params(cfg, dev, seed=0):
@@ -4796,7 +4893,7 @@ def lm_prefill_checks(dev, cfg, params) -> dict:
     from repro_torch.models.lm import transformer as T
     b, s = LM_PREFILL
     toks = lm_tokens(dev, b, s, cfg.vocab, seed=20)
-    rec = dict(shape=f"{LM_ARCH} prefill B={b} S={s} bf16")
+    rec = dict(shape=f"{cfg.name} prefill B={b} S={s} bf16")
     with torch.no_grad():
         flash_attention.launches = 0
         logits, cache = T.prefill(params, cfg, toks, attention="flash")
@@ -4844,8 +4941,8 @@ def lm_prefill_checks(dev, cfg, params) -> dict:
               f"{rec['all_positions_rel']:.3e} of max|logits| (bar "
               f"{LM_BF16_REL})")
     torch.cuda.empty_cache()
-    cfg32 = lm_config(n_layers=LM_F32_LAYERS, param_dtype="float32",
-                      act_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS,
+                                param_dtype="float32", act_dtype="float32")
     p32 = lm_params(cfg32, dev, seed=1)
     with torch.no_grad():
         flash_attention.launches = 0
@@ -5063,12 +5160,13 @@ def lm_batch_rounding(dev, cfg, params, reqs, s_max, steps=32) -> dict:
     return rec
 
 
-def lm_serving(dev, cfg, params) -> dict:
+def lm_serving(dev, cfg, params, arch=LM_ARCH, offline=True) -> dict:
     """FULL bf16 serving on 8 slots (every request finished, each served
     prefill held against a blocked one, the served tokens held
-    teacher-forced, offline equality a reading beside where batch 1 and
-    batch 8 part), then the reduced qwen3 in f32 held token for token
-    against offline decode."""
+    teacher-forced, with ``offline`` equality with offline decode a
+    reading beside where batch 1 and batch 8 part), then the arch's
+    reduced config (``arch``'s) in f32 held token for token against
+    offline decode."""
     from repro_torch.configs import registry
     reqs, s_max, served, rec = lm_serve(dev, cfg, params, LM_SERVE,
                                         seed=200)
@@ -5078,6 +5176,28 @@ def lm_serving(dev, cfg, params) -> dict:
     check(rec["teacher_forced_gap"] <= LM_SERVE_SLACK,
           f"lm serve: a served token's logit {rec['teacher_forced_gap']:.3e}"
           f" of the row's max|logit| below the maximum > {LM_SERVE_SLACK}")
+    if offline:
+        rec.update(lm_offline_readings(dev, cfg, params, reqs, s_max))
+    small = registry.get_config(arch, reduced=True)
+    sp = lm_params(small, dev, seed=3)
+    sreqs, s_smax, served, srec = lm_serve(dev, small, sp, LM_REDUCED_SERVE,
+                                           seed=300)
+    srec.update(lm_served_prefills(small, sp, served, LM_F32_REL))
+    del served
+    srec["equal_offline"] = sum(
+        r.out == lm_offline(sp, small, r, s_smax, dev) for r in sreqs)
+    check(srec["equal_offline"] == len(sreqs),
+          f"lm serve reduced f32: {srec['equal_offline']} of {len(sreqs)} "
+          "requests equal offline decode")
+    rec["reduced_f32"] = srec
+    return rec
+
+
+def lm_offline_readings(dev, cfg, params, reqs, s_max) -> dict:
+    """Served tokens against offline decode (a reading): how many requests
+    equal it, each one's agreeing prefix, and where one request's tokens
+    part at batch 1 and 8."""
+    rec = {}
     t0 = time.perf_counter()
     agree = [lm_offline(params, cfg, r, s_max, dev, served=r.out)
              for r in reqs]
@@ -5093,18 +5213,6 @@ def lm_serving(dev, cfg, params) -> dict:
         dev, cfg, params, [reqs[first]] + reqs[:first] + reqs[first + 1:],
         s_max)
     rec["batch_rounding_s"] = time.perf_counter() - t0
-    small = registry.get_config(LM_ARCH, reduced=True)
-    sp = lm_params(small, dev, seed=3)
-    sreqs, s_smax, served, srec = lm_serve(dev, small, sp, LM_REDUCED_SERVE,
-                                           seed=300)
-    srec.update(lm_served_prefills(small, sp, served, LM_F32_REL))
-    del served
-    srec["equal_offline"] = sum(
-        r.out == lm_offline(sp, small, r, s_smax, dev) for r in sreqs)
-    check(srec["equal_offline"] == len(sreqs),
-          f"lm serve reduced f32: {srec['equal_offline']} of {len(sreqs)} "
-          "requests equal offline decode")
-    rec["reduced_f32"] = srec
     return rec
 
 
@@ -5300,6 +5408,63 @@ def phase_lm(dev, before_training=None) -> dict:
     out["train"] = lm_training(dev, cfg)
     say(f"lm train {json.dumps(out['train'])} "
         f"({time.perf_counter() - t:.1f} s)")
+    pre, srv = out["prefill"], out["serve"]
+    out["launches"] = (pre["launches"] + pre["forward_launches"]
+                       + pre["f32_launches"] + srv["launches"]
+                       + srv["reduced_f32"]["launches"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 23 — gemma-7b at full width: B8 at head_dim 256
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH = "gemma-7b"
+
+
+def gemma_attention(dev, cfg) -> list:
+    """B8 at ``cfg``'s attention shape (B = 1, S = ``LM_PREFILL``'s, its
+    heads and head_dim; MHA, so no repeat) in bf16 and f32, timed from a
+    replayed graph beside its plain version, SDPA and its bound, and held
+    against its f32 plain version (``flash_case``)."""
+    b, s = LM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(230)
+    flat = [torch.randn((b * cfg.n_heads, s, cfg.head_dim), generator=gen,
+                        device=dev) for _ in range(3)]
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        recs.append(flash_case(dtype, [t.to(dtype) for t in flat],
+                               model=cfg.name))
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_gemma(dev) -> dict:
+    """Phase 23: gemma-7b at FULL (28 layers, d 3072, 16 heads / 16 kv of
+    head_dim 256, d_ff 24,576, GeGLU, vocab 256,000, tied, bf16) with
+    parameters drawn on the card from seed 0: phase 20's prefill checks,
+    serving (without the FULL model's offline-decode readings) and
+    readings, then B8 at its attention shape in bf16 and f32."""
+    from repro_torch.models.common import count_params
+    cfg = lm_config(GEMMA_ARCH)
+    params = lm_params(cfg, dev)
+    out = dict(arch=GEMMA_ARCH, params=count_params(params))
+    for name, fn in (
+            ("prefill", lambda: lm_prefill_checks(dev, cfg, params)),
+            ("serve", lambda: lm_serving(dev, cfg, params, arch=GEMMA_ARCH,
+                                         offline=False)),
+            ("readings", lambda: lm_readings(dev, cfg, params))):
+        t = time.perf_counter()
+        out[name] = fn()
+        say(f"gemma {name} {json.dumps(out[name])} "
+            f"({time.perf_counter() - t:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["b8"] = gemma_attention(dev, cfg)
+    for rec in out["b8"]:
+        say(f"gemma B8 {json.dumps(rec)}")
+    say(f"gemma B8 at d = {cfg.head_dim} ({time.perf_counter() - t:.1f} s)")
     pre, srv = out["prefill"], out["serve"]
     out["launches"] = (pre["launches"] + pre["forward_launches"]
                        + pre["f32_launches"] + srv["launches"]
@@ -5850,7 +6015,14 @@ def main() -> int:
     import a7_phase
     a7 = a7_phase.phase_a7(dev, params, indptr, indices, store)
     say(f"a7 {json.dumps(a7, default=float)}")
-    say(f"phase 22 took {a7['phase_s']:.1f} s; the script "
+    say(f"phase 22 took {a7['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 23 — gemma-7b at full width: its prefill on B8 at head_dim 256,
+    # served by the continuous batcher, and B8 at its attention shape
+    t23 = time.perf_counter()
+    gemma = phase_gemma(dev)
+    say(f"phase 23 took {time.perf_counter() - t23:.1f} s; the script "
         f"{time.perf_counter() - t_start:.1f} s")
 
     launches = {k: sum(sv["launches"][k] for sv in serves)
@@ -6062,10 +6234,11 @@ def main() -> int:
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py"
                       ":68",
-             launches=b8_launches + lm["launches"],
+             launches=b8_launches + lm["launches"] + gemma["launches"],
              launches_note=(
-                 f"phase 12's mha_causal in f32 and in bf16 {b8_launches} "
-                 "(one each); phase 20's qwen3-0.6b "
+                 f"phase 12's mha_causal in f32 and in bf16 and its "
+                 f"head-dim sweep {b8_launches} (one a call: 2 + 2 a swept "
+                 f"d); phase 20's qwen3-0.6b "
                  f"{lm['launches']}: 28 a FULL bf16 prefill at S = 4096 "
                  f"({lm['prefill']['launches']}) and its eval forward "
                  f"({lm['prefill']['forward_launches']}), 4 the f32 "
@@ -6073,9 +6246,18 @@ def main() -> int:
                  f"28 a served request's prefill "
                  f"({lm['serve']['launches']} for "
                  f"{lm['serve']['requests']}), 3 a reduced f32 request's "
-                 f"({lm['serve']['reduced_f32']['launches']})"),
+                 f"({lm['serve']['reduced_f32']['launches']}); phase 23's "
+                 f"gemma-7b {gemma['launches']} at d = 256 and the reduced "
+                 f"gemma's 24: 28 the FULL bf16 prefill "
+                 f"({gemma['prefill']['launches']}) and forward "
+                 f"({gemma['prefill']['forward_launches']}), 4 the f32 "
+                 f"prefill ({gemma['prefill']['f32_launches']}), 28 a "
+                 f"served request's ({gemma['serve']['launches']} for "
+                 f"{gemma['serve']['requests']}), 3 a reduced f32 "
+                 f"request's ({gemma['serve']['reduced_f32']['launches']})"),
              max_abs_err=max(c["max_abs_err"] for c in b8),
-             f32={k: b8[0][k] for k in ("shape",) + keys},
+             f32={k: b8[0][k]
+                  for k in ("shape", "max_abs_err", "tolerance") + keys},
              in_model=dict(
                  shape="qwen3-0.6b prefill B=1 S=4096 bf16, 28 layers",
                  ms=lm["readings"]["b8_ms"],
@@ -6083,6 +6265,18 @@ def main() -> int:
                  share_of_prefill=lm["readings"]["b8_share"],
                  last_logits_rel_vs_blocked=lm["prefill"]
                  ["last_logits_rel"]),
+             head_dim_256=dict(
+                 launches=gemma["launches"],
+                 cases=[{k: c[k] for k in ("shape", "max_abs_err",
+                                           "tolerance") + keys}
+                        for c in gemma["b8"]],
+                 in_model=dict(
+                     shape="gemma-7b prefill B=1 S=4096 bf16, 28 layers",
+                     ms=gemma["readings"]["b8_ms"],
+                     bound_ms=gemma["readings"]["b8_bound_ms"],
+                     share_of_prefill=gemma["readings"]["b8_share"],
+                     last_logits_rel_vs_blocked=gemma["prefill"]
+                     ["last_logits_rel"])),
              shape=b8[1]["shape"], **{k: b8[1][k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

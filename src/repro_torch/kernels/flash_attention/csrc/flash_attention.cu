@@ -18,35 +18,48 @@
 // d = 128: ~1000 flops per element), so both instantiations run on the
 // tensor cores and keep every intermediate on chip.
 //
-// bf16 (flash_bf16_kernel): one block of three warpgroups per (bh, 128-row
-// q tile), heaviest tiles first.  Warpgroup 2 is the producer: it gives up
-// registers (setmaxnreg, which takes whole warpgroups) and one of its
-// threads loads the q tile once and each 128-key K and V tile into a
-// two-stage ring by TMA (128-byte swizzle, zero fill past S and past d),
-// with full and empty mbarriers for K and V apart.  Warpgroups 0 and 1
-// are the consumers, 64 q rows each: S = q.k^T is wgmma m64n128k16 with
-// both operands in shared memory (K-major); the online softmax runs on the
-// accumulator fragments (row max and sum across the 4 threads of a quad);
-// P is rounded to bf16 in registers and fed back as wgmma's A operand for
-// O += P.V (m64n{64,128}k16, V an MN-major B operand): the reference keeps
-// P in f32 there, so this product is less precise than the reference's
-// (the row sums l add the f32 P).  Each consumer
-// issues q.K_t and P_{t-1}.V_{t-1} together and runs tile t's softmax
-// while the second is in flight, and the two consumers take turns to
-// issue (named barriers 1 and 2), so one's softmax overlaps the other's
-// products.  The q and kv tiles are both 128 rows, so only the last
-// (diagonal) tile is masked and tiles above it are never loaded.  d < 64
-// is padded to 64 by the TMA's zero fill.
+// Head dims: each dtype is compiled at a few widths DP, and the head dim
+// is always one of them, known at compile time.  The wrapper pads any
+// other d <= 256 with zero columns on the card to the next width (zero
+// columns add nothing to q.k; the scale stays 1/sqrt(d) of the true d)
+// and cuts the output back.
 //
-// f32 (flash_f32_kernel): 3xTF32 on mma.sync.m16n8k8: each operand is split
-// as hi = rna_tf32(x), lo = rna_tf32(x - hi) and every product is
-// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, which keeps ~1e-6 where one TF32 pass
-// would give ~1e-3 (whatever torch's TF32 flags say).  The tensor cores'
-// sums shrink toward zero, so the cross terms are summed apart from hi.hi,
-// and P.V from zero for each 16 keys (mma_3xtf32).  One block of 8 warps
-// per (bh, 128-row q tile), 16 rows per warp; the q tile and a two-stage
-// ring of 64-key K and V tiles are staged by cp.async as f32.  P stays f32
-// in registers: the S accumulator's columns (2c, 2c + 1) become the A
+// bf16 (flash_bf16_kernel<DP>, DP = 64, 128 or 256): one block of three
+// warpgroups per (bh, 128-row q tile), heaviest tiles first.  Warpgroup 2
+// is the producer: it gives up registers (setmaxnreg, which takes whole
+// warpgroups) and one of its threads loads the q tile once and each K and
+// V tile into a two-stage ring by TMA (128-byte swizzle, zero fill past
+// S), with full and empty mbarriers for K and V apart.  A kv
+// tile holds 128 keys up to DP = 128 and 64 at DP = 256, where the q tile
+// (64 KB) and two stages of K and V (128 KB) fill 193 KB of the 227 KB a
+// block may use.  Warpgroups 0 and 1 are the consumers, 64 q rows each:
+// S = q.k^T is wgmma m64n{128,64}k16 with both operands in shared memory
+// (K-major); the online softmax runs on the accumulator fragments (row max
+// and sum across the 4 threads of a quad); P is rounded to bf16 in
+// registers and fed back as wgmma's A operand for O += P.V
+// (m64n{64,128}k16, V an MN-major B operand; DP = 256 takes two n128
+// products, its O accumulator 128 registers a thread): the reference
+// keeps P in f32 there, so this product is less precise than the
+// reference's (the row sums l add the f32 P).  Each consumer issues q.K_t
+// and P_{t-1}.V_{t-1} together and runs tile t's softmax while the second
+// is in flight, and the two consumers take turns to issue (named barriers
+// 1 and 2), so one's softmax overlaps the other's products.  Tiles above
+// the block's last q row are never loaded; a tile is masked where its last
+// key lies past a warp's first row (with 128-key tiles only the diagonal
+// tile, with 64-key tiles the two that meet the 128-row q tile's
+// diagonal, the second wholly masked for warpgroup 0's rows).
+//
+// f32 (flash_f32_kernel<DP>, DP = 16, 32, 64, 128 or 256): 3xTF32 on
+// mma.sync.m16n8k8: each operand is split as hi = rna_tf32(x),
+// lo = rna_tf32(x - hi) and every product is a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi, which keeps ~1e-6 where one TF32 pass would give ~1e-3
+// (whatever torch's TF32 flags say).  The tensor cores' sums shrink
+// toward zero, so the cross terms are summed apart from hi.hi, and P.V
+// from zero for each 16 keys (mma_3xtf32).  One block of BM / 16 warps per
+// (bh, BM-row q tile), 16 rows per warp; the q tile and a two-stage ring
+// of BN-key K and V tiles are staged by cp.async as f32 (BM = 128 and
+// BN = 64 up to DP = 128; 64 and 32 at DP = 256, 197 KB).  P stays f32 in
+// registers: the S accumulator's columns (2c, 2c + 1) become the A
 // fragment's (c, c + 4), and V's rows are read in the same permuted order.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the
                    // runtime's driver entry point, so no -lcuda
@@ -140,9 +153,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// o_bh: this head's (S, D) output; writes the thread's two rows, columns
-// below D, as acc / max(l, 1e-30).
-template <int D, typename T, int NO>
+// o_bh: this head's (S, DP) output; writes the thread's two rows as
+// acc / max(l, 1e-30).
+template <int DP, typename T, int NO>
 __device__ __forceinline__ void store_rows(T* __restrict__ o_bh,
                                            const float (&acc)[NO],
                                            float (&l)[2], int row0, int c,
@@ -154,9 +167,9 @@ __device__ __forceinline__ void store_rows(T* __restrict__ o_bh,
     const int row = row0 + 8 * h;
     if (row >= seq_len) continue;
     const float denom = fmaxf(l[h], 1e-30f);
-    T* orow = o_bh + (int64_t)row * D + 2 * c;
+    T* orow = o_bh + (int64_t)row * DP + 2 * c;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
       store2(orow + 8 * j, acc[4 * j + 2 * h] / denom,
              acc[4 * j + 2 * h + 1] / denom);
   }
@@ -167,21 +180,24 @@ __device__ __forceinline__ void store_rows(T* __restrict__ o_bh,
 // ---------------------------------------------------------------------------
 
 constexpr int B_BM = 128;          // q rows per block (2 consumer warpgroups)
-constexpr int B_BN = 128;          // keys per kv tile
 constexpr int B_STAGES = 2;        // K/V ring depth
 constexpr int B_THREADS = 384;     // warpgroups 0-1 consume, 2 produces
 constexpr int B_CONSUMER_WARPS = 8;
-constexpr int BOX_BYTES = 128 * 128;  // one TMA box: 128 rows x 64 bf16
-static_assert(B_BM == B_BN, "the last kv tile must be the diagonal one");
 
-template <int D>
+// DP: the head dim.  A TMA box is 64 columns (128 bytes, the swizzle
+// span) by the tile's rows.
+template <int DP>
 struct Bf16Tiles {
-  static constexpr int DP = D < 64 ? 64 : D;  // width on chip (zero fill)
-  static constexpr int BOXES = DP / 64;       // 128-byte swizzle spans
-  static constexpr int TILE_BYTES = BOXES * BOX_BYTES;  // q, K or V tile
+  static_assert(DP == 64 || DP == 128 || DP == 256, "bf16 widths");
+  static constexpr int BN = DP > 128 ? 64 : 128;  // keys per kv tile
+  static constexpr int BOXES = DP / 64;
+  static constexpr int Q_BOX = B_BM * 128;
+  static constexpr int KV_BOX = BN * 128;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX;     // a K or a V tile
   // 1024 bytes of slack to align the tiles for the 128-byte swizzle, the
   // q tile, 2 x STAGES kv tiles, then the mbarriers
-  static constexpr int SMEM = 1024 + (1 + 2 * B_STAGES) * TILE_BYTES +
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * B_STAGES * KV_BYTES +
                               8 * (1 + 4 * B_STAGES);
 };
 
@@ -267,8 +283,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // d (64 x 128, f32) (+)= A (64 x 16, shared, K-major) . B (16 x 128,
 // shared, K-major); accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -289,11 +305,32 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 128, f32) += A (64 x 16 bf16, registers) . B (16 x 128, shared,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
+// d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) . B (16 x 64,
+// shared, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : FA_ACC8(0), FA_ACC8(8), FA_ACC8(16), FA_ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[OFF .. OFF + 63] (64 x 128, f32) += A (64 x 16 bf16, registers) .
+// B (16 x 128, shared, MN-major).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulator slice");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -309,16 +346,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
-      : FA_ACC8(0), FA_ACC8(8), FA_ACC8(16), FA_ACC8(24), FA_ACC8(32),
-        FA_ACC8(40), FA_ACC8(48), FA_ACC8(56)
+      : FA_ACC8(OFF + 0), FA_ACC8(OFF + 8), FA_ACC8(OFF + 16),
+        FA_ACC8(OFF + 24), FA_ACC8(OFF + 32), FA_ACC8(OFF + 40),
+        FA_ACC8(OFF + 48), FA_ACC8(OFF + 56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x 64, f32) += A (64 x 16 bf16, registers) . B (16 x 64, shared,
 // MN-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -340,37 +378,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // S = q . K^T for one kv tile (issued, not waited on): 16 columns of d
-// per wgmma, 4 per 128-byte swizzle span.
+// per wgmma, 4 per 128-byte swizzle span (one TMA box).
 template <typename L>
-__device__ __forceinline__ void qk_tile(float (&s)[64], uint32_t sq_wg,
+__device__ __forceinline__ void qk_tile(float (&s)[L::BN / 2], uint32_t sq_wg,
                                         uint32_t sk_st) {
 #pragma unroll
-  for (int kk = 0; kk < L::DP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss_n128(s, desc_sw128(sq_wg + off, 16, 1024),
-                  desc_sw128(sk_st + off, 16, 1024), kk > 0);
-  }
+  for (int kk = 0; kk < L::BOXES * 4; ++kk)
+    wgmma_ss(s,
+             desc_sw128(sq_wg + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16,
+                        1024),
+             desc_sw128(sk_st + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16,
+                        1024),
+             kk > 0);
 }
 
 // acc += P . V for one kv tile (issued, not waited on): 16 keys per
 // wgmma; V is MN-major (d contiguous), the next 64 columns of d one box
-// on (LBO), the next 8 keys 1024 bytes on (SBO).
+// on (LBO), the next 8 keys 1024 bytes on (SBO).  DP = 256 takes two n128
+// products a 16 keys, the second from the third box on.
 template <typename L>
-__device__ __forceinline__ void pv_tile(float (&acc)[L::DP / 2],
-                                        const uint32_t (&pa)[B_BN / 16][4],
+__device__ __forceinline__ void pv_tile(float (&acc)[L::BOXES * 32],
+                                        const uint32_t (&pa)[L::BN / 16][4],
                                         uint32_t sv_st) {
 #pragma unroll
-  for (int kt = 0; kt < B_BN / 16; ++kt)
-    wgmma_rs(acc, pa[kt],
-             desc_sw128(sv_st + kt * 16 * 128, BOX_BYTES, 1024));
+  for (int kt = 0; kt < L::BN / 16; ++kt) {
+    const uint32_t at = sv_st + kt * 16 * 128;
+    if constexpr (L::BOXES == 1) {
+      wgmma_rs_n64(acc, pa[kt], desc_sw128(at, L::KV_BOX, 1024));
+    } else {
+      wgmma_rs_n128<0>(acc, pa[kt], desc_sw128(at, L::KV_BOX, 1024));
+      if constexpr (L::BOXES == 4)
+        wgmma_rs_n128<64>(acc, pa[kt],
+                          desc_sw128(at + 2 * L::KV_BOX, L::KV_BOX, 1024));
+    }
+  }
 }
 
 // P (bf16) as wgmma's A operand: columns 16kt .. 16kt + 15 are blocks 2kt
 // and 2kt + 1 of the S accumulator.
-__device__ __forceinline__ void to_bf16(uint32_t (&pa)[B_BN / 16][4],
-                                        const float (&s)[64]) {
+template <int NS>
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[NS / 8][4],
+                                        const float (&s)[NS]) {
 #pragma unroll
-  for (int kt = 0; kt < B_BN / 16; ++kt)
+  for (int kt = 0; kt < NS / 8; ++kt)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       pa[kt][i] = pack_bf16(s[8 * kt + 2 * i], s[8 * kt + 2 * i + 1]);
@@ -383,19 +433,20 @@ __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(B_THREADS, 1)
     flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       __nv_bfloat16* __restrict__ o, int bh_count,
                       int seq_len, int n_q_tiles, float scale_log2) {
-  using L = Bf16Tiles<D>;
+  using L = Bf16Tiles<DP>;
+  constexpr int BN = L::BN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + L::TILE_BYTES;              // + stage * TILE
-  const uint32_t sv = sk + B_STAGES * L::TILE_BYTES;   // + stage * TILE
-  const uint32_t bar_q = sv + B_STAGES * L::TILE_BYTES;
+  const uint32_t sk = sq + L::Q_BYTES;                 // + stage * KV_BYTES
+  const uint32_t sv = sk + B_STAGES * L::KV_BYTES;     // + stage * KV_BYTES
+  const uint32_t bar_q = sv + B_STAGES * L::KV_BYTES;
   const uint32_t k_full = bar_q + 8;                   // + 8 * stage
   const uint32_t v_full = k_full + 8 * B_STAGES;
   const uint32_t k_empty = v_full + 8 * B_STAGES;
@@ -404,7 +455,8 @@ __global__ void __launch_bounds__(B_THREADS, 1)
   const int qt = n_q_tiles - 1 - blockIdx.x / bh_count;  // heaviest first
   const int bh = blockIdx.x % bh_count;
   const int q0 = qt * B_BM;
-  const int n_kv = qt + 1;   // kv tiles 0 .. qt; tile qt is the diagonal
+  // kv tiles up to the block's last live q row
+  const int n_kv = (min(q0 + B_BM, seq_len) - 1) / BN + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -423,24 +475,24 @@ __global__ void __launch_bounds__(B_THREADS, 1)
     // producer: one thread issues every load; the rest exit
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(bar_q, L::TILE_BYTES);
+      mbar_expect_tx(bar_q, L::Q_BYTES);
       for (int c = 0; c < L::BOXES; ++c)
-        tma_load(sq + c * BOX_BYTES, &tm_q, 64 * c, q0, bh, bar_q);
+        tma_load(sq + c * L::Q_BOX, &tm_q, 64 * c, q0, bh, bar_q);
       for (int t = 0; t < n_kv; ++t) {
         const int st = t % B_STAGES;
         const uint32_t ph = (t / B_STAGES) & 1;
         // a K slot frees when q.K is done, a V slot when P.V is: the next
         // K lands while the last P.V runs (first round passes at once)
         mbar_wait(k_empty + 8 * st, ph ^ 1);
-        mbar_expect_tx(k_full + 8 * st, L::TILE_BYTES);
+        mbar_expect_tx(k_full + 8 * st, L::KV_BYTES);
         for (int c = 0; c < L::BOXES; ++c)
-          tma_load(sk + st * L::TILE_BYTES + c * BOX_BYTES, &tm_k, 64 * c,
-                   t * B_BN, bh, k_full + 8 * st);
+          tma_load(sk + st * L::KV_BYTES + c * L::KV_BOX, &tm_k, 64 * c,
+                   t * BN, bh, k_full + 8 * st);
         mbar_wait(v_empty + 8 * st, ph ^ 1);
-        mbar_expect_tx(v_full + 8 * st, L::TILE_BYTES);
+        mbar_expect_tx(v_full + 8 * st, L::KV_BYTES);
         for (int c = 0; c < L::BOXES; ++c)
-          tma_load(sv + st * L::TILE_BYTES + c * BOX_BYTES, &tm_v, 64 * c,
-                   t * B_BN, bh, v_full + 8 * st);
+          tma_load(sv + st * L::KV_BYTES + c * L::KV_BOX, &tm_v, 64 * c,
+                   t * BN, bh, v_full + 8 * st);
       }
     }
   } else {
@@ -448,23 +500,26 @@ __global__ void __launch_bounds__(B_THREADS, 1)
     const int tid = threadIdx.x & 127;
     const int lane = tid & 31;
     const int c = lane & 3;
-    const int row0 = q0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    const int warp_row = q0 + wg * 64 + (tid >> 5) * 16;  // warp's first
+    const int row0 = warp_row + (lane >> 2);
     const uint32_t sq_wg = sq + wg * 64 * 128;   // this warpgroup's rows
 
-    float s[64], acc[L::DP / 2], corr[2];
-    uint32_t pa[B_BN / 16][4];
+    float s[BN / 2], acc[DP / 2], corr[2];
+    uint32_t pa[BN / 16][4];
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < L::DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
     // Software pipeline over kv tiles: q.K_t and P_{t-1}.V_{t-1} are
     // issued together, tile t's softmax runs while P_{t-1}.V_{t-1} does,
     // and acc is rescaled once that is done.  The two warpgroups take
     // turns to issue (each waits on barrier 1 + wg, then frees the
     // other's), so one's softmax overlaps the other's products; warpgroup
-    // 0 goes first.
+    // 0 goes first.  Tile t is masked where its last key lies past the
+    // warp's first row; tile 0 holds key 0, so no row's first tile is
+    // wholly masked.
     if (wg == 1) named_arrive(1);
     mbar_wait(bar_q, 0);
     mbar_wait(k_full, 0);
@@ -477,7 +532,7 @@ __global__ void __launch_bounds__(B_THREADS, 1)
     fence_regs(s);
     __syncwarp();
     if (lane == 0) mbar_arrive(k_empty);
-    softmax_tile(s, m, l, corr, scale_log2, n_kv == 1, 2 * c, row0);
+    softmax_tile(s, m, l, corr, scale_log2, BN - 1 > warp_row, 2 * c, row0);
     to_bf16(pa, s);
     for (int t = 1; t < n_kv; ++t) {
       const int st = t % B_STAGES, prev = (t - 1) % B_STAGES;
@@ -487,17 +542,17 @@ __global__ void __launch_bounds__(B_THREADS, 1)
       mbar_wait(v_full + 8 * prev, ph_prev);
       named_sync(1 + wg);
       wgmma_fence();
-      qk_tile<L>(s, sq_wg, sk + st * L::TILE_BYTES);
+      qk_tile<L>(s, sq_wg, sk + st * L::KV_BYTES);
       wgmma_commit();
-      pv_tile<L>(acc, pa, sv + prev * L::TILE_BYTES);
+      pv_tile<L>(acc, pa, sv + prev * L::KV_BYTES);
       wgmma_commit();
       named_arrive(2 - wg);
       wgmma_wait<1>();                   // q.K_t done, P.V still running
       fence_regs(s);
       __syncwarp();
       if (lane == 0) mbar_arrive(k_empty + 8 * st);
-      softmax_tile(s, m, l, corr, scale_log2, t == n_kv - 1,
-                   t * B_BN + 2 * c, row0);
+      softmax_tile(s, m, l, corr, scale_log2, t * BN + BN - 1 > warp_row,
+                   t * BN + 2 * c, row0);
       wgmma_wait<0>();
       fence_regs(acc);
       __syncwarp();
@@ -509,12 +564,12 @@ __global__ void __launch_bounds__(B_THREADS, 1)
     mbar_wait(v_full + 8 * last, ((n_kv - 1) / B_STAGES) & 1);
     named_sync(1 + wg);
     wgmma_fence();
-    pv_tile<L>(acc, pa, sv + last * L::TILE_BYTES);
+    pv_tile<L>(acc, pa, sv + last * L::KV_BYTES);
     wgmma_commit();
     if (wg == 0) named_arrive(2);     // the last turn: nobody waits after
     wgmma_wait<0>();
     fence_regs(acc);
-    store_rows<D>(o + (int64_t)bh * seq_len * D, acc, l, row0, c, seq_len);
+    store_rows<DP>(o + (int64_t)bh * seq_len * DP, acc, l, row0, c, seq_len);
   }
 }
 
@@ -522,20 +577,20 @@ __global__ void __launch_bounds__(B_THREADS, 1)
 // f32: 3xTF32 on mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 128;      // q rows per block
-constexpr int F_BN = 64;       // keys per kv tile
-constexpr int F_WARPS = 8;     // 16 q rows each
-constexpr int F_THREADS = 32 * F_WARPS;
-
-// Row pitches in floats: q and K rows padded to d + 8 (conflict-free
-// 8-byte fragment reads), V rows to d + 4 (conflict-free 4-byte reads of
-// rows 2c and 2c + 1).
-template <int D>
+// DP: the head dim.  Up to DP = 128 a block holds 128 q rows (8 warps)
+// and kv tiles of 64 keys; at DP = 256 64 rows (4 warps) and 32 keys, to
+// fit in shared memory.  Row pitches in floats:
+// q and K rows padded to DP + 8 (conflict-free 8-byte fragment reads), V
+// rows to DP + 4 (conflict-free 4-byte reads of rows 2c and 2c + 1).
+template <int DP>
 struct F32Tiles {
-  static constexpr int LDQK = D + 8;
-  static constexpr int LDV = D + 4;
-  static constexpr int STAGE = F_BN * (LDQK + LDV);   // K, then V
-  static constexpr int SMEM = (F_BM * LDQK + 2 * STAGE) * 4;
+  static constexpr int BM = DP > 128 ? 64 : 128;   // q rows per block
+  static constexpr int BN = DP > 128 ? 32 : 64;    // keys per kv tile
+  static constexpr int THREADS = 2 * BM;           // 16 q rows a warp
+  static constexpr int LDQK = DP + 8;
+  static constexpr int LDV = DP + 4;
+  static constexpr int STAGE = BN * (LDQK + LDV);   // K, then V
+  static constexpr int SMEM = (BM * LDQK + 2 * STAGE) * 4;
 };
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -576,17 +631,17 @@ __device__ __forceinline__ void mma_3xtf32(float* big, float* small,
   mma_tf32(big, ah, bh0, bh1);
 }
 
-// Rows r0 .. r0 + rows - 1 of one head's (S, D) matrix into dst (row
+// Rows r0 .. r0 + rows - 1 of one head's (S, DP) matrix into dst (row
 // stride LD floats) by 16-byte cp.async; rows past S are zero.
-template <int D, int LD>
+template <int DP, int LD, int THREADS>
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            float* dst, int r0, int rows,
                                            int seq_len) {
-  for (int i = threadIdx.x; i < rows * D / 4; i += F_THREADS) {
-    const int r = i / (D / 4);
-    const int col = (i % (D / 4)) * 4;
+  for (int i = threadIdx.x; i < rows * DP / 4; i += THREADS) {
+    const int r = i / (DP / 4);
+    const int col = (i % (DP / 4)) * 4;
     const bool live = r0 + r < seq_len;
-    const float* from = src + (int64_t)(live ? r0 + r : 0) * D + col;
+    const float* from = src + (int64_t)(live ? r0 + r : 0) * DP + col;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                      smem_u32(dst + r * LD + col)),
                  "l"(from), "r"(live ? 16 : 0)
@@ -602,45 +657,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(F_THREADS, 1)
+template <int DP>
+__global__ void __launch_bounds__(F32Tiles<DP>::THREADS, 1)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int bh_count, int seq_len, int n_q_tiles,
                      float scale_log2) {
-  using L = F32Tiles<D>;
+  using L = F32Tiles<DP>;
+  constexpr int BM = L::BM, BN = L::BN, THREADS = L::THREADS;
   constexpr int LDQK = L::LDQK, LDV = L::LDV;
   extern __shared__ float4 smem_f4[];
-  float* qs = reinterpret_cast<float*>(smem_f4);   // (F_BM, LDQK)
-  float* kv = qs + F_BM * LDQK;   // stage t at t * STAGE: K, then V
+  float* qs = reinterpret_cast<float*>(smem_f4);   // (BM, LDQK)
+  float* kv = qs + BM * LDQK;   // stage t at t * STAGE: K, then V
 
   const int qt = n_q_tiles - 1 - blockIdx.x / bh_count;  // heaviest first
   const int bh = blockIdx.x % bh_count;
-  const int q0 = qt * F_BM;
-  const int64_t base = (int64_t)bh * seq_len * D;
+  const int q0 = qt * BM;
+  const int64_t base = (int64_t)bh * seq_len * DP;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int w_first = q0 + warp * 16;     // the warp's first q row
-  const int n_kv = (min(q0 + F_BM, seq_len) - 1) / F_BN + 1;
+  const int n_kv = (min(q0 + BM, seq_len) - 1) / BN + 1;
 
-  stage_rows<D, LDQK>(q + base, qs, q0, F_BM, seq_len);
+  stage_rows<DP, LDQK, THREADS>(q + base, qs, q0, BM, seq_len);
   cp_async_commit();
-  stage_rows<D, LDQK>(k + base, kv, 0, F_BN, seq_len);
-  stage_rows<D, LDV>(v + base, kv + F_BN * LDQK, 0, F_BN, seq_len);
+  stage_rows<DP, LDQK, THREADS>(k + base, kv, 0, BN, seq_len);
+  stage_rows<DP, LDV, THREADS>(v + base, kv + BN * LDQK, 0, BN, seq_len);
   cp_async_commit();
 
-  float acc[D / 2];
+  float acc[DP / 2];
   float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   for (int t = 0; t < n_kv; ++t) {
     if (t + 1 < n_kv) {
       float* next = kv + ((t + 1) & 1) * L::STAGE;
-      stage_rows<D, LDQK>(k + base, next, (t + 1) * F_BN, F_BN, seq_len);
-      stage_rows<D, LDV>(v + base, next + F_BN * LDQK, (t + 1) * F_BN,
-                         F_BN, seq_len);
+      stage_rows<DP, LDQK, THREADS>(k + base, next, (t + 1) * BN, BN,
+                                    seq_len);
+      stage_rows<DP, LDV, THREADS>(v + base, next + BN * LDQK, (t + 1) * BN,
+                                   BN, seq_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -648,19 +705,19 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     }
     __syncthreads();
     const float* ks = kv + (t & 1) * L::STAGE;
-    const float* vs = ks + F_BN * LDQK;
-    const int k0 = t * F_BN;
+    const float* vs = ks + BN * LDQK;
+    const int k0 = t * BN;
     if (k0 <= w_first + 15) {    // else every key is above the warp's rows
-      float s[F_BN / 2], s_small[F_BN / 2];
+      float s[BN / 2], s_small[BN / 2];
 #pragma unroll
-      for (int i = 0; i < F_BN / 2; ++i) s[i] = s_small[i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) s[i] = s_small[i] = 0.f;
       // S = q . K^T over 8 columns of d per step.  The sum over d does
       // not care which column an mma k-slot carries, so slots c and c + 4
       // take columns 2c and 2c + 1 in both q and K: one float2 each.
       const float* qw = qs + (warp * 16 + g) * LDQK + 2 * c;
       const float* kw = ks + g * LDQK + 2 * c;
 #pragma unroll 2
-      for (int kd = 0; kd < D / 8; ++kd) {
+      for (int kd = 0; kd < DP / 8; ++kd) {
         const float2 a0 = *reinterpret_cast<const float2*>(qw + kd * 8);
         const float2 a1 =
             *reinterpret_cast<const float2*>(qw + 8 * LDQK + kd * 8);
@@ -670,17 +727,17 @@ __global__ void __launch_bounds__(F_THREADS, 1)
         split_tf32(a0.y, ah[2], al[2]);
         split_tf32(a1.y, ah[3], al[3]);
 #pragma unroll
-        for (int nb = 0; nb < F_BN / 8; ++nb) {
+        for (int nb = 0; nb < BN / 8; ++nb) {
           const float2 b = *reinterpret_cast<const float2*>(
               kw + nb * 8 * LDQK + kd * 8);
           mma_3xtf32(&s[4 * nb], &s_small[4 * nb], ah, al, b.x, b.y);
         }
       }
 #pragma unroll
-      for (int i = 0; i < F_BN / 2; ++i) s[i] += s_small[i];
+      for (int i = 0; i < BN / 2; ++i) s[i] += s_small[i];
 
       float corr[2];
-      softmax_tile(s, m, l, corr, scale_log2, k0 + F_BN - 1 > w_first,
+      softmax_tile(s, m, l, corr, scale_log2, k0 + BN - 1 > w_first,
                    k0 + 2 * c, w_first + g);
       rescale(acc, corr);
 
@@ -688,12 +745,13 @@ __global__ void __launch_bounds__(F_THREADS, 1)
       // accumulator's keys (2c, 2c + 1), so V's rows 2c and 2c + 1 are
       // B's rows c and c + 4.  The product over each 16 keys is summed
       // from zero, NG blocks of 8 columns of d at a time (NG independent
-      // mma chains), and added to acc once.  (Longer runs of keys held more
-      // P fragments live and spilled.)
+      // mma chains), and added to acc once.  (Longer runs of keys held
+      // more P fragments live and spilled; at DP = 256 the accumulator
+      // takes 128 registers, so two chains.)
       constexpr int KH = 2;                      // 8-key steps a run
-      constexpr int NG = D / 8 < 4 ? D / 8 : 4;
+      constexpr int NG = DP / 8 < 4 ? DP / 8 : DP > 128 ? 2 : 4;
 #pragma unroll
-      for (int k0h = 0; k0h < F_BN / 8; k0h += KH) {
+      for (int k0h = 0; k0h < BN / 8; k0h += KH) {
         uint32_t ph[KH][4], pl[KH][4];
 #pragma unroll
         for (int kb = 0; kb < KH; ++kb) {
@@ -705,7 +763,7 @@ __global__ void __launch_bounds__(F_THREADS, 1)
         }
         const float* vr = vs + (k0h * 8 + 2 * c) * LDV + g;
 #pragma unroll
-        for (int nb0 = 0; nb0 < D / 8; nb0 += NG) {
+        for (int nb0 = 0; nb0 < DP / 8; nb0 += NG) {
           float big[4 * NG], small[4 * NG];
 #pragma unroll
           for (int i = 0; i < 4 * NG; ++i) big[i] = small[i] = 0.f;
@@ -724,7 +782,7 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     }
     __syncthreads();   // the stage is rewritten two tiles on
   }
-  store_rows<D>(o + base, acc, l, w_first + g, c, seq_len);
+  store_rows<DP>(o + base, acc, l, w_first + g, c, seq_len);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,17 +809,17 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (BH, S, d) bf16 as a 3-d map (d, S, BH), 128-row x 64-column boxes with
-// the 128-byte swizzle; columns past d and rows past S read as zero.
+// (BH, S, d) bf16 as a 3-d map (d, S, BH), box_rows x 64-column boxes with
+// the 128-byte swizzle; rows past S read as zero.
 static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq_len,
-                    int head_dim) {
+                    int head_dim, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)head_dim, (cuuint64_t)seq_len,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)head_dim * 2,
                                  (cuuint64_t)seq_len * head_dim * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
@@ -771,55 +829,50 @@ static int make_map(CUtensorMap* map, const void* ptr, int bh, int seq_len,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
                 int seq_len, float scale, cudaStream_t stream) {
-  constexpr int bytes = Bf16Tiles<D>::SMEM;
+  using L = Bf16Tiles<DP>;
   // set once per instantiation, before any graph capture
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = make_map(&maps[i], ptrs[i], bh, seq_len, D);
+    const int err = make_map(&maps[i], ptrs[i], bh, seq_len, DP,
+                             i == 0 ? B_BM : L::BN);
     if (err) return err;
   }
   const int n_q_tiles = (seq_len + B_BM - 1) / B_BM;
   const int64_t blocks = (int64_t)bh * n_q_tiles;
-  flash_bf16_kernel<D><<<(unsigned)blocks, B_THREADS, bytes, stream>>>(
+  flash_bf16_kernel<DP><<<(unsigned)blocks, B_THREADS, L::SMEM, stream>>>(
       maps[0], maps[1], maps[2], (__nv_bfloat16*)o, bh, seq_len, n_q_tiles,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
                int seq_len, float scale, cudaStream_t stream) {
-  constexpr int bytes = F32Tiles<D>::SMEM;
+  using L = F32Tiles<DP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_f32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const int n_q_tiles = (seq_len + F_BM - 1) / F_BM;
+  const int n_q_tiles = (seq_len + L::BM - 1) / L::BM;
   const int64_t blocks = (int64_t)bh * n_q_tiles;
-  flash_f32_kernel<D><<<(unsigned)blocks, F_THREADS, bytes, stream>>>(
+  flash_f32_kernel<DP><<<(unsigned)blocks, L::THREADS, L::SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, bh,
       seq_len, n_q_tiles, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int seq_len, int is_bf16, float scale, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, bh, seq_len, scale, s)
-                 : launch_f32<D>(q, k, v, o, bh, seq_len, scale, s);
-}
-
 // q, k, v, o: (bh, seq_len, head_dim), f32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1), contiguous and 16-byte aligned; head_dim in {16, 32, 64,
-// 128}; scale = 1 / sqrt(head_dim).
+// (is_bf16 = 1), contiguous and 16-byte aligned; head_dim in {64, 128, 256}
+// for bf16, {16, 32, 64, 128, 256} for f32; scale = 1 / sqrt(the true head
+// dim, which the caller may have padded).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int bh,
                                       int seq_len, int head_dim, int is_bf16,
@@ -828,16 +881,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return 0;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (head_dim) {
-    case 16:
-      return launch<16>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
-    case 32:
-      return launch<32>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, bh, seq_len, is_bf16, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    switch (head_dim) {
+      case 64:
+        return launch_bf16<64>(q, k, v, o, bh, seq_len, scale, s);
+      case 128:
+        return launch_bf16<128>(q, k, v, o, bh, seq_len, scale, s);
+      case 256:
+        return launch_bf16<256>(q, k, v, o, bh, seq_len, scale, s);
+    }
+  } else {
+    switch (head_dim) {
+      case 16:
+        return launch_f32<16>(q, k, v, o, bh, seq_len, scale, s);
+      case 32:
+        return launch_f32<32>(q, k, v, o, bh, seq_len, scale, s);
+      case 64:
+        return launch_f32<64>(q, k, v, o, bh, seq_len, scale, s);
+      case 128:
+        return launch_f32<128>(q, k, v, o, bh, seq_len, scale, s);
+      case 256:
+        return launch_f32<256>(q, k, v, o, bh, seq_len, scale, s);
+    }
   }
+  return (int)cudaErrorInvalidValue;
 }

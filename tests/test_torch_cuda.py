@@ -1072,6 +1072,34 @@ def test_flash_attention_bf16_kernel_long_rows(cuda):
     assert float((got.float() - want).abs().max()) <= 2e-2
 
 
+# every width class of both dtypes: the 64/128/256-wide bf16 and
+# 16..256-wide f32 instantiations at their widths and between them, where
+# the wrapper pads q, k and v with zero columns on the card; S = 320 is
+# ragged for every q and kv tile (128, 64, 32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 5, 8, 24, 40, 80, 96, 112, 160, 200, 256])
+def test_flash_attention_kernel_head_dim_sweep(cuda, d, dtype):
+    q, k, v = _flat_qkv(3, 320, d, d, cuda, dtype)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_d256_long_rows(cuda, dtype):
+    # gemma's head dim over 1,024 keys: 16 of the bf16 kernel's 64-key
+    # tiles and 32 of the f32 kernel's 32-key tiles at the last q tile
+    q, k, v = _flat_qkv(2, 1024, 256, 256, cuda, dtype)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert float((got.float() - want).abs().max()) <= tol
+
+
 def test_flash_attention_f32_kernel_ignores_tf32_flags(cuda):
     # the kernel's precision is its own: 3xTF32 whatever torch allows
     q, k, v = _flat_qkv(2, 320, 128, 7, cuda, torch.float32)
@@ -1104,8 +1132,8 @@ def test_new_wrappers_raise_on_unsupported_dtypes(cuda):
     q = torch.zeros((2, 64, 32), device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError):                 # no d = 48 kernel
-        flash_attention(*(torch.zeros((2, 64, 48), device=cuda),) * 3)
+    with pytest.raises(ValueError, match="256"):    # past the widest
+        flash_attention(*(torch.zeros((2, 64, 264), device=cuda),) * 3)
     assert counts() == before          # nothing launched, nothing fell back
 
 
@@ -1702,13 +1730,14 @@ def _lm_case(arch, dev):
     from repro_torch.configs import registry
     from repro_torch.data.synthetic import token_batch
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        MAX_HEAD_DIM
     from repro_torch.models.lm import transformer as T
     resolve_device(dev)
     cfg = registry.get_config(arch, reduced=True)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(token_batch(2, 32, cfg.vocab, seed=3))
-    attention = "flash" if cfg.head_dim in HEAD_DIMS else "blocked"
+    attention = "flash" if cfg.head_dim <= MAX_HEAD_DIM else "blocked"
     return cfg, params, _lm_on(params, dev), toks, attention
 
 
@@ -1776,11 +1805,23 @@ def test_lm_prefill_b8_matches_blocked(cuda):
 
 
 def test_lm_flash_raises_for_head_dims_b8_lacks(cuda):
+    """B8 now takes the head dims it once lacked: the reduced gemma's
+    prefill (head_dim 24, run at the kernel's 64-wide bf16 and 32-wide f32
+    instantiations) on B8, one launch a layer, against the blocked
+    attention's on the card."""
+    from repro_torch import tree
     from repro_torch.models.lm import transformer as T
     cfg, _, on, toks, attention = _lm_case("gemma-7b", cuda)
-    assert attention == "blocked"
-    with torch.no_grad(), pytest.raises(ValueError, match="head dim"):
-        T.prefill(on, cfg, toks.to(cuda), attention="flash")
+    assert attention == "flash" and cfg.head_dim == 24
+    with torch.no_grad():
+        before = flash_attention.launches
+        got, kv = T.prefill(on, cfg, toks.to(cuda), attention="flash")
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + cfg.n_layers
+        want, kv_b = T.prefill(on, cfg, toks.to(cuda), attention="blocked")
+    _lm_close(got, want.cpu(), "flash vs blocked")
+    for a, b in zip(tree.leaves(kv), tree.leaves(kv_b)):
+        _lm_close(a, b.cpu(), "flash vs blocked cache")
 
 
 # --- A8c and A8d: compression, NeuraSim and op_costs on the card ----------

@@ -14,6 +14,8 @@ from repro.kernels.flash_attention.ops import mha_causal as ref_mha_causal
 from repro.kernels.flash_attention.ref import causal_attention_ref
 from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                  flash_attention, mha_causal)
+from repro_torch.kernels.flash_attention.flash_attention import (
+    KERNEL_HEAD_DIMS, MAX_HEAD_DIM, padded_head_dim)
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,bq,bk", [
@@ -59,11 +61,17 @@ def test_plain_matches_reference_oracle_on_flat_layout():
     np.testing.assert_allclose(got[:, 0].numpy(), v[:, 0], rtol=1e-6)
 
 
-@pytest.mark.parametrize("bad", ["block", "dtype", "mixed", "shape"])
+@pytest.mark.parametrize("bad", ["block", "dtype", "mixed", "shape",
+                                 "wide"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.randn(2, 64, 16)
     k, v = torch.randn_like(q), torch.randn_like(q)
     kw, err = {}, ValueError
+    if bad == "wide":            # past 256: raises on the CPU too
+        q, k, v = (torch.randn(2, 64, 264) for _ in range(3))
+        with pytest.raises(ValueError, match="256"):
+            flash_attention(q, k, v)
+        return
     if bad == "block":
         kw["block_q"] = 48                    # does not divide S = 64
     elif bad == "dtype":
@@ -74,6 +82,51 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         v = v[:, :32].contiguous()
     with pytest.raises(err):
         flash_attention(q, k, v, **kw)
+
+
+# head dims the kernel once refused: gemma's reduced 24 and FULL 256, the
+# reduced deepseek's 8, and 80 (a width between instantiations)
+@pytest.mark.parametrize("hd", [8, 24, 80, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_causal_head_dims_match_reference(hd, dtype):
+    """GQA (4 query heads on 2 kv heads), S = 48 in blocks of 16: the
+    port's ``mha_causal`` against the reference's ``mha_causal(use_kernel=
+    False)`` and, on the flat (BH, S, d) layout, B8's plain version against
+    ``causal_attention_ref``; 2e-5 in f32, 2e-2 in bf16 against the f32
+    oracle on the same bf16 values."""
+    b, s, h, kv = 2, 48, 4, 2
+    rng = np.random.default_rng(hd)
+    arrs = [rng.normal(size=(b, s, n, hd)).astype(np.float32)
+            for n in (h, kv, kv)]
+    tol = 2e-5
+    if dtype == "bfloat16":         # the same bf16 values on both sides
+        arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+        tol = 2e-2
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
+    got = mha_causal(q, k, v, block_q=16, block_k=16)
+    want = np.asarray(ref_mha_causal(*map(jnp.asarray, arrs),
+                                     use_kernel=False))
+    assert got.shape == (b, s, h, hd) and got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    flat = [np.repeat(a, h // a.shape[2], axis=2).transpose(0, 2, 1, 3)
+            .reshape(b * h, s, hd).copy() for a in arrs]
+    got = causal_attention_plain(*(torch.from_numpy(a).to(q.dtype)
+                                   for a in flat))
+    want = np.asarray(causal_attention_ref(*map(jnp.asarray, flat)))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_dim_is_the_next_compiled_width(dtype):
+    """On the card a d the kernel is not compiled for runs at the narrowest
+    compiled width above it, q, k and v padded with zero columns."""
+    widths = KERNEL_HEAD_DIMS[dtype]
+    assert widths[-1] == MAX_HEAD_DIM
+    for d in range(1, MAX_HEAD_DIM + 1):
+        dp = padded_head_dim(d, dtype)
+        assert dp in widths and dp >= d
+        assert all(w < d for w in widths if w < dp)
 
 
 def test_blocks_are_cut_to_the_sequence():

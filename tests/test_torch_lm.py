@@ -243,6 +243,50 @@ def test_prefill_flash_logits_match_reference_tightly(s):
                                atol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("s", [13, 32])
+def test_gemma_head_dim_256_prefill_flash_matches_reference(s):
+    """A narrow gemma with gemma-7b's true head_dim, 256 (2 layers, d_model
+    64, 2 heads; tied, GeGLU): the reference's parameters carried across,
+    the port's ``prefill(attention="flash")`` (B8's plain version on the
+    CPU) against the reference's ``prefill``, logits and cache ≤1e-4."""
+    changes = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2,
+                   head_dim=256)
+    cfg = dataclasses.replace(registry.get_config("gemma-7b", reduced=True),
+                              **changes)
+    jcfg = dataclasses.replace(
+        jregistry.get_config("gemma-7b", reduced=True), **changes)
+    jp = JT.init_params(jax.random.key(6), jcfg)
+    toks = syn.token_batch(2, s, cfg.vocab, seed=s + 1)
+    want, want_kv = jax.jit(JT.prefill, static_argnums=1)(
+        jp, jcfg, jnp.asarray(toks))
+    with torch.no_grad():
+        got, kv = T.prefill(_convert(jp), cfg, torch.from_numpy(toks),
+                            attention="flash")
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
+                               atol=FWD_TOL)
+    want_kv = _flat(jax.tree.map(np.asarray, want_kv))
+    got_kv = _flat(kv)
+    assert set(got_kv) == set(want_kv)
+    for k in want_kv:
+        assert got_kv[k].shape[-1] == 256
+        np.testing.assert_allclose(_np(got_kv[k]), want_kv[k], rtol=0,
+                                   atol=FWD_TOL, err_msg=k)
+
+
+def test_flash_past_head_dim_256_raises():
+    """Past 256 B8 raises naming 256, on the CPU too: nothing falls back
+    to the blocked attention."""
+    cfg = dataclasses.replace(registry.get_config("gemma-7b", reduced=True),
+                              n_layers=1, head_dim=264)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    toks = torch.from_numpy(syn.token_batch(1, 8, cfg.vocab, seed=0))
+    with torch.no_grad(), pytest.raises(ValueError, match="256"):
+        T.prefill(params, cfg, toks, attention="flash")
+    with torch.no_grad():
+        logits, _ = T.prefill(params, cfg, toks, attention="blocked")
+    assert bool(torch.isfinite(logits).all())
+
+
 def test_blocked_attention_gradients_match_reference():
     cfg = registry.get_config("qwen3-0.6b", reduced=True)
     jcfg = jregistry.get_config("qwen3-0.6b", reduced=True)

@@ -272,15 +272,19 @@ def test_serve_main_on_cpu(capsys, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-67b"])
 def test_serve_names_the_attention_flag(arch):
-    """On the card B8 takes head dims 16-128: the launcher's error names
-    ``--attention`` and chooses nothing for the user."""
-    cfg = registry.get_config(arch, reduced=True)
-    with pytest.raises(ValueError, match="--attention blocked"):
-        tserve.check_attention(cfg, "flash", torch.device("cuda"))
-    tserve.check_attention(cfg, "blocked", torch.device("cuda"))
-    tserve.check_attention(cfg, "flash", torch.device("cpu"))
-    tserve.check_attention(registry.get_config("qwen3-0.6b"), "flash",
-                           torch.device("cuda"))
+    """B8 takes every head dim up to 256: the launcher accepts flash for
+    the arch, FULL (gemma's 256) and reduced (24, 8); a head dim past 256
+    raises naming 256 and ``--attention``, and chooses nothing for the
+    user."""
+    for cfg in (registry.get_config(arch), registry.get_config(
+            arch, reduced=True)):
+        tserve.check_attention(cfg, "flash")
+        tserve.check_attention(cfg, "blocked")
+    wide = dataclasses.replace(registry.get_config(arch, reduced=True),
+                               head_dim=320)
+    with pytest.raises(ValueError, match=r"256.*--attention blocked"):
+        tserve.check_attention(wide, "flash")
+    tserve.check_attention(wide, "blocked")
 
 
 def test_train_main_lm_on_cpu(tmp_path, capsys, monkeypatch):

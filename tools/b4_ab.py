@@ -8,11 +8,12 @@ Each ROOT is a checkout of this repo (for example the parent commit
 unpacked with ``git archive`` into an ignored directory, and ``.``).  The
 roots run one after another, each in its own process that imports that
 root's ``repro_torch`` and builds its kernels from that root's sources, so
-give them in turns (``parent . . parent``).  Every process times, by the
-same code, B4 with one row of feature scales (the single-lane serving and
-training path) and f32 B1 beside it, at phase 2's bucket-16 plan with
-D = 16 and the Cora-scale plan with D = 1433, on the same seeded inputs,
-and hashes B4's output: one lane's bits must not depend on the checkout.
+give them in turns (``parent . . parent``; ``tools/in_turns.py`` runs
+them).  Every process times, by the same code, B4 with one row of feature
+scales (the single-lane serving and training path) and f32 B1 beside it,
+at phase 2's bucket-16 plan with D = 16 and the Cora-scale plan with
+D = 1433, on the same seeded inputs, and hashes B4's output: one lane's
+bits must not depend on the checkout.
 Prints the card's name and power limit first, one JSON line a process,
 then a JSON summary; exits non-zero without a GPU, when a process fails
 or when the outputs' bits differ between roots.
@@ -20,11 +21,10 @@ or when the outputs' bits differ between roots.
 from __future__ import annotations
 
 import hashlib
-import json
 import pathlib
-import statistics
-import subprocess
 import sys
+
+import in_turns
 
 SHAPES = (("bucket16", 16), ("cora_full", 1433))
 
@@ -75,43 +75,10 @@ def measure(root: pathlib.Path) -> dict:
         y = b4().cpu().numpy()
         out[f"{name} D={d}"] = dict(
             b4_ms=c.graph_ms(b4), b1_ms=c.graph_ms(b1),
-            b4_sha256=hashlib.sha256(y.tobytes()).hexdigest())
+            sha256=hashlib.sha256(y.tobytes()).hexdigest())
     return out
 
 
-def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(pathlib.Path(argv[1]).resolve())))
-        return 0
-    import torch
-    if not torch.cuda.is_available() or not argv:
-        print("b4_ab: needs a GPU and at least one checkout root",
-              file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip())
-    runs = []
-    for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", root],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]))
-    summary, same_bits = {}, True
-    for name, d in SHAPES:
-        key = f"{name} D={d}"
-        same_bits &= len({r[key]["b4_sha256"] for r in runs}) == 1
-        summary[key] = {
-            root: {k: statistics.median(r[key][k] for r in runs
-                                        if r["root"] == root)
-                   for k in ("b4_ms", "b1_ms")}
-            for root in dict.fromkeys(r["root"] for r in runs)}
-    print(json.dumps({"median_ms": summary, "b4_bits_equal": same_bits}))
-    return 0 if same_bits else 1
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(in_turns.main(__file__, measure, sys.argv[1:],
+                           same_bits=True))
