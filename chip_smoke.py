@@ -126,12 +126,19 @@ Phases, each of which raises (exit code 1) on any failure:
     heads, 8 kv heads, head_dim 128), S = 4096, batch 1, in f32 and bf16,
     counted, against the f32 plain version (≤2e-5 f32, ≤2e-2 bf16), timed
     beside ``scaled_dot_product_attention(is_causal=True)``, with B8's
-    achieved TFLOP/s and share of its bound per dtype; B8 over the head
-    dims it takes (``FLASH_SWEEP``: 5 and every width class to 256, BH =
-    4, S = 1,024), in f32 and bf16, one counted launch a case, against
-    the f32 plain version at the same bars, each timed from a replayed
-    graph beside its bound (``flash_bound``: at the true d, and where the
-    wrapper pads d, also of the padded work); then, as readings and not gates, each B8 instantiation's
+    achieved TFLOP/s and share of its bound per dtype; B8 over head dims
+    (``FLASH_SWEEP``: 5 and every width class to 256, and
+    ``FLASH_WIDE_DIMS``: 264, 320, 333, 512, 1000 on the wide kernels;
+    BH = 4, S = 1,024) in f32, bf16 and f16, then q f32 with k bf16 and
+    v f16, and f64, at d = 128 (each one f32 launch), one counted launch
+    a case, against the f32 plain version (``B8_TOL``: ≤2e-5 f32, mixed
+    and f64, ≤2e-2 bf16, ≤5e-3 f16), each timed from a replayed graph
+    beside its bound (``flash_bound``: at the true d, where the wrapper
+    pads d also of the padded work, and the kernel's ``executed_flops``,
+    past 256 with q·k recomputed a chunk of v's columns); readings at BH
+    16, S 4,096 (``FLASH_READINGS``: f16 at d = 128 and 256, bf16 and f32
+    at d = 512), each against its f32 plain version and beside SDPA in
+    its dtype; then, as readings and not gates, each B8 instantiation's
     ``HGMMA`` / ``HMMA`` count in its SASS (``cuobjdump -sass``) and its
     registers, stack, local (spill)
     and static shared memory (``cuobjdump --dump-resource-usage``), and
@@ -465,6 +472,16 @@ QWEN3_ATTENTION = (1, 4096, 16, 8, 128)
 # widths and widths below and between them, which the wrapper pads on the
 # card to the next width
 FLASH_SWEEP = (4, 1024, (5, 8, 16, 24, 32, 64, 80, 96, 112, 128, 160, 256))
+# past 256: the wide kernels, at multiples of 64 (320, 512) and between
+# them (264, 333, 1000), which the wrapper pads on the card
+FLASH_WIDE_DIMS = (264, 320, 333, 512, 1000)
+# B8's bars against its f32 plain version: f16 keeps 3 more mantissa bits
+# of q, k, v, P and o than bf16
+B8_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+# phase 12's readings at full size (BH, S): f16 at d = 128 and 256, and
+# d = 512 in bf16 and f32, each beside SDPA
+FLASH_READINGS = (16, 4096, ((torch.float16, 128), (torch.float16, 256),
+                             (torch.bfloat16, 512), (torch.float32, 512)))
 GEOM_ARCHS = ("schnet", "dimenet")
 
 
@@ -2224,32 +2241,40 @@ def b7_path_sweep(dev, x_full, y_full, gen):
     return sweep
 
 
-def flash_bound(dtype, bh: int, s: int, d: int) -> dict:
-    """B8's bound on (BH, S, d) in ``dtype``.  Least bytes: q, k, v read
-    once and o written once (the repeated heads, as the kernel takes
-    them).  Least operations: q.k and p.v over the S(S+1)/2 causal pairs,
-    2 flops a multiply-add, at the tensor cores' peak for the input type:
-    bf16, or for f32 the 3xTF32 rate (the TF32 peak over the three
-    products each f32 one takes).  Where the wrapper pads d to a wider
-    compiled width dp, ``padded_bound_ms`` is the same bound for the work
-    it does: q, k, v read at d and written at dp, the kernel's reads and
+def flash_bound(dtype, bh: int, s: int, d: int, io=None) -> dict:
+    """B8's bound on (BH, S, d) run in ``dtype`` (the kernel's: f32 for a
+    mix of input types).  Least bytes: q, k, v read once and o written
+    once (the repeated heads, as the kernel takes them), each at its own
+    type (``io``: q, k, v and o's dtypes, all ``dtype`` by default).
+    Least operations: q.k and p.v over the S(S+1)/2 causal pairs, 2 flops
+    a multiply-add, at the tensor cores' peak for the kernel's type: bf16
+    and f16 the same, or for f32 the 3xTF32 rate (the TF32 peak over the
+    three products each f32 one takes).  Where the wrapper pads d to a
+    wider width dp, ``padded_bound_ms`` is the same bound for the work it
+    does: q, k, v read at d and written at dp, the kernel's reads and
     write and its operations at dp, and o read and written at d to cut it
-    back."""
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        padded_head_dim
-    elem = torch.finfo(dtype).bits // 8
-    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16
-            else F32_3XTF32_FLOPS_PER_S)
+    back.  ``executed_flops`` counts what the kernel computes over the
+    causal pairs: q.k at dp once a chunk of v's columns (past 256 each
+    chunk recomputes it), p.v over every chunk's columns."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        WIDE_CHUNK, padded_head_dim, value_chunks)
+    io = io or (dtype,) * 4
+    size = [torch.empty((), dtype=t).element_size() for t in io]
+    elem = torch.empty((), dtype=dtype).element_size()
+    peak = (F32_3XTF32_FLOPS_PER_S if dtype == torch.float32
+            else BF16_FLOPS_PER_S)
 
     def bound(n_bytes, n_flops):
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
-    n_bytes, n_flops = 4 * bh * s * d * elem, 2 * bh * d * s * (s + 1)
+    n_bytes, n_flops = bh * s * d * sum(size), 2 * bh * d * s * (s + 1)
     bound_ms, bound_by = bound(n_bytes, n_flops)
+    dp, chunks = padded_head_dim(d, dtype), value_chunks(d, dtype)
+    pv_cols = dp if chunks == 1 else chunks * WIDE_CHUNK[dtype]
     rec = dict(bound_ms=bound_ms, bound_by=bound_by, bound_bytes=n_bytes,
-               bound_flops=n_flops)
-    dp = padded_head_dim(d, dtype)
+               bound_flops=n_flops,
+               executed_flops=bh * s * (s + 1) * (dp * chunks + pv_cols))
     if dp != d:
         pad_bytes = bh * s * elem * (5 * d + 7 * dp)
         rec.update(padded_to=dp, padded_bytes=pad_bytes,
@@ -2261,15 +2286,15 @@ def flash_bound(dtype, bh: int, s: int, d: int) -> dict:
 def flash_case(dtype, flat, model="qwen3-0.6b"):
     """B8 at one dtype on the (BH, S, d) layout ``flat`` = (qf, kf, vf),
     ``model``'s attention: held against its f32 plain version on the same
-    values (≤2e-5 f32, ≤2e-2 bf16), timed beside its plain version and
-    ``scaled_dot_product_attention``."""
+    values (``B8_TOL``: ≤2e-5 f32, ≤2e-2 bf16, ≤5e-3 f16), timed beside
+    its plain version and ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                      flash_attention)
     qf, kf, vf = flat
     bh, s, d = qf.shape
     out = flash_attention(qf, kf, vf)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    tol = B8_TOL[dtype]
     err = float((out.float() - causal_attention_plain(
         qf.float(), kf.float(), vf.float())).abs().max())
     check(err <= tol, f"B8 {model} {dtype}: kernel vs f32 plain {err:.3e} "
@@ -2277,7 +2302,7 @@ def flash_case(dtype, flat, model="qwen3-0.6b"):
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qf[None], kf[None], vf[None], is_causal=True)[0]
     lib_err = float((library().float() - out.float()).abs().max())
-    check(lib_err <= (2e-2 if dtype == torch.bfloat16 else 1e-4),
+    check(lib_err <= (1e-4 if dtype == torch.float32 else 2e-2),
           f"B8 {dtype}: kernel vs scaled_dot_product_attention {lib_err:.3e}")
     rec = dict(shape=f"{model} attention BH={bh} S={s} d={d} "
                      f"{str(dtype).split('.')[-1]}",
@@ -2309,9 +2334,14 @@ def sass_readings(library: pathlib.Path) -> dict:
         return subprocess.run([tool, flag, str(library)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
 
-    def readable(mangled):  # _Z17flash_bf16_kernelILi128EEv... → <128>
-        m = re.search(r"_Z\d+(\w+?_kernel)ILi(\d+)E", mangled)
-        return mangled if m is None else f"{m.group(1)}<{m.group(2)}>"
+    def readable(mangled):  # _Z18flash_wgmma_kernelI6__halfLi128EEv...
+        m = re.match(r"_Z\d+(\w+?_kernel)", mangled)   # → <f16, 128>
+        if m is None:
+            return mangled
+        args = re.findall(r"(13__nv_bfloat16|6__half)|Li(\d+)E", mangled)
+        args = [{"13__nv_bfloat16": "bf16", "6__half": "f16"}.get(t, n)
+                for t, n in args]
+        return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
     out, name = {}, None
     for line in dump("-sass").splitlines():
@@ -2443,40 +2473,81 @@ def flash_numerics(dtype, flat) -> dict:
 
 
 def flash_sweep(dev) -> list:
-    """B8 at each head dim of ``FLASH_SWEEP`` in f32 and bf16 on the same
-    seeded (BH, S, d) q, k, v: one counted launch a case, shaped and
-    finite, against its f32 plain version (≤2e-5 f32, ≤2e-2 bf16), and
-    its time from a replayed graph beside its bound (``flash_bound``)."""
+    """B8 on seeded (BH, S, d) q, k, v at each head dim of ``FLASH_SWEEP``
+    and ``FLASH_WIDE_DIMS`` in f32, bf16 and f16 on the same values, then
+    a mix (q f32, k bf16, v f16) and f64 at d = 128, which run as one f32
+    launch: one counted launch a case, shaped and finite, against its f32
+    plain version (``B8_TOL``; the mix and f64 2e-5), and its time from a
+    replayed graph beside its bound (``flash_bound``)."""
     from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        kernel_dtype
     bh, s, dims = FLASH_SWEEP
     gen = torch.Generator(device=dev).manual_seed(121)
-    recs = []
-    for d in dims:
+    cases = []
+    for d in dims + FLASH_WIDE_DIMS:
         flat32 = [torch.randn((bh, s, d), generator=gen, device=dev)
                   for _ in range(3)]
-        want = causal_attention_plain(*flat32)
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            q, k, v = (t.to(dtype) for t in flat32)
-            ref = want if dtype == torch.float32 else causal_attention_plain(
-                q.float(), k.float(), v.float())
-            flash_attention.launches = 0
-            out = flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            launches = flash_attention.launches
-            name = f"B8 sweep d={d} {str(dtype).split('.')[-1]}"
-            check(launches == 1 and out.dtype == dtype
-                  and out.shape == q.shape
-                  and bool(torch.isfinite(out).all()),
-                  f"{name}: {launches} launches, malformed output")
-            err = float((out.float() - ref).abs().max())
-            check(err <= tol, f"{name}: kernel vs f32 plain {err:.3e} > "
-                              f"{tol}")
-            recs.append(dict(d=d, dtype=str(dtype).split(".")[-1],
-                             launches=launches, max_abs_err=err,
-                             tolerance=tol, ms=graph_ms(
-                                 lambda: flash_attention(q, k, v), calls=5,
-                                 replays=4), **flash_bound(dtype, bh, s, d)))
+        cases += [(str(dtype).split(".")[-1], [t.to(dtype) for t in flat32])
+                  for dtype in B8_TOL]
+    flat32 = [torch.randn((bh, s, 128), generator=gen, device=dev)
+              for _ in range(3)]
+    cases += [("mixed f32/bf16/f16", [flat32[0], flat32[1].bfloat16(),
+                                      flat32[2].half()]),
+              ("float64", [t.double() for t in flat32])]
+    recs = []
+    for label, (q, k, v) in cases:
+        d, dtype = q.shape[-1], kernel_dtype(q, k, v)
+        tol = B8_TOL[dtype]
+        flash_attention.launches = 0
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        name = f"B8 sweep d={d} {label}"
+        check(launches == 1 and out.dtype == q.dtype
+              and out.shape == q.shape
+              and bool(torch.isfinite(out).all()),
+              f"{name}: {launches} launches, malformed output")
+        err = float((out.float() - causal_attention_plain(
+            q.float(), k.float(), v.float())).abs().max())
+        check(err <= tol, f"{name}: kernel vs f32 plain {err:.3e} > {tol}")
+        recs.append(dict(d=d, dtype=label, launches=launches,
+                         max_abs_err=err, tolerance=tol, ms=graph_ms(
+                             lambda: flash_attention(q, k, v), calls=5,
+                             replays=4),
+                         **flash_bound(dtype, bh, s, d, io=(
+                             q.dtype, k.dtype, v.dtype, q.dtype))))
+    return recs
+
+
+def flash_readings(dev) -> list:
+    """``FLASH_READINGS`` at full size (BH 16, S 4096): f16 at d = 128 and
+    256 and d = 512 in bf16 and f32, each through ``flash_case`` (held
+    against its f32 plain version, timed beside it and SDPA in the same
+    dtype), with its bound and ``executed_flops``; one counted launch a
+    case before ``flash_case`` times it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    bh, s, cases = FLASH_READINGS
+    gen = torch.Generator(device=dev).manual_seed(122)
+    recs = []
+    for dtype, d in cases:
+        flat = [torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
+                for _ in range(3)]
+        flash_attention.launches = 0
+        out = flash_attention(*flat)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        check(launches == 1 and out.shape == flat[0].shape
+              and bool(torch.isfinite(out).all()),
+              f"B8 reading d={d} {dtype}: {launches} launches, malformed")
+        del out
+        rec = flash_case(dtype, flat, model=f"d={d} reading")
+        rec.update(launches=launches,
+                   executed_tflop_s=rec["executed_flops"] / rec["ms"] / 1e9)
+        recs.append(rec)
+        del flat
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -2529,8 +2600,12 @@ def phase_flash(dev):
     say(f"B8 head-dim sweep BH={FLASH_SWEEP[0]} S={FLASH_SWEEP[1]} "
         f"{json.dumps(sweep)}")
     launches += sum(r["launches"] for r in sweep)
+    readings = flash_readings(dev)
+    say(f"B8 readings BH={FLASH_READINGS[0]} S={FLASH_READINGS[1]} "
+        f"{json.dumps(readings)}")
+    launches += sum(r["launches"] for r in readings)
     say(f"B8 SASS and resources {json.dumps(sass_readings(LIBRARY.path))}")
-    return recs, launches
+    return recs, launches, sweep, readings
 
 
 # ---------------------------------------------------------------------------
@@ -5331,7 +5406,7 @@ def lm_train_breakdown(dev, cfg, n_steps: int = 1) -> dict:
                          adamw.AdamWConfig(lr=LM_TRAIN["lr"]))
     batch = {"tokens": lm_tokens(dev, b, s, cfg.vocab, seed=21)}
     rec = trace_steps(lambda: float(step(params, opt, batch)[2]["loss"]),
-                      n_steps, "flash_bf16_kernel", top=8)
+                      n_steps, "flash_wgmma_kernel", top=8)
     rec.pop("kernel_ms_per_step")
     return {f"train_{k}": v for k, v in rec.items()}
 
@@ -5347,7 +5422,7 @@ def lm_readings(dev, cfg, params) -> dict:
     def prefill():
         with torch.no_grad():
             T.prefill(params, cfg, toks)
-    pre = trace_steps(prefill, 2, "flash_bf16_kernel")
+    pre = trace_steps(prefill, 2, "flash_wgmma_kernel")
     rec = dict(prefill_wall_ms=pre["step_wall_ms"],
                prefill_device_ms=pre["device_ms_per_step"],
                prefill_busy=pre["device_busy_share"],
@@ -5368,7 +5443,7 @@ def lm_readings(dev, cfg, params) -> dict:
     def decode():
         with torch.no_grad():
             T.decode_step_ragged(params, cfg, last, cache, positions)
-    dec = trace_steps(decode, 3, "flash_bf16_kernel")
+    dec = trace_steps(decode, 3, "flash_wgmma_kernel")
     rec.update(decode_wall_ms=dec["step_wall_ms"],
                decode_device_ms=dec["device_ms_per_step"],
                decode_ops=dec["device_ops_per_step"],
@@ -5938,7 +6013,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 12 — B8 through mha_causal at qwen3-0.6b width, S = 4096
-    b8, b8_launches = phase_flash(dev)
+    b8, b8_launches, b8_sweep, b8_readings = phase_flash(dev)
     torch.cuda.empty_cache()
 
     # phase 13 — gcn-cora training on B1 (forward and backward) and B4
@@ -6236,9 +6311,11 @@ def main() -> int:
                       ":68",
              launches=b8_launches + lm["launches"] + gemma["launches"],
              launches_note=(
-                 f"phase 12's mha_causal in f32 and in bf16 and its "
-                 f"head-dim sweep {b8_launches} (one a call: 2 + 2 a swept "
-                 f"d); phase 20's qwen3-0.6b "
+                 f"phase 12's mha_causal in f32 and in bf16, its "
+                 f"head-dim sweep and its readings {b8_launches} (one a "
+                 f"call: 2 + {len(b8_sweep)} sweep cases, 3 dtypes a d "
+                 f"and the mixed and f64 cases as one f32 launch each, + "
+                 f"{len(b8_readings)} readings); phase 20's qwen3-0.6b "
                  f"{lm['launches']}: 28 a FULL bf16 prefill at S = 4096 "
                  f"({lm['prefill']['launches']}) and its eval forward "
                  f"({lm['prefill']['forward_launches']}), 4 the f32 "
@@ -6277,6 +6354,15 @@ def main() -> int:
                      share_of_prefill=gemma["readings"]["b8_share"],
                      last_logits_rel_vs_blocked=gemma["prefill"]
                      ["last_logits_rel"])),
+             sweep=[{k: c[k] for k in ("d", "dtype", "launches",
+                                       "max_abs_err", "tolerance", "ms",
+                                       "bound_ms", "bound_by",
+                                       "executed_flops")}
+                    for c in b8_sweep],
+             readings=[{k: c[k] for k in ("shape", "launches", "max_abs_err",
+                                          "tolerance", "executed_flops",
+                                          "executed_tflop_s") + keys}
+                       for c in b8_readings],
              shape=b8[1]["shape"], **{k: b8[1][k] for k in keys}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,8 @@ reference wrote restores into the port, and the reverse.
 * async: ``AsyncCheckpointer.save_async`` copies the tree to host memory
   synchronously and writes it in a background thread;
 * placement: ``restore`` puts each leaf on the device and in the dtype of
-  the matching ``like_tree`` leaf, whatever wrote it;
+  the matching ``like_tree`` leaf, whatever wrote it, or, with
+  ``shardings``, as a DTensor on a mesh by a spec (elastic restore);
 * bfloat16: a bf16 leaf is saved as the reference saves one, its 2-byte
   payloads (``|V2``) under the manifest dtype ``bfloat16``, and restored
   bit for bit, the reference's files included;
@@ -257,24 +258,62 @@ def _place(arr: np.ndarray, dtype: str, like):
     return arr.astype(like.dtype)
 
 
-def restore(ckpt_dir, step: int, like_tree: Any):
+def _sharding_leaves(shardings, like_tree) -> list:
+    """One entry a ``like_tree`` leaf, in its order: the sharding that
+    ``shardings`` (a tree of ``like_tree``'s structure) holds for it, or
+    ``None`` where it or a subtree above it is ``None``."""
+    out: list = []
+
+    def walk(sh, t):
+        if isinstance(t, dict):
+            for key in sorted(t):
+                walk(None if sh is None else sh[key], t[key])
+        elif isinstance(t, (tuple, list)):
+            for i, child in enumerate(t):
+                walk(None if sh is None else sh[i], child)
+        elif t is not None:
+            out.append(sh)
+    walk(shardings, like_tree)
+    return out
+
+
+def _distribute(leaf: torch.Tensor, sharding) -> torch.Tensor:
+    """``leaf`` (the whole array, the same on every rank: each read the
+    same file) as a DTensor on ``sharding``'s mesh: each rank keeps its own
+    block, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(leaf, sharding.mesh,
+                             sharding.placements(leaf.ndim),
+                             src_data_rank=None)
+
+
+def restore(ckpt_dir, step: int, like_tree: Any, shardings=None):
     """Load a committed step into the structure of ``like_tree`` →
     (tree, metadata).  Each leaf takes the device and dtype of its
-    ``like_tree`` leaf.  Raises ``CheckpointError`` (never loads garbage)
-    if the step is torn, its manifest is unreadable, or any leaf
-    mismatches ``like_tree``."""
+    ``like_tree`` leaf; ``shardings``, a tree matching ``like_tree`` whose
+    leaves are ``None`` or ``core.distributed.NamedSharding``s, places a
+    leaf as a DTensor on that mesh by that spec instead: the elastic
+    restore onto a mesh other than the writer's (the files hold whole
+    arrays, whatever layout wrote them).  Raises ``CheckpointError``
+    (never loads garbage) if the step is torn, its manifest is unreadable,
+    or any leaf mismatches ``like_tree``."""
     step_dir = Path(ckpt_dir) / f"step_{step:06d}"
     manifest = validate_step(ckpt_dir, step, like_tree)
     leaves, structure = tree_util.flatten(like_tree)
+    placed = _sharding_leaves(shardings, like_tree)
     loaded = []
-    for i, like in enumerate(leaves):
+    for i, (like, sharding) in enumerate(zip(leaves, placed)):
         arr = np.load(step_dir / f"leaf_{i:05d}.npy")
         if tuple(arr.shape) != tuple(like.shape):
             raise CheckpointError(
                 f"step {step}: leaf {i} on-disk shape {tuple(arr.shape)} "
                 f"mismatches like_tree {tuple(like.shape)}")
-        loaded.append(_place(arr, manifest["leaves"][i].get("dtype", ""),
-                             like))
+        dtype = manifest["leaves"][i].get("dtype", "")
+        if sharding is None:
+            loaded.append(_place(arr, dtype, like))
+        else:               # the whole leaf on the host, then its block
+            host = torch.empty(0, dtype=like.dtype)
+            loaded.append(_distribute(_place(arr, dtype, host), sharding))
     return tree_util.unflatten(structure, loaded), manifest["metadata"]
 
 

@@ -509,6 +509,22 @@ def _placements(mesh, spec, ndim):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """The counterpart of ``jax.sharding.NamedSharding(mesh, P(*spec))``:
+    a ``DeviceMesh`` and a spec (one entry a dim: ``None``, an axis name or
+    a tuple of names).  A tree leaf, not a container, so a tree of them
+    matches a tree of tensors (``checkpoint.store.restore``'s
+    ``shardings``)."""
+
+    mesh: object
+    spec: tuple = ()
+
+    def placements(self, ndim: int) -> list:
+        """DTensor placements of the spec on the mesh."""
+        return _placements(self.mesh, self.spec, ndim)
+
+
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)

@@ -4,9 +4,11 @@
     accumulate     :  Y[r]   = segment_sum(pp, A_row, n_rows)   (scatter-bound)
 
 These are the bodies of the ``dense`` and ``chunked`` executors;
-``spgemm_via_dense`` is the sparse×sparse tiny-size oracle.  As JAX's
-``segment_sum``, the merge drops row ids outside ``[0, n_rows)`` (the
-padding-edge convention: padding lanes point at row ``n_rows``).
+``spmm``/``spmm_masked`` are the decoupled SpMM as one call (over a padded
+edge list for the masked one), ``spmm_chunked`` its rolling-eviction
+variant, and ``spgemm_via_dense`` the sparse×sparse tiny-size oracle.  As
+JAX's ``segment_sum``, the merge drops row ids outside ``[0, n_rows)``
+(the padding-edge convention: padding lanes point at row ``n_rows``).
 
 Both stages are order-fixed on the card as on the CPU, forward and
 backward: they gather and merge through ``sparse.segment_ops``' ordered
@@ -44,6 +46,25 @@ def accumulate_stage(pp: torch.Tensor, rows: torch.Tensor, n_rows: int,
     """Merge partial products by destination row; rows outside
     ``[0, n_rows)`` drop."""
     return segment_sum(pp, rows, n_rows, order)
+
+
+def spmm(rows: torch.Tensor, cols: torch.Tensor,
+         vals: Optional[torch.Tensor], x: torch.Tensor,
+         n_rows: int) -> torch.Tensor:
+    """Y = A @ X with A as COO (rows, cols, vals): the multiply stage, then
+    the accumulate stage.  Padding edges point at row ``n_rows`` and drop."""
+    return accumulate_stage(multiply_stage(cols, vals, x), rows, n_rows)
+
+
+def spmm_masked(rows: torch.Tensor, cols: torch.Tensor,
+                vals: Optional[torch.Tensor], x: torch.Tensor, n_rows: int,
+                valid: torch.Tensor) -> torch.Tensor:
+    """SpMM over a padded edge list: lanes where ``valid`` is false
+    contribute nothing."""
+    pp = multiply_stage(cols, vals, x)
+    pp = pp.masked_fill(~valid.bool().reshape((-1,) + (1,) * (pp.ndim - 1)),
+                        0)
+    return accumulate_stage(pp, rows, n_rows)
 
 
 def _chunk_bounds(e: int, chunk: int):
@@ -117,8 +138,7 @@ def spgemm_via_dense(a_rows, a_cols, a_vals, n, b_rows, b_cols, b_vals, m, k,
     b_dense = torch.zeros((m, k), dtype=torch.float32, device=b_vals.device)
     b_dense.index_put_((b_rows.long(), b_cols.long()),
                        b_vals.to(torch.float32), accumulate=True)
-    pp = multiply_stage(a_cols.long(), a_vals, b_dense)
-    return accumulate_stage(pp, a_rows.long(), n)
+    return spmm(a_rows.long(), a_cols.long(), a_vals, b_dense, n)
 
 
 def interim_partial_products(a_cols, b_row_nnz) -> int:

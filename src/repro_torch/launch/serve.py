@@ -8,12 +8,9 @@
 scheduling to ``train/serving.ContinuousBatcher``.  Requests of mixed
 prompt and generation lengths join free slots as earlier ones finish.  The
 prefill's attention is B8 (``--attention flash``, the default) or the
-blocked attention (``--attention blocked``).  B8 takes every head dim
-up to 256 (all five archs, FULL and reduced: gemma-7b's 256, the reduced
-gemma's 24, the reduced deepseek's 8); a config with a wider head dim
-needs ``--attention blocked``: the launcher says so and does not choose
-for the user.  The arch runs at its reduced config, as the reference's
-launcher runs it.
+blocked attention (``--attention blocked``); B8 takes every head dim and
+dtype the reference's kernel takes.  The arch runs at its reduced config,
+as the reference's launcher runs it.
 """
 from __future__ import annotations
 
@@ -26,7 +23,6 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.data import synthetic as syn
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention.flash_attention import MAX_HEAD_DIM
 from repro_torch.models.lm import transformer as T
 from repro_torch.train.serving import ContinuousBatcher, Request
 
@@ -50,15 +46,6 @@ def build_engine(params, cfg, n_slots: int, s_max: int, eos_id=None,
         prefill, decode, eos_id=eos_id)
 
 
-def check_attention(cfg, attention: str) -> None:
-    """Raise where B8 cannot take the config's head dim (past
-    ``MAX_HEAD_DIM``, on any device, as B8's wrapper raises)."""
-    if attention == "flash" and cfg.head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{cfg.name}: head_dim {cfg.head_dim} is past the {MAX_HEAD_DIM} "
-            f"B8 takes; pass --attention blocked")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
@@ -76,7 +63,6 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, reduced=True)
-    check_attention(cfg, args.attention)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
     s_max = args.prompt_len + args.gen + 1

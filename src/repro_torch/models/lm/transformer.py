@@ -20,11 +20,10 @@ Attention: ``forward`` and ``prefill`` take ``attention``:
 * ``"flash"`` — B8 through ``kernels/flash_attention/ops.mha_causal``
   with the reference's chunk choice as its blocks (the CUDA kernel tiles
   on its own).  B8 has no backward, so asking for it while a gradient is
-  to flow raises.  It takes every head dim up to
-  ``flash_attention.MAX_HEAD_DIM`` (256: gemma's 256 and the reduced
-  configs' 8-24 included) and raises past it, on every device; on a CUDA
-  tensor it launches the kernel, on a CPU tensor it runs its plain
-  version;
+  to flow raises.  It takes every head dim (gemma's 256 and the reduced
+  configs' 8-24 included) and every real dtype, as the reference's kernel
+  does; on a CUDA tensor it launches the kernel, on a CPU tensor it runs
+  its plain version;
 * ``"blocked"`` — the port of ``blocked_causal_attention``, each q chunk
   under ``torch.utils.checkpoint`` as the reference's ``jax.checkpoint``.
   A kv chunk that lies wholly above the diagonal of its q chunk is
@@ -421,8 +420,7 @@ def _blocked_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      cfg: LMConfig, attention: str) -> torch.Tensor:
     """(B, S, H, hd) causal GQA attention by ``attention``: ``"flash"``
-    (B8, forward only, hd ≤ 256; a wider hd raises) or ``"blocked"``
-    (any hd)."""
+    (B8, forward only) or ``"blocked"``; both take any hd."""
     if attention == "blocked":
         return blocked_causal_attention(q, k, v, cfg)
     if attention != "flash":

@@ -7,13 +7,15 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 
 def pack_fifo(pending: Sequence, capacity: int,
-              size_of: Callable = lambda _r: 1) -> Tuple[List, List, int]:
-    """Greedy skip-ahead FIFO packing: ``(taken, remaining, used)``.
+              size_of: Callable = lambda _r: 1,
+              skip_ahead: bool = True) -> Tuple[List, List, int]:
+    """Greedy FIFO packing: ``(taken, remaining, used)``.
 
-    Requests are taken in arrival order while they fit in ``capacity``.  A
-    request that does not fit is left in place and later, smaller requests
-    may still fill the gap — it stays at the front for the next batch, so
-    it is never starved either.
+    Requests are taken in arrival order while they fit in ``capacity``.
+    With ``skip_ahead`` (the default), a request that does not fit is left
+    in place and later, smaller requests may still fill the gap — it stays
+    at the front for the next batch, so it is never starved either.
+    ``skip_ahead=False`` is strict FIFO: taking stops at the first misfit.
     """
     taken: List = []
     remaining: List = []
@@ -30,6 +32,9 @@ def pack_fifo(pending: Sequence, capacity: int,
                 break
         else:
             remaining.append(req)
+            if not skip_ahead:
+                remaining.extend(pending[i + 1:])
+                break
     return taken, remaining, used
 
 

@@ -1072,11 +1072,17 @@ def test_flash_attention_bf16_kernel_long_rows(cuda):
     assert float((got.float() - want).abs().max()) <= 2e-2
 
 
-# every width class of both dtypes: the 64/128/256-wide bf16 and
-# 16..256-wide f32 instantiations at their widths and between them, where
-# the wrapper pads q, k and v with zero columns on the card; S = 320 is
-# ragged for every q and kv tile (128, 64, 32)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# each dtype's bar against its f32 plain version: f16 keeps 3 more
+# mantissa bits of q, k, v, P and o than bf16
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+# every width class of the three dtypes: the 64/128/256-wide bf16 and f16
+# and 16..256-wide f32 instantiations at their widths and between them,
+# where the wrapper pads q, k and v with zero columns on the card; S = 320
+# is ragged for every q and kv tile (128, 64, 32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [1, 5, 8, 24, 40, 80, 96, 112, 160, 200, 256])
 def test_flash_attention_kernel_head_dim_sweep(cuda, d, dtype):
     q, k, v = _flat_qkv(3, 320, d, d, cuda, dtype)
@@ -1084,8 +1090,69 @@ def test_flash_attention_kernel_head_dim_sweep(cuda, d, dtype):
     want = causal_attention_plain(q.float(), k.float(), v.float())
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
-    assert float((got.float() - want).abs().max()) <= tol
+    assert float((got.float() - want).abs().max()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("s", [96, 192, 320])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_attention_f16_kernel_shapes(cuda, d, s):
+    q, k, v = _flat_qkv(3, s, d, d + s, cuda, torch.float16)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and got.shape == q.shape
+    assert float((got.float() - want).abs().max()) <= 5e-3
+
+
+# past 256: the wide kernels, d padded to a multiple of 64 (333, 1000),
+# v's columns in chunks of 256 (bf16, f16) or 128 (f32), the last one
+# partial at 264, 320, 333 and 1000; S = 320 ragged for the 128- and
+# 64-row q tiles
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [264, 320, 333, 512, 1000])
+def test_flash_attention_wide_head_dims(cuda, d, dtype):
+    q, k, v = _flat_qkv(2, 320, d, d, cuda, dtype)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want).abs().max()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_wide_long_rows(cuda, dtype):
+    # 16 of the wide kernels' 64-key tiles at the last q tile, five
+    # 64-column slices a tile: the slice ring (four stages) wraps
+    q, k, v = _flat_qkv(2, 1024, 320, 320, cuda, dtype)
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= FLASH_TOL[dtype]
+
+
+# q, k and v not all f32, all bf16 or all f16: each cast to f32 on the
+# card, one f32 launch, the output in q's dtype (the reference's upcast)
+@pytest.mark.parametrize("case", ["mixed", "float64", "int32", "wide_mixed"])
+def test_flash_attention_f32_route(cuda, case):
+    d = 328 if case == "wide_mixed" else 64
+    q, k, v = _flat_qkv(2, 192, d, 41, cuda, torch.float32)
+    if case in ("mixed", "wide_mixed"):
+        q, k, v = q, k.bfloat16(), v.half()
+    elif case == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    else:
+        q, k, v = ((3 * t).round().int() for t in (q, k, v))
+    got = _one_launch(q, k, v)
+    want = causal_attention_plain(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if case == "int32":          # both truncate the same f32 values
+        assert float((got - want.to(q.dtype)).abs().max()) <= 1
+    else:
+        assert float((got.float() - want).abs().max()) <= 2e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1130,10 +1197,8 @@ def test_new_wrappers_raise_on_unsupported_dtypes(cuda):
     with pytest.raises(TypeError):
         sddmm(idx.long(), idx.long(), table, table, edge_block=64)
     q = torch.zeros((2, 64, 32), device=cuda)
-    with pytest.raises(TypeError):
-        flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="256"):    # past the widest
-        flash_attention(*(torch.zeros((2, 64, 264), device=cuda),) * 3)
+    with pytest.raises(TypeError):               # the one dtype left out
+        flash_attention(q.cfloat(), q, q)
     assert counts() == before          # nothing launched, nothing fell back
 
 
@@ -1726,19 +1791,16 @@ def _lm_on(params, dev):
 
 def _lm_case(arch, dev):
     """(cfg, CPU params, card params, CPU tokens, the prefill's attention:
-    B8 where it takes the head dim, the blocked attention elsewhere)."""
+    B8, which takes every head dim)."""
     from repro_torch.configs import registry
     from repro_torch.data.synthetic import token_batch
     from repro_torch.device import resolve_device
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        MAX_HEAD_DIM
     from repro_torch.models.lm import transformer as T
     resolve_device(dev)
     cfg = registry.get_config(arch, reduced=True)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(token_batch(2, 32, cfg.vocab, seed=3))
-    attention = "flash" if cfg.head_dim <= MAX_HEAD_DIM else "blocked"
-    return cfg, params, _lm_on(params, dev), toks, attention
+    return cfg, params, _lm_on(params, dev), toks, "flash"
 
 
 def _lm_close(got, want, what):
@@ -1885,3 +1947,32 @@ def test_step_costs_on_card_equal_fake_count(cuda):
                                                   torch.empty(256, 64))
     assert flops == f_flops > 0
     assert byts > 0 and f_bytes > 0
+
+
+# ---------------------------------------------------------------------------
+# the decoupled SpMM as one call (core.spgemm.spmm / spmm_masked)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,e,d", [(40, 512, 8), (2708, 10556, 64)])
+def test_core_spmm_on_card_matches_cpu(cuda, n, e, d):
+    """``spmm``/``spmm_masked`` on the card against the same calls on the
+    CPU (1e-5: the ordered sums add each row's products in one order on
+    both), and ``spmm_chunked`` against ``spmm`` there."""
+    from repro_torch.core import spgemm as core
+    rng = np.random.default_rng(n)
+    host = [torch.from_numpy(a) for a in (
+        rng.integers(0, n, e), rng.integers(0, n, e),
+        rng.normal(size=e).astype(np.float32),
+        rng.normal(size=(n, d)).astype(np.float32))]
+    valid = torch.from_numpy(rng.random(e) < 0.7)
+    card = [t.to(cuda) for t in host]
+    for got, want in (
+            (core.spmm(*card, n), core.spmm(*host, n)),
+            (core.spmm_masked(*card, n, valid.to(cuda)),
+             core.spmm_masked(*host, n, valid))):
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+    full = core.spmm(*card, n)
+    for chunk in (64, 4096):
+        assert float((core.spmm_chunked(*card, n, chunk=chunk) - full)
+                     .abs().max()) <= 1e-5

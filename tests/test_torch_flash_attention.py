@@ -15,7 +15,8 @@ from repro.kernels.flash_attention.ref import causal_attention_ref
 from repro_torch.kernels.flash_attention import (causal_attention_plain,
                                                  flash_attention, mha_causal)
 from repro_torch.kernels.flash_attention.flash_attention import (
-    KERNEL_HEAD_DIMS, MAX_HEAD_DIM, padded_head_dim)
+    KERNEL_HEAD_DIMS, SLICE, WIDE_CHUNK, kernel_dtype, padded_head_dim,
+    value_chunks)
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,bq,bk", [
@@ -62,22 +63,34 @@ def test_plain_matches_reference_oracle_on_flat_layout():
 
 
 @pytest.mark.parametrize("bad", ["block", "dtype", "mixed", "shape",
-                                 "wide"])
+                                 "wide", "complex"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """What the wrapper refuses: blocks that do not divide S, q, k, v of
+    other shapes, complex inputs (the reference's f32 upcast would drop
+    their imaginary part).  What it computes, as the reference does, where
+    it once raised: f16, a mix of dtypes (the output in q's), and a head
+    dim past 256, each against the f32 plain version of the same values
+    (2e-5; f16 output 5e-3)."""
     q = torch.randn(2, 64, 16)
     k, v = torch.randn_like(q), torch.randn_like(q)
     kw, err = {}, ValueError
-    if bad == "wide":            # past 256: raises on the CPU too
-        q, k, v = (torch.randn(2, 64, 264) for _ in range(3))
-        with pytest.raises(ValueError, match="256"):
-            flash_attention(q, k, v)
+    if bad in ("dtype", "mixed", "wide"):
+        tol = 2e-5
+        if bad == "dtype":
+            q, k, v, tol = q.half(), k.half(), v.half(), 5e-3
+        elif bad == "mixed":
+            k = k.bfloat16()
+        else:
+            q, k, v = (torch.randn(2, 64, 264) for _ in range(3))
+        got = flash_attention(q, k, v)
+        want = causal_attention_plain(q.float(), k.float(), v.float())
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert float((got.float() - want).abs().max()) <= tol
         return
     if bad == "block":
         kw["block_q"] = 48                    # does not divide S = 64
-    elif bad == "dtype":
-        q, k, v, err = q.half(), k.half(), v.half(), TypeError
-    elif bad == "mixed":
-        k, err = k.bfloat16(), TypeError
+    elif bad == "complex":
+        q, err = q.cfloat(), TypeError
     else:
         v = v[:, :32].contiguous()
     with pytest.raises(err):
@@ -87,22 +100,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 # head dims the kernel once refused: gemma's reduced 24 and FULL 256, the
 # reduced deepseek's 8, and 80 (a width between instantiations)
 @pytest.mark.parametrize("hd", [8, 24, 80, 256])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_mha_causal_head_dims_match_reference(hd, dtype):
     """GQA (4 query heads on 2 kv heads), S = 48 in blocks of 16: the
     port's ``mha_causal`` against the reference's ``mha_causal(use_kernel=
     False)`` and, on the flat (BH, S, d) layout, B8's plain version against
-    ``causal_attention_ref``; 2e-5 in f32, 2e-2 in bf16 against the f32
-    oracle on the same bf16 values."""
+    ``causal_attention_ref``; 2e-5 in f32, 2e-2 in bf16 and 5e-3 in f16
+    against the f32 oracle on the same rounded values."""
     b, s, h, kv = 2, 48, 4, 2
     rng = np.random.default_rng(hd)
     arrs = [rng.normal(size=(b, s, n, hd)).astype(np.float32)
             for n in (h, kv, kv)]
     tol = 2e-5
-    if dtype == "bfloat16":         # the same bf16 values on both sides
-        arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
-                for a in arrs]
-        tol = 2e-2
+    if dtype != "float32":          # the same rounded values on both sides
+        arrs = [np.array(jnp.asarray(a, getattr(jnp, dtype)).astype(
+            jnp.float32)) for a in arrs]
+        tol = 2e-2 if dtype == "bfloat16" else 5e-3
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     got = mha_causal(q, k, v, block_q=16, block_k=16)
     want = np.asarray(ref_mha_causal(*map(jnp.asarray, arrs),
@@ -117,16 +130,77 @@ def test_mha_causal_head_dims_match_reference(hd, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_padded_head_dim_is_the_next_compiled_width(dtype):
-    """On the card a d the kernel is not compiled for runs at the narrowest
-    compiled width above it, q, k and v padded with zero columns."""
+    """On the card a d ≤ 256 the kernel is not compiled for runs at the
+    narrowest compiled width above it, q, k and v padded with zero
+    columns; past 256 at the next multiple of 64, v's columns in
+    ``WIDE_CHUNK`` chunks (the last one partial where it does not
+    divide)."""
     widths = KERNEL_HEAD_DIMS[dtype]
-    assert widths[-1] == MAX_HEAD_DIM
-    for d in range(1, MAX_HEAD_DIM + 1):
+    assert widths[-1] == 256
+    for d in range(1, 257):
         dp = padded_head_dim(d, dtype)
-        assert dp in widths and dp >= d
+        assert dp in widths and dp >= d and value_chunks(d, dtype) == 1
         assert all(w < d for w in widths if w < dp)
+    for d in range(257, 1100):
+        dp = padded_head_dim(d, dtype)
+        assert dp % SLICE == 0 and d <= dp < d + SLICE
+        assert value_chunks(d, dtype) == -(-dp // WIDE_CHUNK[dtype])
+
+
+# the f32 route: q, k, v not all f32, all bf16 or all f16 (jax, without
+# x64, keeps an f64 array in f32, as the port's wrapper casts it)
+REF_CASES = {"float16": (np.float16,) * 3,
+             "mixed": (np.float32, "bfloat16", np.float16),
+             "float64": (np.float64,) * 3,
+             "int32": (np.int32,) * 3}
+
+
+@pytest.mark.parametrize("hd", [264, 320, 512])
+@pytest.mark.parametrize("case", sorted(REF_CASES))
+def test_mha_causal_dtypes_past_256_match_reference(case, hd):
+    """GQA (4 query heads on 2 kv heads), S = 32 in blocks of 16, head dims
+    past 256: the port's ``mha_causal`` on f16, mixed (q f32, k bf16, v
+    f16), f64 and int32 inputs against the reference's ``mha_causal(
+    use_kernel=False)`` on the same values, and B8's plain version against
+    ``causal_attention_ref`` on the flat layout.  Both upcast each input to
+    f32 and cast the output to q's dtype; the bars: 2e-5 (f32 outputs), one
+    f16 step (an f16 output rounds f32 values that agree within 2e-5), 1
+    for int32 (both truncate f32 values that agree within 2e-5)."""
+    b, s, h, kv = 1, 32, 4, 2
+    rng = np.random.default_rng(hd + len(case))
+    arrs = []
+    for n, kind in zip((h, kv, kv), REF_CASES[case]):
+        a = rng.normal(size=(b, s, n, hd)).astype(np.float32)
+        if kind == np.int32:
+            a = np.round(2 * a)
+        arrs.append(a)
+    jarrs = [jnp.asarray(a, jnp.bfloat16 if kind == "bfloat16" else kind)
+             for a, kind in zip(arrs, REF_CASES[case])]
+    # the same values in torch: bf16 through f32, the rest as they are
+    tarrs = [torch.from_numpy(np.array(j.astype(jnp.float32))).bfloat16()
+             if kind == "bfloat16" else torch.from_numpy(
+                 np.asarray(a).astype(kind))
+             for a, j, kind in zip(arrs, jarrs, REF_CASES[case])]
+    atol, rtol = {"float16": (2 ** -14, 2 ** -10), "int32": (1, 0)}.get(
+        case, (2e-5, 2e-5))
+    got = mha_causal(*tarrs, block_q=16, block_k=16)
+    want = np.asarray(ref_mha_causal(*jarrs, use_kernel=False))
+    assert got.shape == (b, s, h, hd) and got.dtype == tarrs[0].dtype
+    assert kernel_dtype(*tarrs) == (torch.float16 if case == "float16"
+                                    else torch.float32)
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=rtol, atol=atol)
+    flat = [t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
+            .reshape(b * h, s, hd).contiguous() for t in tarrs]
+    got = causal_attention_plain(*flat)
+    want = np.asarray(causal_attention_ref(*(jnp.asarray(
+        t.float().numpy(), jnp.bfloat16 if t.dtype == torch.bfloat16
+        else t.numpy().dtype) for t in flat)))
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64),
+                               rtol=rtol, atol=atol)
 
 
 def test_blocks_are_cut_to_the_sequence():

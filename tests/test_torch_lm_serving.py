@@ -272,19 +272,27 @@ def test_serve_main_on_cpu(capsys, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "deepseek-67b"])
 def test_serve_names_the_attention_flag(arch):
-    """B8 takes every head dim up to 256: the launcher accepts flash for
-    the arch, FULL (gemma's 256) and reduced (24, 8); a head dim past 256
-    raises naming 256 and ``--attention``, and chooses nothing for the
-    user."""
-    for cfg in (registry.get_config(arch), registry.get_config(
-            arch, reduced=True)):
-        tserve.check_attention(cfg, "flash")
-        tserve.check_attention(cfg, "blocked")
-    wide = dataclasses.replace(registry.get_config(arch, reduced=True),
-                               head_dim=320)
-    with pytest.raises(ValueError, match=r"256.*--attention blocked"):
-        tserve.check_attention(wide, "flash")
-    tserve.check_attention(wide, "blocked")
+    """``--attention flash`` serves any head dim: the arch's reduced config
+    at head_dim 320 (past 256, where B8 once raised) serves 5 requests on
+    3 slots on the CPU through ``build_engine(attention="flash")``, and a
+    flash prefill's logits and cache are within 1e-4 of the blocked
+    one's."""
+    cfg = dataclasses.replace(registry.get_config(arch, reduced=True),
+                              head_dim=320)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    toks = torch.from_numpy(syn.token_batch(2, 24, cfg.vocab, seed=4))
+    with torch.no_grad():
+        got, kv = T.prefill(params, cfg, toks, attention="flash")
+        want, kv_b = T.prefill(params, cfg, toks, attention="blocked")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree.leaves(kv), tree.leaves(kv_b)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    reqs = _requests(cfg.vocab, Request)
+    eng = tserve.build_engine(params, cfg, 3, 48, attention="flash")
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert all(r.done and len(r.out) == r.max_new for r in reqs)
 
 
 def test_train_main_lm_on_cpu(tmp_path, capsys, monkeypatch):

@@ -1,6 +1,7 @@
 """The port's request and data planes: ``pack_fifo`` equal to the
-reference's, the dynamic batcher on a virtual clock, exactly-once
-settlement, sampler-failure isolation and deadline/drain failures."""
+reference's in both modes (skip-ahead and strict FIFO), the dynamic
+batcher on a virtual clock, exactly-once settlement, sampler-failure
+isolation and deadline/drain failures."""
 import threading
 
 import numpy as np
@@ -45,6 +46,36 @@ def test_pack_fifo_equals_reference(sizes, capacity):
     got = pack_fifo(items, capacity, size_of=lambda i: sizes[i])
     want = jpack(items, capacity, size_of=lambda i: sizes[i])
     assert got == want
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("skip_ahead", [True, False])
+def test_pack_fifo_modes_equal_reference_on_traces(skip_ahead, seed):
+    """Seeded traces of request sizes (1-12, a few oversized against the
+    capacity) packed by the port and by the reference, in skip-ahead and
+    strict FIFO mode: equal ``taken``, ``remaining`` and ``used``; strict
+    FIFO takes a prefix of the trace."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 13, int(rng.integers(0, 40))).tolist()
+    items = list(range(len(sizes)))
+    for capacity in (1, 7, 16, 64):
+        got = pack_fifo(items, capacity, size_of=lambda i: sizes[i],
+                        skip_ahead=skip_ahead)
+        want = jpack(items, capacity, size_of=lambda i: sizes[i],
+                     skip_ahead=skip_ahead)
+        assert got == want
+        if not skip_ahead:
+            assert got[0] == items[:len(got[0])]
+
+
+def test_pack_fifo_strict_stops_at_the_first_misfit():
+    """``test_serve_batcher.py::test_pack_fifo_skip_ahead`` on the port."""
+    sizes = {"a": 10, "b": 9, "c": 3, "d": 2}
+    taken, rest, used = pack_fifo(list("abcd"), 16, size_of=sizes.get)
+    assert taken == ["a", "c", "d"] and rest == ["b"] and used == 15
+    taken, rest, used = pack_fifo(list("abcd"), 16, size_of=sizes.get,
+                                  skip_ahead=False)
+    assert taken == ["a"] and rest == ["b", "c", "d"] and used == 10
 
 
 def test_batcher_size_and_deadline_triggers():

@@ -672,3 +672,85 @@ def test_gcn_over_two_hop_matches_reference(backend):
     assert got.shape == (201, tcfg.n_classes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=EXEC_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the decoupled SpMM as one call (``core.spgemm.spmm``/``spmm_masked``)
+# ---------------------------------------------------------------------------
+
+def _dense_ref(rows, cols, vals, x, n):
+    d = np.zeros((n, n), np.float32)
+    np.add.at(d, (rows, cols), vals)
+    return d @ x
+
+
+def _spmm_case(seed, n, e, d):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, e), rng.integers(0, n, e),
+            rng.normal(size=e).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed,n,e,d", [(0, 4, 1, 1), (1, 60, 300, 32),
+                                        (2, 17, 120, 5), (3, 40, 9, 8)])
+def test_spmm_matches_reference_and_dense(seed, n, e, d):
+    """``test_spgemm.py::test_decoupled_spmm_matches_dense`` on the port:
+    ``spmm`` against the dense product (2e-4, the reference's bar) and
+    against the reference's ``spmm`` on the same COO (1e-5); without
+    values each edge weighs 1."""
+    rows, cols, vals, x = _spmm_case(seed, n, e, d)
+    got = tcore.spmm(*map(torch.from_numpy, (rows, cols, vals, x)), n)
+    np.testing.assert_allclose(got.numpy(),
+                               _dense_ref(rows, cols, vals, x, n),
+                               rtol=2e-4, atol=2e-4)
+    want = jcore.spmm(*map(jnp.asarray, (rows, cols, vals, x)), n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    got1 = tcore.spmm(torch.from_numpy(rows), torch.from_numpy(cols), None,
+                      torch.from_numpy(x), n)
+    want1 = jcore.spmm(jnp.asarray(rows), jnp.asarray(cols), None,
+                       jnp.asarray(x), n)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_spmm_rolling_eviction_equals_full(seed, chunk):
+    """C3 (``test_spgemm.py::test_rolling_eviction_equals_full``) on the
+    port: ``spmm_chunked`` equals ``spmm`` (1e-5) at 40 nodes, 512 edges,
+    d = 8, and the port's ``spmm`` equals the reference's."""
+    rows, cols, vals, x = _spmm_case(100 + seed, 40, 512, 8)
+    t = list(map(torch.from_numpy, (rows, cols, vals, x)))
+    full = tcore.spmm(*t, 40)
+    chunked = tcore.spmm_chunked(*t, 40, chunk=chunk)
+    np.testing.assert_allclose(full.numpy(), chunked.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    want = jcore.spmm(*map(jnp.asarray, (rows, cols, vals, x)), 40)
+    np.testing.assert_allclose(full.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_spmm_masked_padding_contributes_nothing():
+    """``test_spgemm.py::test_masked_padding_contributes_nothing`` on the
+    port: half the lanes invalid (and holding NaN values, which the mask
+    drops), against the dense product of the valid half and the
+    reference's ``spmm_masked`` (1e-5)."""
+    rows, cols, vals, x = _spmm_case(0, 20, 100, 4)
+    valid = np.ones(100, bool)
+    valid[50:] = False
+    got = tcore.spmm_masked(*map(torch.from_numpy, (rows, cols, vals, x)),
+                            20, torch.from_numpy(valid))
+    np.testing.assert_allclose(
+        got.numpy(), _dense_ref(rows[:50], cols[:50], vals[:50], x, 20),
+        rtol=1e-5, atol=1e-5)
+    want = jcore.spmm_masked(*map(jnp.asarray, (rows, cols, vals, x)), 20,
+                             jnp.asarray(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    poisoned = vals.copy()
+    poisoned[50:] = np.nan
+    got_nan = tcore.spmm_masked(*map(torch.from_numpy,
+                                     (rows, cols, poisoned, x)), 20,
+                                torch.from_numpy(valid))
+    assert torch.equal(got_nan, got)
