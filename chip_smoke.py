@@ -365,8 +365,9 @@ Phases, each of which raises (exit code 1) on any failure:
     step counted under ``FakeTensorMode`` on the host, with
     ``flops.model_flops``, the useful ratio and the FLOP share of the
     step's device time from its own phase against the bf16 and f32
-    peaks; and ``launch.dryrun``'s qwen3-0.6b × train_4k and dlrm-rm2 ×
-    train_batch on a fake 16×16 world, both ``ok`` and each counting per
+    peaks; and ``launch.dryrun``'s qwen3-0.6b × train_4k, dlrm-rm2 ×
+    train_batch and the batch-1 decodes qwen3-0.6b and gemma-7b ×
+    long_500k on a fake 16×16 world, each ``ok`` and counting per
     device between its unsharded count ÷ 256 and that count, with the
     operations that ran replicated (host work started in the background
     with phase 20's training, niced, one thread a process), the cells now
@@ -5562,7 +5563,10 @@ A8_COMPRESS_STEPS = 3
 # leaves held bitwise against the CPU: the embedding, a stacked attention
 # and an MLP leaf, and every leaf under a million elements
 A8_COMPRESS_LEAVES = ("embed", "sub0.attn.wk", "sub0.mlp.wd")
-A8_DRYRUN = (("qwen3-0.6b", "train_4k"), ("dlrm-rm2", "train_batch"))
+# the two long_500k cells: batch 1, the KV cache's sequence over all 256
+# ranks (the sequence-sharded decode)
+A8_DRYRUN = (("qwen3-0.6b", "train_4k"), ("dlrm-rm2", "train_batch"),
+             ("qwen3-0.6b", "long_500k"), ("gemma-7b", "long_500k"))
 
 
 # each cell's step counted on one device that holds all of it: the bound
@@ -5577,7 +5581,7 @@ pathlib.Path(sys.argv[2]).write_text(json.dumps(
 
 
 def start_dryrun(out_dir: pathlib.Path):
-    """Phase 21 (e)'s two dry-run cells on the 16x16 fake world, and their
+    """Phase 21 (e)'s dry-run cells on the 16x16 fake world, and their
     unsharded counts, as host work in the background (~2.5 min for
     qwen3-0.6b × train_4k), niced and on one thread each.  The script
     starts them with phase 20's training, which is device-bound, so that
@@ -5899,7 +5903,7 @@ def a8_flops(dev, device_ms: dict, card: str) -> dict:
 def phase_a8(dev, card: str, device_ms: dict, dryrun) -> dict:
     """Phase 21: (a) NeuraSim at Table-1 size, (b) against B2, (c)
     gradient compression at full width, (d) counted flops and FLOP shares,
-    (e) the dry run's two cells (``start_dryrun``'s jobs, started with
+    (e) the dry run's cells (``start_dryrun``'s jobs, started with
     phase 20's training)."""
     out = {}
     for key, fn in (("neurasim", lambda: a8_neurasim(dev)),

@@ -27,7 +27,7 @@ takes global-view arguments (every rank holds the whole array, or a
 ``PartitionSpec``s (tuples here: one entry a dim, ``None``, an axis name
 or a tuple of names), runs the body on the blocks, and gathers the
 results back to the global view.  Inside a body the collectives name mesh
-axes, as jax's do: ``all_gather``, ``psum``, ``all_to_all``,
+axes, as jax's do: ``all_gather``, ``psum``, ``pmax``, ``all_to_all``,
 ``ppermute_next`` and ``axis_index``.  Gradients are those of the global
 function (the reference's shard_map transpose): a block's gradient is
 summed over the axes its argument is replicated on, and an output
@@ -202,7 +202,10 @@ def axis_mesh(mesh, axes):
     """The 1-D ``DeviceMesh`` over ``axes`` of ``mesh`` (several axes
     flattened in their order, the first the slowest): the group a
     collective over those axes runs on.  Every rank builds it in the same
-    order (SPMD), so the flatten's group creation stays collective."""
+    order (SPMD), so the flatten's group creation stays collective.  It
+    is built outside every dispatch mode (the dry run's fake tensors and
+    its count): the flatten's rank table is real data."""
+    from torch.utils._python_dispatch import _disable_current_modes
     axes = axis_tuple(axes)
     if tuple(mesh.mesh_dim_names) == axes:
         if len(axes) == 1:
@@ -210,7 +213,9 @@ def axis_mesh(mesh, axes):
     key = (id(mesh), axes)
     got = _SUBMESHES.get(key)
     if got is None or got[0] is not mesh:
-        sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+        with _disable_current_modes():
+            sub = mesh[axes[0]] if len(axes) == 1 else \
+                mesh[axes]._flatten()
         got = _SUBMESHES[key] = (mesh, sub)
     return got[1]
 
@@ -360,6 +365,17 @@ def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     if not axis_tuple(axes):
         return x
     return _Psum.apply(x, mesh, axis_tuple(axes))
+
+
+def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``jax.lax.pmax`` over ``axes``, forward only (no gradient)."""
+    from torch.distributed._functional_collectives import all_reduce
+    mesh = _mesh(mesh)
+    if not axis_tuple(axes):
+        return x
+    group = axis_mesh(mesh, axes)
+    return _staged(lambda t: all_reduce(t.contiguous(), "max", group), x,
+                   mesh)
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

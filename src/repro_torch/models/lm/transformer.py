@@ -35,7 +35,11 @@ upcast their operands instead (the product of two bf16 values is exact in
 f32), and P is rounded to v's type before P·v, as there.  The decode
 attention stays plain PyTorch, as the reference computes it outside
 Pallas.  ``decode_step`` and ``decode_step_ragged`` write the new KV rows
-into the cache tensors in place and return the same cache.
+into the cache tensors in place and return the same cache.  On a
+``DTensor`` cache whose sequence is split over several mesh axes
+(long_500k's layout), ``decode_step`` attends flash-decoding style: each
+rank on its own slice of the sequence, the partial softmax sums joined
+by one max-reduce and two sum-reduces (``_decode_block_seq``).
 
 Every sum of a training step is order-fixed on the card: the embedding
 lookup's backward (``segment_ops.take``), the MoE dispatch
@@ -60,6 +64,7 @@ by a ``psum`` otherwise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -90,8 +95,11 @@ def _psc(x, cfg: "LMConfig", *spec):
     """The reference's sharding constraint when the config names mesh
     axes, else a no-op.  Spec entries: ``"dp"`` → ``cfg.dp_axes``,
     ``"tp"`` → ``cfg.tp_axis``, ``None`` → unsharded.  On a ``DTensor``
-    a dim its axes do not divide (long_500k's one batch row over dp)
-    stays whole, where GSPMD would pad it."""
+    a dim its axes do not divide stays whole, where GSPMD would pad it:
+    long_500k's one batch row over dp in its MLPs and logits.  That
+    decode's attention takes no constraint: it runs on each rank's slice
+    of the cache's sequence (``_decode_block_seq``), the one row whole on
+    every rank."""
     if not cfg.dp_axes and not cfg.tp_axis:
         return x
     resolved = [tuple(cfg.dp_axes) if e == "dp" else (cfg.tp_axis or None)
@@ -478,36 +486,112 @@ def _decode_attend(p, cfg: LMConfig, x, q, k_cache, v_cache, mask):
 class _Step:
     """What a decode step computes once for all its layers: the RoPE
     tables, each row's cache write (row, position, kept) and the mask of
-    the cache rows it reads."""
+    the cache rows it reads (built on first use: the sequence-sharded
+    decode builds a mask a rank instead)."""
 
     def __init__(self, cfg: LMConfig, b: int, s_max: int,
                  device: torch.device, cache_index=None, positions=None):
+        self.s_max, self.device = s_max, device
         if positions is None:            # one index for every row
             ci = torch.as_tensor(cache_index, device=device).to(torch.int64)
             pos = ci.expand(b, 1)
+            self.ci = ci
             # dynamic_update_slice clamps the write into range
             self.at = ci.clamp(0, s_max - 1).reshape(1)
             self.keep = None
-            self.mask = torch.arange(s_max, device=device)[None, None,
-                                                          None] <= ci
         else:                            # a position a row
             positions = positions.to(device=device, dtype=torch.int64)
             pos = positions[:, None]
+            self.positions = positions
             # .at[rows, positions].set: negative positions count from the
             # end, rows still out of range are dropped
             at = torch.where(positions < 0, positions + s_max, positions)
             self.keep = ((at >= 0) & (at < s_max))[:, None, None]
             self.at = at.clamp(0, s_max - 1)
             self.rows = torch.arange(b, device=device)
-            self.mask = (torch.arange(s_max, device=device)[None, None, None,
-                                                             :]
-                         <= positions[:, None, None, None])
         self.tables = rope_tables(pos, cfg.head_dim, cfg.rope_theta, device)
+
+    @functools.cached_property
+    def mask(self) -> torch.Tensor:
+        span = torch.arange(self.s_max, device=self.device)
+        if self.keep is None:
+            return span[None, None, None] <= self.ci
+        return span[None, None, None, :] <= self.positions[:, None, None,
+                                                           None]
+
+
+def _seq_axes(cache, dim: int) -> Tuple[str, ...]:
+    """The mesh axes, in the mesh's order, that the sequence dim ``dim``
+    of a ``DTensor`` cache is split over, where the sequence-sharded
+    decode takes it: the sequence over several axes, or over some while
+    the batch (dim ``dim − 1``) is whole (long_500k's batch 1 over every
+    axis).  ``()`` for a plain tensor and for every other layout
+    (decode_32k: the batch over dp, the sequence over ``model``)."""
+    placements = getattr(cache, "placements", None)
+    if placements is None:
+        return ()
+    names = cache.device_mesh.mesh_dim_names
+    seq = tuple(n for n, pl in zip(names, placements) if pl.is_shard(dim))
+    batch = any(pl.is_shard(dim - 1) for pl in placements)
+    return seq if len(seq) > 1 or (seq and not batch) else ()
+
+
+def _decode_block_seq(p, cfg: LMConfig, x, q, k, v, k_cache, v_cache,
+                      step: _Step, axes: Tuple[str, ...]):
+    """The decode write and attention on a cache whose sequence is split
+    over ``axes`` (flash decoding).  Each rank holds S_max / n positions
+    from the offset ``axis_coord(axes) · S_max / n``: it writes the new
+    k, v row where it holds ``cache_index`` (clamped, as
+    ``dynamic_update_slice`` clamps), masks its own positions past
+    ``cache_index``, and computes on local tensors its f32 row max m_r,
+    l_r = Σ exp(s − m_r) and o_r = Σ exp(s − m_r)·v (P rounded to the
+    cache's type before P·v).  One max-reduce and two sum-reduces over
+    ``axes`` join them: o = Σ e^(m_r − m)·o_r / Σ e^(m_r − m)·l_r, with m
+    the max of the m_r.  A rank whose positions all lie past
+    ``cache_index`` has m_r = −1e30 and weight 0.  Nothing gathers the
+    cache."""
+    from repro_torch.core import distributed as D
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mesh = k_cache.device_mesh
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    s_loc = kl.shape[1]
+    rep = (None, None, None, None)
+
+    def local(q, k, v, ci):
+        off = D.axis_index(axes) * s_loc
+        at = ci.clamp(0, step.s_max - 1) - off
+        inside = (at >= 0) & (at < s_loc)
+        at = at.clamp(0, s_loc - 1).reshape(1)
+        for cache, new in ((kl, k), (vl, v)):
+            cache.index_copy_(1, at, torch.where(
+                inside, new.to(cache.dtype), cache.index_select(1, at)))
+        qg = q.reshape(b, kvh, h // kvh, hd).float()
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, kl.float()) / math.sqrt(hd)
+        mine = off + torch.arange(s_loc, device=kl.device) <= ci
+        sc = torch.where(mine, sc, -1e30)
+        m_r = sc.amax(-1, keepdim=True)
+        e = torch.exp(sc - m_r)
+        o_r = torch.einsum("bkgs,bskd->bkgd", e.to(vl.dtype).float(),
+                           vl.float())
+        w = torch.exp(m_r - D.pmax(m_r, axes))
+        o = D.psum(o_r * w, axes) / D.psum(e.sum(-1, keepdim=True) * w, axes)
+        return o.reshape(b, 1, h * hd).to(x.dtype)
+
+    o = D.shard_map(local, mesh, in_specs=[rep, rep, rep, ()],
+                    out_specs=(None, None, None))(q, k, v, step.ci)
+    # the projection's partial sums joined before the residual add, which
+    # torch 2.11's DTensor cannot otherwise place on a 3-D mesh
+    return _batch_rows(o @ p["wo"].to(x.dtype), cfg)
 
 
 def _decode_block(p, cfg: LMConfig, x: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, step: _Step):
     q, k, v = _qkv(p, cfg, x, step.tables)
+    axes = _seq_axes(k_cache, 1) if step.keep is None else ()
+    if axes:
+        return _decode_block_seq(p, cfg, x, q, k, v, k_cache, v_cache, step,
+                                 axes), k_cache, v_cache
     for cache, new in ((k_cache, k), (v_cache, v)):
         if step.keep is None:
             cache.index_copy_(1, step.at, new.to(cache.dtype))

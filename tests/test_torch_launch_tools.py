@@ -8,7 +8,8 @@ caches; every parameter and input ``PSpec`` against the reference's
 of ``test_sharding_rules.py``; ``op_costs`` against ``hlo_costs`` on a
 matmul and on loops; the roofline; and ``lower_cell`` on (2, 2) and
 (2, 2, 2) fake worlds in a subprocess (the fake process group is
-process-wide)."""
+process-wide), a batch-1 decode on long_500k's layout (the cache's
+sequence over every axis) among its cells."""
 import json
 import os
 import pathlib
@@ -315,12 +316,15 @@ from repro_torch.optim import adamw
 MESHES = [M.MeshShape((2, 2), ("data", "model")),
           M.MeshShape((2, 2, 2), ("pod", "data", "model"))]
 # the LM cells on the 3-D world are left out: DTensor's sharding search
-# over their strided shards runs for minutes an operation (ROADMAP C8a)
+# over their strided shards runs for minutes an operation
 CASES = [("qwen3-0.6b", LMShape("train", "train", 32, 4), MESHES[:1]),
          ("qwen3-0.6b", LMShape("decode", "decode", 32, 4), MESHES[:1]),
          ("gcn-cora", GNNShape("g", "fullgraph", n_nodes=60, n_edges=256,
                                d_feat=32, n_classes=4), MESHES),
-         ("dlrm-rm2", RecSysShape("t", "train", 64), MESHES)]
+         ("dlrm-rm2", RecSysShape("t", "train", 64), MESHES),
+         # long_500k's layout: batch 1, the cache's sequence over every axis
+         ("qwen3-0.6b", LMShape("long", "decode", 64, 1), MESHES[:1]),
+         ("gemma-7b", LMShape("long", "decode", 64, 1), MESHES[:1])]
 
 
 def local_bytes(t, spec, ms):
@@ -360,7 +364,8 @@ for arch, shape, meshes in [CASES[i] for i in json.loads(sys.argv[1])]:
                         ok=rec["ok"], n=ms.size, arg=rec["memory_analysis"][
                             "argument_size_in_bytes"], want=want,
                         flops=rec["roofline"]["flops"], one=one.flops,
-                        model=rec["roofline"]["model_flops"]))
+                        model=rec["roofline"]["model_flops"],
+                        notes=rec["notes"]))
 if sys.argv[2:] != ["matmul"]:
     print(json.dumps(dict(cells=out)))
     sys.exit(0)
@@ -387,11 +392,12 @@ _ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
 
 @pytest.fixture(scope="module")
 def lowered():
-    # the LM cases (and the matmul) in one process, the others in a second
+    # the LM cases (and the matmul) in one process, the others in a second,
+    # the batch-1 decodes in a third
     procs = [subprocess.Popen([sys.executable, "-c", _LOWER, *args],
                               cwd=ROOT, env=_ENV, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for args in (("[0, 1]", "matmul"), ("[2, 3]",))]
+             for args in (("[0, 1]", "matmul"), ("[2, 3]",), ("[4, 5]",))]
     out = {}
     for proc in procs:
         stdout, stderr = proc.communicate(timeout=600)
@@ -406,7 +412,7 @@ def test_sharded_matmul_counts_one_devices_share(lowered):
     assert lowered["matmul"] == lowered["matmul_global"] / 16
 
 
-@pytest.mark.parametrize("i", range(6))
+@pytest.mark.parametrize("i", range(8))
 def test_lower_cell_on_fake_worlds(lowered, i):
     rec = lowered["cells"][i]
     assert rec["ok"], rec
@@ -417,6 +423,16 @@ def test_lower_cell_on_fake_worlds(lowered, i):
     # and at most the whole of it
     assert rec["one"] / rec["n"] <= rec["flops"] <= rec["one"], rec
     assert rec["model"] > 0
+
+
+@pytest.mark.parametrize("i", (6, 7))
+def test_batch1_decode_replicates_no_operation(lowered, i):
+    """The batch-1 decodes attend on each rank's slice of the cache's
+    sequence: no operation runs replicated on the whole cache."""
+    rec = lowered["cells"][i]
+    assert (rec["arch"], rec["kind"]) in (("qwen3-0.6b", "decode"),
+                                          ("gemma-7b", "decode"))
+    assert rec["notes"] == [], rec
 
 
 def test_dryrun_main_records_a_cell(tmp_path):

@@ -48,6 +48,7 @@ CPU = "cpu"
 N_NODES, N_EDGES, D_IN = 256, 2048, 16
 TOL = 1e-5
 WAIT = 1.0          # seconds a swap waits for a post-flip dispatch
+STALL = 60.0        # seconds before a lane with queued work counts as dead
 
 
 def _server(**kw):
@@ -346,7 +347,12 @@ def test_live_mutation_matches_reference(tmp_path):
     rng = np.random.default_rng(5)
     streams = [[rng.integers(0, N_NODES, size=2) for _ in range(12)]
                for _ in range(4)]
-    kw = dict(n_lanes=2, seed=0, backend="dense")
+    # both clusters take the same stall timeout, past any dispatch here:
+    # under a loaded suite, a lane's first round on a new version or epoch
+    # (the reference recompiles its step) ran past the default 1 s, and the
+    # reference's supervisor declared both its lanes dead
+    # ("stalled-heartbeat"), failing every queued request with LaneFailure
+    kw = dict(n_lanes=2, seed=0, backend="dense", stall_timeout=STALL)
     out = {}
     for name, srv, swap, stream_cls in (
             ("jax", JClusterServer("gcn", jcfg, jparams, indptr, indices,

@@ -3,7 +3,7 @@
 
     python3 tools/a8_phase.py
 
-Starts the dry run's jobs in the background (its two cells and their
+Starts the dry run's jobs in the background (its cells and their
 unsharded counts; the whole script starts them with phase 20's
 training), builds B2's and B6's libraries (the kernels on the phase's
 path and on the DLRM step it counts), traces one training step each of qwen3-0.6b FULL, gcn-cora on
