@@ -366,8 +366,11 @@ Phases, each of which raises (exit code 1) on any failure:
     ``flops.model_flops``, the useful ratio and the FLOP share of the
     step's device time from its own phase against the bf16 and f32
     peaks; and ``launch.dryrun``'s qwen3-0.6b × train_4k, dlrm-rm2 ×
-    train_batch and the batch-1 decodes qwen3-0.6b and gemma-7b ×
-    long_500k on a fake 16×16 world, each ``ok`` and counting per
+    train_batch, the batch-1 decodes qwen3-0.6b, gemma-7b, grok-1-314b
+    and llama4-maverick × long_500k and grok-1-314b × decode_32k (the
+    MoE decodes torch 2.11 could not trace before: the slot buffer's
+    flatten, the cache write on a split sequence) on a fake 16×16 world,
+    each ``ok`` and counting per
     device between its unsharded count ÷ 256 and that count, with the
     operations that ran replicated (host work started in the background
     with phase 20's training, niced, one thread a process), the cells now
@@ -437,6 +440,7 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -5563,93 +5567,85 @@ A8_COMPRESS_STEPS = 3
 # leaves held bitwise against the CPU: the embedding, a stacked attention
 # and an MLP leaf, and every leaf under a million elements
 A8_COMPRESS_LEAVES = ("embed", "sub0.attn.wk", "sub0.mlp.wd")
-# the two long_500k cells: batch 1, the KV cache's sequence over all 256
-# ranks (the sequence-sharded decode)
+# the long_500k cells: batch 1, the KV cache's sequence over all 256 ranks
+# (the sequence-sharded decode), the MoE ones with the slot buffer split
+# over dp; decode_32k: the batch over dp, the cache's sequence over model
 A8_DRYRUN = (("qwen3-0.6b", "train_4k"), ("dlrm-rm2", "train_batch"),
-             ("qwen3-0.6b", "long_500k"), ("gemma-7b", "long_500k"))
-
-
-# each cell's step counted on one device that holds all of it: the bound
-# of the per-device count (launch/dryrun.unsharded_costs)
-_UNSHARDED = """
-import json, pathlib, sys
-from repro_torch.launch import dryrun
-cells = json.loads(sys.argv[1])
-pathlib.Path(sys.argv[2]).write_text(json.dumps(
-    {f"{a}×{s}": dryrun.unsharded_costs(a, s).flops for a, s in cells}))
-"""
+             ("qwen3-0.6b", "long_500k"), ("gemma-7b", "long_500k"),
+             ("grok-1-314b", "long_500k"),
+             ("llama4-maverick-400b-a17b", "long_500k"),
+             ("grok-1-314b", "decode_32k"))
 
 
 def start_dryrun(out_dir: pathlib.Path):
     """Phase 21 (e)'s dry-run cells on the 16x16 fake world, and their
-    unsharded counts, as host work in the background (~2.5 min for
-    qwen3-0.6b × train_4k), niced and on one thread each.  The script
-    starts them with phase 20's training, which is device-bound, so that
-    no serving reading of phases 17–20 runs beside them (the training's
-    wall readings do)."""
+    unsharded counts, as host work in the background: ``launch.dryrun``'s
+    own runner (``--jobs 8 --bound``: a process a cell and an (arch,
+    shape), niced, one thread each; ~2.5 min for qwen3-0.6b × train_4k),
+    itself at the lowest priority and in a process group of its own.  The
+    script starts it with phase 20's training, which is device-bound, so
+    that no serving reading of phases 17–20 runs beside it (the
+    training's wall readings do)."""
     out_dir.mkdir(parents=True, exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "OMP_NUM_THREADS": "1"}
-    jobs = [(f"{arch}__{shape}", [
-        "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-        "--mesh", "pod", "--out", str(out_dir)]) for arch, shape in A8_DRYRUN]
-    jobs.append(("unsharded", ["-c", _UNSHARDED, json.dumps(A8_DRYRUN),
-                               str(out_dir / "unsharded.json")]))
-    procs = []
-    for name, args in jobs:
-        log = open(out_dir / f"{name}.log", "w")
-        proc = subprocess.Popen(
-            [sys.executable, *args], stdout=log, stderr=subprocess.STDOUT,
-            env=env, preexec_fn=lambda: os.nice(19))
-        atexit.register(proc.kill)      # a failing phase leaves none behind
-        procs.append((name, log, proc))
-    return procs, out_dir, time.perf_counter()
+    log = open(out_dir / "runner.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         ",".join(f"{a}:{s}:pod" for a, s in A8_DRYRUN), "--jobs", "8",
+         "--bound", "--out", str(out_dir)], stdout=log,
+        stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        preexec_fn=lambda: os.nice(19), start_new_session=True)
+
+    def stop():                         # the runner and every cell's job
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    atexit.register(stop)               # a failing phase leaves none behind
+    return proc, log, stop, out_dir, time.perf_counter()
 
 
 def finish_dryrun(dryrun, timeout_s: float) -> dict:
-    """Wait for the dry-run jobs (killing any still running at the
-    deadline) → each cell's readings.  Each cell must be ``ok`` and count
-    per device between its unsharded count ÷ 256 (every operation split)
-    and that count (every operation replicated); ``replication`` places it
-    there: 1 when split perfectly, 256 when replicated."""
-    procs, out_dir, t0 = dryrun
-    deadline = time.perf_counter() + timeout_s
-    for name, log, proc in procs:
-        try:
-            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        log.close()
-    for name, log, proc in procs:
-        check(proc.returncode == 0, f"dryrun {name}: exit "
-              f"{proc.returncode}, log "
-              f"{(out_dir / f'{name}.log').read_text()[-2000:]}")
-    one = json.loads((out_dir / "unsharded.json").read_text())
+    """Wait for the dry run's runner (stopping it and its jobs at the
+    deadline) → each cell's readings from its ``sweep.json`` and records.
+    Each cell must be ``ok`` and count per device between its unsharded
+    count ÷ 256 (every operation split) and that count (every operation
+    replicated); ``replication`` places it there: 1 when split perfectly,
+    256 when replicated."""
+    proc, log, stop, out_dir, t0 = dryrun
+    try:
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        stop()
+        proc.wait()
+    log.close()
+    sweep = out_dir / "sweep.json"
+    check(sweep.exists(), f"dryrun: no sweep.json (exit {proc.returncode}), "
+          f"log {(out_dir / 'runner.log').read_text()[-2000:]}")
+    rows = {(r["arch"], r["shape"]): r
+            for r in json.loads(sweep.read_text())["rows"]}
     out = dict(background_s=time.perf_counter() - t0)
     for arch, shape in A8_DRYRUN:
         key = f"{arch}×{shape}"
-        path = out_dir / f"{arch}__{shape}__16x16.json"
-        check(path.exists(), f"dryrun {key}: no record")
-        rec = json.loads(path.read_text())
-        check(rec["ok"], f"dryrun {key}: {rec.get('error')}")
+        r = rows.get((arch, shape), {})
+        check(r.get("ok"), f"dryrun {key}: {r.get('status')} "
+              f"{r.get('op')} at {r.get('where')}: {r.get('error')}")
+        check(r.get("held"),
+              f"dryrun {key}: {r['flops']:.4g} flops a device outside "
+              f"[unsharded ÷ {r['n_devices']}, unsharded] (unsharded "
+              f"{r.get('unsharded')})")
+        rec = json.loads((out_dir / f"{arch}__{shape}__16x16.json")
+                         .read_text())
         roof = rec["roofline"]
-        n = roof["n_devices"]
-        check(one[key] / n <= roof["flops"] <= one[key],
-              f"dryrun {key}: {roof['flops']:.4g} flops a device outside "
-              f"[{one[key] / n:.4g}, {one[key]:.4g}] (the unsharded count "
-              f"÷ {n} and the count)")
         out[key] = dict(
             trace_s=rec["trace_s"], n_ops=rec["n_ops"],
             **{k: roof[k] for k in ("flops", "bytes", "coll_bytes",
                                     "model_flops", "useful_ratio",
                                     "bottleneck")},
-            unsharded_flops=one[key],
-            replication=roof["flops"] * n / one[key],
+            unsharded_flops=r["unsharded"], replication=r["replication"],
             flops_by_op=rec["flops_by_op"],
             temp_bytes=rec["memory_analysis"]["temp_size_in_bytes"],
             argument_bytes=rec["memory_analysis"]["argument_size_in_bytes"],
             notes=rec["notes"])
+    check(proc.returncode == 0, f"dryrun: runner exit {proc.returncode}")
     return out
 
 
@@ -5903,7 +5899,7 @@ def a8_flops(dev, device_ms: dict, card: str) -> dict:
 def phase_a8(dev, card: str, device_ms: dict, dryrun) -> dict:
     """Phase 21: (a) NeuraSim at Table-1 size, (b) against B2, (c)
     gradient compression at full width, (d) counted flops and FLOP shares,
-    (e) the dry run's cells (``start_dryrun``'s jobs, started with
+    (e) the dry run's cells (``start_dryrun``'s runner, started with
     phase 20's training)."""
     out = {}
     for key, fn in (("neurasim", lambda: a8_neurasim(dev)),

@@ -575,6 +575,52 @@ def _contiguous_strides(shape):
     return tuple(reversed(strides))
 
 
+# the operations a model ran whole on every rank, its inputs gathered,
+# because DTensor has no sharding rule for them (``ran_whole``); the dry
+# run names them in a cell's notes and empties the set for the next cell
+RAN_WHOLE: set = set()
+
+
+def ran_whole(op: str) -> None:
+    """Note that the operation ``op`` (its aten name) ran whole on every
+    rank of a mesh."""
+    RAN_WHOLE.add(op)
+
+
+_FLATTENS: dict = {}
+
+
+def flattens_split(mesh) -> bool:
+    """Whether this torch's DTensor flattens two dims of which the second
+    is split over a mesh axis (torch 2.13's does, into a strided shard;
+    2.11's raises "Attempted to flatten multiple dimensions, with
+    dimension 1 being sharded").  Read once a mesh from DTensor's sharding
+    propagation of such a view on specs: no data moves, and no dispatch
+    mode sees it."""
+    key = (tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape))
+    if key not in _FLATTENS:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor._dtensor_spec import (DTensorSpec,
+                                                            TensorMeta)
+        from torch.distributed.tensor._op_schema import OpSchema
+        from torch.utils._python_dispatch import _disable_current_modes
+        n = mesh.size(0)
+        spec = DTensorSpec(
+            mesh, (Shard(1),) + (Replicate(),) * (mesh.ndim - 1),
+            TensorMeta(torch.Size((2, 2 * n, 1)), (2 * n, 1, 1),
+                       torch.float32))
+        schema = OpSchema(torch.ops.aten.view.default,
+                          (spec, (4 * n, 1)), {})
+        prop = DTensor._op_dispatcher.sharding_propagator
+        try:
+            with _disable_current_modes():
+                prop.propagate_op_sharding_non_cached(schema)
+            _FLATTENS[key] = True
+        except Exception:  # noqa: BLE001 — the refusal, in any wording
+            _FLATTENS[key] = False
+    return _FLATTENS[key]
+
+
 def constrain(x, spec):
     """``jax.lax.with_sharding_constraint(x, P(*spec))``: a ``DTensor`` is
     redistributed to the spec's placements on its own mesh; a plain tensor

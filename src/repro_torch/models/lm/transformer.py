@@ -36,10 +36,11 @@ f32), and P is rounded to v's type before P·v, as there.  The decode
 attention stays plain PyTorch, as the reference computes it outside
 Pallas.  ``decode_step`` and ``decode_step_ragged`` write the new KV rows
 into the cache tensors in place and return the same cache.  On a
-``DTensor`` cache whose sequence is split over several mesh axes
-(long_500k's layout), ``decode_step`` attends flash-decoding style: each
-rank on its own slice of the sequence, the partial softmax sums joined
-by one max-reduce and two sum-reduces (``_decode_block_seq``).
+``DTensor`` cache whose sequence is split (long_500k's layout: over
+every mesh axis; decode_32k's: over ``model``, the batch over dp),
+``decode_step`` writes and attends flash-decoding style: each rank on its
+own slice of the sequence, the partial softmax sums joined by one
+max-reduce and two sum-reduces (``_decode_block_seq``).
 
 Every sum of a training step is order-fixed on the card: the embedding
 lookup's backward (``segment_ops.take``), the MoE dispatch
@@ -72,7 +73,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.distributed import constrain
+from repro_torch.core.distributed import constrain, flattens_split
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention.ops import mha_causal
 from repro_torch.models.common import rms_norm
@@ -89,6 +90,17 @@ def _batch_rows(y, cfg: "LMConfig"):
     whole, which DTensor flattens on every torch version (2.11's cannot
     flatten a batch and a sequence both split)."""
     return _psc(y, cfg, "dp", None, None)
+
+
+def _rows_whole(x, cfg: "LMConfig"):
+    """``x`` (B, S, …) batch-sharded with its sequence whole where this
+    torch's DTensor cannot flatten (B, S) rows whose S is split
+    (``flattens_split``: 2.11 cannot; 2.13 flattens them into a strided
+    shard and moves nothing), else ``x`` as it is."""
+    mesh = getattr(x, "device_mesh", None)
+    if mesh is None or flattens_split(mesh):
+        return x
+    return _psc(x, cfg, "dp", *(None,) * (x.ndim - 1))
 
 
 def _psc(x, cfg: "LMConfig", *spec):
@@ -453,10 +465,10 @@ def _attention(p, cfg: LMConfig, x: torch.Tensor, tables, attention: str,
                anchor: bool = True):
     """(the block's output, k, v).  ``anchor``: the reference's
     ``attention_block`` constraints (batch-sharded at the projections,
-    heads over tp before ``wo``); its prefill has none."""
+    heads over tp before ``wo``); its prefill has none (its sequence
+    joins only where DTensor cannot flatten it, ``_rows_whole``)."""
     b, s, _ = x.shape
-    if anchor:
-        x = _psc(x, cfg, "dp", None, None)
+    x = _psc(x, cfg, "dp", None, None) if anchor else _rows_whole(x, cfg)
     q, k, v = _qkv(p, cfg, x, tables)
     o = causal_attention(q, k, v, cfg, attention).reshape(b, s, -1)
     if anchor:
@@ -470,9 +482,6 @@ def _decode_attend(p, cfg: LMConfig, x, q, k_cache, v_cache, mask):
     then the output projection."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if _uneven(q, cfg, kvh):
-        # grouping the heads by kv head views an uneven split: gather them
-        q = _psc(q, cfg, "dp", None, None, None)
     qg = q.reshape(b, kvh, h // kvh, hd).float()
     sc = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(hd)
     sc = torch.where(mask, sc, -1e30)
@@ -520,45 +529,44 @@ class _Step:
                                                            None]
 
 
-def _seq_axes(cache, dim: int) -> Tuple[str, ...]:
-    """The mesh axes, in the mesh's order, that the sequence dim ``dim``
-    of a ``DTensor`` cache is split over, where the sequence-sharded
-    decode takes it: the sequence over several axes, or over some while
-    the batch (dim ``dim − 1``) is whole (long_500k's batch 1 over every
-    axis).  ``()`` for a plain tensor and for every other layout
-    (decode_32k: the batch over dp, the sequence over ``model``)."""
-    placements = getattr(cache, "placements", None)
+def _dim_axes(t, dim: int) -> Tuple[str, ...]:
+    """The mesh axes, in the mesh's order, that dim ``dim`` of a
+    ``DTensor`` is split over; ``()`` for a plain tensor.  A cache's
+    sequence (dim 1) is split over every axis in long_500k's layout
+    (batch 1), over ``model`` beside a batch over dp in decode_32k's."""
+    placements = getattr(t, "placements", None)
     if placements is None:
         return ()
-    names = cache.device_mesh.mesh_dim_names
-    seq = tuple(n for n, pl in zip(names, placements) if pl.is_shard(dim))
-    batch = any(pl.is_shard(dim - 1) for pl in placements)
-    return seq if len(seq) > 1 or (seq and not batch) else ()
+    return tuple(n for n, pl in zip(t.device_mesh.mesh_dim_names, placements)
+                 if pl.is_shard(dim))
 
 
 def _decode_block_seq(p, cfg: LMConfig, x, q, k, v, k_cache, v_cache,
                       step: _Step, axes: Tuple[str, ...]):
     """The decode write and attention on a cache whose sequence is split
-    over ``axes`` (flash decoding).  Each rank holds S_max / n positions
-    from the offset ``axis_coord(axes) · S_max / n``: it writes the new
-    k, v row where it holds ``cache_index`` (clamped, as
-    ``dynamic_update_slice`` clamps), masks its own positions past
-    ``cache_index``, and computes on local tensors its f32 row max m_r,
-    l_r = Σ exp(s − m_r) and o_r = Σ exp(s − m_r)·v (P rounded to the
-    cache's type before P·v).  One max-reduce and two sum-reduces over
-    ``axes`` join them: o = Σ e^(m_r − m)·o_r / Σ e^(m_r − m)·l_r, with m
-    the max of the m_r.  A rank whose positions all lie past
-    ``cache_index`` has m_r = −1e30 and weight 0.  Nothing gathers the
-    cache."""
+    over ``axes`` (flash decoding), its batch whole or split over other
+    axes (decode_32k: the batch over dp, the sequence over ``model``).
+    Each rank holds its batch rows' S_max / n positions from the offset
+    ``axis_coord(axes) · S_max / n``: it writes the new k, v row where it
+    holds ``cache_index`` (clamped, as ``dynamic_update_slice`` clamps),
+    masks its own positions past ``cache_index``, and computes on local
+    tensors its f32 row max m_r, l_r = Σ exp(s − m_r) and o_r =
+    Σ exp(s − m_r)·v (P rounded to the cache's type before P·v).  One
+    max-reduce and two sum-reduces over ``axes`` join them: o =
+    Σ e^(m_r − m)·o_r / Σ e^(m_r − m)·l_r, with m the max of the m_r.  A
+    rank whose positions all lie past ``cache_index`` has m_r = −1e30 and
+    weight 0.  Nothing gathers the cache, and every write lands in the
+    cache's own shards (torch 2.11's DTensor refuses an in-place write
+    on a split sequence; 2.13's re-labels the shard as the whole)."""
     from repro_torch.core import distributed as D
-    b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mesh = k_cache.device_mesh
     kl, vl = k_cache.to_local(), v_cache.to_local()
     s_loc = kl.shape[1]
-    rep = (None, None, None, None)
+    rows = (_dim_axes(k_cache, 0) or None, None, None, None)
 
     def local(q, k, v, ci):
+        b = q.shape[0]
         off = D.axis_index(axes) * s_loc
         at = ci.clamp(0, step.s_max - 1) - off
         inside = (at >= 0) & (at < s_loc)
@@ -578,8 +586,8 @@ def _decode_block_seq(p, cfg: LMConfig, x, q, k, v, k_cache, v_cache,
         o = D.psum(o_r * w, axes) / D.psum(e.sum(-1, keepdim=True) * w, axes)
         return o.reshape(b, 1, h * hd).to(x.dtype)
 
-    o = D.shard_map(local, mesh, in_specs=[rep, rep, rep, ()],
-                    out_specs=(None, None, None))(q, k, v, step.ci)
+    o = D.shard_map(local, mesh, in_specs=[rows, rows, rows, ()],
+                    out_specs=rows[:3])(q, k, v, step.ci)
     # the projection's partial sums joined before the residual add, which
     # torch 2.11's DTensor cannot otherwise place on a 3-D mesh
     return _batch_rows(o @ p["wo"].to(x.dtype), cfg)
@@ -588,7 +596,7 @@ def _decode_block_seq(p, cfg: LMConfig, x, q, k, v, k_cache, v_cache,
 def _decode_block(p, cfg: LMConfig, x: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, step: _Step):
     q, k, v = _qkv(p, cfg, x, step.tables)
-    axes = _seq_axes(k_cache, 1) if step.keep is None else ()
+    axes = _dim_axes(k_cache, 1) if step.keep is None else ()
     if axes:
         return _decode_block_seq(p, cfg, x, q, k, v, k_cache, v_cache, step,
                                  axes), k_cache, v_cache
@@ -651,6 +659,22 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _whole(fn, data: torch.Tensor, ids: torch.Tensor, n: int):
+    """``fn(data, ids, n)``; on ``DTensor`` inputs, on their whole arrays
+    on every rank (each gathered, the result replicated), noted as
+    ``aten.segment_reduce`` run whole: the ordered segment sum has no
+    DTensor sharding rule, and GSPMD all-reduces the reference's
+    scatter-add into the whole (E·C + 1, D) buffer on every rank."""
+    mesh = getattr(data, "device_mesh", None)
+    if mesh is None:
+        return fn(data, ids, n)
+    from repro_torch.core import distributed as D
+    D.ran_whole("aten.segment_reduce.default")
+    return D.shard_map(lambda a, b: fn(a, b, n), mesh,
+                       in_specs=[(None,) * data.ndim, (None,) * ids.ndim],
+                       out_specs=(None,) * data.ndim)(data, ids)
+
+
 def moe_mlp(p, cfg: LMConfig, x: torch.Tensor,
             capacity: int) -> torch.Tensor:
     """Capacity-based top-k MoE with deterministic tie-breaking.
@@ -682,7 +706,7 @@ def moe_mlp(p, cfg: LMConfig, x: torch.Tensor,
 
     # dispatch: tokens into (E·C, D) slots
     xk = xt[:, None].expand(t, k, d).reshape(t * k, d)
-    buf = segment_sum(xk, slot.reshape(-1), e * capacity + 1)
+    buf = _whole(segment_sum, xk, slot.reshape(-1), e * capacity + 1)
     buf = buf[:e * capacity].reshape(e, capacity, d).to(x.dtype)
     # expert-parallel layout: experts over tp when they divide (llama4's
     # 128); otherwise (grok's 8) whole experts with the hidden dim over tp
@@ -697,8 +721,11 @@ def moe_mlp(p, cfg: LMConfig, x: torch.Tensor,
     out_buf = _psc(torch.bmm(hidden, p["wd"].to(x.dtype)), cfg, e_spec,
                    "dp", None)
 
-    # combine: gather the slots back, probability-weighted
-    flat = out_buf.reshape(e * capacity, d)
+    # combine: gather the slots back, probability-weighted.  The slots
+    # split over dp are joined before they flatten into (E·C, D), as GSPMD
+    # joins them at the reshape (an all-gather of C in the reference's
+    # HLO), which torch 2.11's DTensor cannot flatten while C is split
+    flat = _psc(out_buf, cfg, e_spec, None, None).reshape(e * capacity, d)
     gathered = gather(flat, torch.clamp(slot, max=e * capacity - 1)
                       .reshape(-1)).reshape(t, k, d)
     gathered = torch.where(keep[..., None], gathered, 0)
@@ -790,6 +817,7 @@ def moe_mlp_sharded(p, cfg: LMConfig, x: torch.Tensor, capacity: int,
     fn = D.shard_map(local_fn, mesh,
                      in_specs=((), *w_spec, (token_axes, None)),
                      out_specs=(token_axes, None))
+    x = _rows_whole(x, cfg)
     y = fn(p["router"].to(x.dtype), p["wg"].to(x.dtype),
            p["wu"].to(x.dtype), p["wd"].to(x.dtype), x.reshape(b * s, d))
     if ep:
@@ -797,7 +825,9 @@ def moe_mlp_sharded(p, cfg: LMConfig, x: torch.Tensor, capacity: int,
         # DTensor splits the batch dim wrongly when one flat dim is split
         # over dp and tp and the batch is shorter than dp × tp
         y = D.constrain(y, (tuple(cfg.dp_axes), None))
-    return y.reshape(b, s, d)
+    # the gradient reaches the unflatten with its (B, S) rows whole where
+    # DTensor cannot flatten the sequence-split residual's
+    return _rows_whole(y.reshape(b, s, d), cfg)
 
 
 def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:

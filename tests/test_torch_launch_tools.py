@@ -299,91 +299,7 @@ def test_roofline_terms():
     assert analysis.wire_bytes("all-reduce", 16, 1) == 0
 
 
-# --- lower_cell on fake worlds --------------------------------------------
-
-_LOWER = r"""
-import json, sys, warnings
-warnings.filterwarnings("ignore")
-import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
-from repro_torch import tree
-from repro_torch.configs import registry as R
-from repro_torch.configs.shapes import GNNShape, LMShape, RecSysShape
-from repro_torch.launch import dryrun, mesh as M, sharding as S, steps
-from repro_torch.launch.op_costs import OpCosts
-from repro_torch.optim import adamw
-
-MESHES = [M.MeshShape((2, 2), ("data", "model")),
-          M.MeshShape((2, 2, 2), ("pod", "data", "model"))]
-# the LM cells on the 3-D world are left out: DTensor's sharding search
-# over their strided shards runs for minutes an operation
-CASES = [("qwen3-0.6b", LMShape("train", "train", 32, 4), MESHES[:1]),
-         ("qwen3-0.6b", LMShape("decode", "decode", 32, 4), MESHES[:1]),
-         ("gcn-cora", GNNShape("g", "fullgraph", n_nodes=60, n_edges=256,
-                               d_feat=32, n_classes=4), MESHES),
-         ("dlrm-rm2", RecSysShape("t", "train", 64), MESHES),
-         # long_500k's layout: batch 1, the cache's sequence over every axis
-         ("qwen3-0.6b", LMShape("long", "decode", 64, 1), MESHES[:1]),
-         ("gemma-7b", LMShape("long", "decode", 64, 1), MESHES[:1])]
-
-
-def local_bytes(t, spec, ms):
-    shape = list(t.shape)
-    for d, entry in enumerate(spec):
-        for a in S.entry_axes(entry):
-            g = M.axis_sizes(ms)[a]
-            shape[d] = -(-shape[d] // g)
-    n = 1
-    for s in shape:
-        n *= s
-    return n * t.element_size()
-
-
-out = []
-for arch, shape, meshes in [CASES[i] for i in json.loads(sys.argv[1])]:
-    cfg = R.get_config(arch, reduced=True, shape=shape)
-    specs, statics = R.specs_for(arch, cfg, shape)
-    params = dryrun.param_tree_for(arch, cfg)
-    args = [params]
-    if steps.needs_optimizer(arch, shape):
-        args.append(tree.eval_shape(adamw.init_state, params))
-    one = dryrun.unsharded_costs(arch, None, reduced=True, shape=shape)
-    for ms in meshes:
-        rec = dryrun.lower_cell(arch, None, mesh_shape=ms, reduced=True,
-                                shape=shape)
-        p_spec = S.param_pspecs(arch, params, ms)
-        pairs = [(params, p_spec), (specs, S.input_pspecs(arch, shape,
-                                                          specs, ms))]
-        if len(args) == 2:
-            pairs.append((args[1], S.opt_state_pspecs(p_spec)))
-        want = 0
-        for t, sp in pairs:
-            want += sum(local_bytes(l, s, ms) for l, s in
-                        zip(tree.leaves(t), S.spec_leaves(sp)))
-        out.append(dict(arch=arch, kind=shape.kind, mesh=rec["mesh"],
-                        ok=rec["ok"], n=ms.size, arg=rec["memory_analysis"][
-                            "argument_size_in_bytes"], want=want,
-                        flops=rec["roofline"]["flops"], one=one.flops,
-                        model=rec["roofline"]["model_flops"],
-                        notes=rec["notes"]))
-if sys.argv[2:] != ["matmul"]:
-    print(json.dumps(dict(cells=out)))
-    sys.exit(0)
-# an evenly divided product: each device counts the global flops ÷ 16
-from torch.distributed.tensor import distribute_tensor
-with M.fake_world(16):
-    mesh = M.make_mesh((4, 4), ("data", "model"))
-    with FakeTensorMode():
-        w = distribute_tensor(torch.empty(512, 128), mesh,
-                              S.to_placements(S.PSpec(None, "model"), mesh))
-        a = distribute_tensor(torch.empty(256, 512), mesh,
-                              S.to_placements(S.PSpec("data", None), mesh))
-        with OpCosts() as mm:
-            a @ w
-print(json.dumps(dict(cells=out, matmul=mm.flops,
-                      matmul_global=2 * 256 * 512 * 128)))
-"""
-
+# --- lower_cell on fake worlds (tests/lower_cells.py) ----------------------
 
 # fake tensors compute nothing: one thread leaves the cores to the other
 # test workers
@@ -392,12 +308,15 @@ _ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
 
 @pytest.fixture(scope="module")
 def lowered():
-    # the LM cases (and the matmul) in one process, the others in a second,
-    # the batch-1 decodes in a third
-    procs = [subprocess.Popen([sys.executable, "-c", _LOWER, *args],
-                              cwd=ROOT, env=_ENV, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for args in (("[0, 1]", "matmul"), ("[2, 3]",), ("[4, 5]",))]
+    # the LM cases (and the matmul) in one process, the others (then the
+    # rule check) in a second, the batch-1 decodes in a third, the MoE
+    # decodes in a fourth
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "lower_cells.py"), *args],
+        cwd=ROOT, env=_ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+        for args in (("[0, 1]", "matmul"), ("[2, 3]", "rules"), ("[4, 5]",),
+                     ("[6, 7, 8, 9]",))]
     out = {}
     for proc in procs:
         stdout, stderr = proc.communicate(timeout=600)
@@ -412,7 +331,7 @@ def test_sharded_matmul_counts_one_devices_share(lowered):
     assert lowered["matmul"] == lowered["matmul_global"] / 16
 
 
-@pytest.mark.parametrize("i", range(8))
+@pytest.mark.parametrize("i", range(12))
 def test_lower_cell_on_fake_worlds(lowered, i):
     rec = lowered["cells"][i]
     assert rec["ok"], rec
@@ -433,6 +352,54 @@ def test_batch1_decode_replicates_no_operation(lowered, i):
     assert (rec["arch"], rec["kind"]) in (("qwen3-0.6b", "decode"),
                                           ("gemma-7b", "decode"))
     assert rec["notes"] == [], rec
+
+
+def test_missing_rule_reads_both_dtensor_errors():
+    """An operation without a rule, and one whose rule takes no input with
+    a dim split over several mesh axes (torch 2.11's message), run
+    replicated; any other error is the cell's."""
+    none = NotImplementedError("Operator aten.segment_reduce.default does "
+                               "not have a sharding strategy registered.")
+    split = RuntimeError(
+        "Sharding propagation failed on op aten.index_select.default(Spec("
+        "f32[4096, 16](S(0)[0]S(0)[1]R)), 0, Spec(i64[12288](S(0)[0]S(0)[1]"
+        "R))) on DeviceMesh(...).\nError: Tensor dim 0 is already sharded "
+        "on mesh dim 0, DTensor operator implementation does not support "
+        "things like hybrid sharding strategies yet (i.e. [Shard(0), "
+        "Shard(0)])")
+    wrapped = RuntimeError("outer")
+    wrapped.__cause__ = split
+    assert dryrun._missing_rule(none) == (
+        torch.ops.aten.segment_reduce.default, False)
+    assert dryrun._missing_rule(wrapped) == (
+        torch.ops.aten.index_select.default, True)
+    assert dryrun._missing_rule(RuntimeError(
+        "Attempted to flatten multiple dimensions")) == (None, False)
+
+
+def test_split_rule_holds_for_its_cell_only(lowered):
+    """A cell whose ``index_select`` refused ids over ("pod", "data") runs
+    it replicated, with its note; a later cell in the process traces with
+    DTensor's own rules again, as it did first, whatever rules the cells
+    between needed."""
+    first, split, again = lowered["rules"]["recs"]
+    assert (split["mesh"], first["mesh"]) == ("2x2x2", "2x2")
+    assert ("replicated (no DTensor rule for a dim split over several mesh "
+            "axes): aten.index_select.default") in split["notes"]
+    assert again == first
+    # the gcn case's (2, 2) record, traced before the dlrm cells and the
+    # (2, 2, 2) ones ran in the process
+    alone = next(c for c in lowered["cells"]
+                 if (c["arch"], c["mesh"]) == ("gcn-cora", "2x2"))
+    assert first == {k: alone[k] for k in ("mesh", "flops", "coll", "notes")}
+    assert lowered["rules"]["own_back"]
+
+
+def test_flattens_split_reads_dtensor(lowered):
+    """``core.distributed.flattens_split`` says whether this torch's DTensor
+    flattens two dims whose second is split, as a real flatten does."""
+    rules = lowered["rules"]
+    assert rules["flattens_split"] is rules["flattens"]
 
 
 def test_dryrun_main_records_a_cell(tmp_path):
